@@ -1,0 +1,696 @@
+"""Vectorized greedy latency-bound replication (paper Alg 1 + Alg 2), torch.
+
+Paths are processed in *batches*; every path in a batch evaluates its
+candidate subsets against the same snapshot of the replication scheme,
+and all chosen additions are applied with one scatter-OR into the packed
+device words.  Replica additions are monotone 0->1 flips, and Thm 5.3
+(latency-robustness) guarantees that additions made concurrently for
+other paths never break a bound an earlier UPDATE established.
+
+Per batch, for each path we compute
+  * the server-local subpath structure under d (Def 5.1),
+  * for every candidate retained-set (precomputed C(h, t) tables), the
+    upward-replication + latency-robustness additions (Alg 2 lines 11-19)
+    as a [positions x subpaths] interval mask,
+  * the marginal cost of each candidate against the snapshot,
+  * optionally the per-candidate marginal server loads for the capacity /
+    balance constraints (Alg 2 line 20),
+and apply the argmin candidate's additions.  Paths whose subpath count
+exceeds the enumeration budget fall back to the exact sequential UPDATE
+(``repro_torch.core.reference``).
+
+Latency constraints are vector-valued (Def 4.4 is per query): ``t`` may
+be an int, a per-query vector, or an :class:`~repro_torch.core.slo.SLOSpec`.
+Paths are bucketed by distinct budget, tightest first.
+
+The float32 candidate costs are ``torch.einsum`` products.  On CUDA a
+TF32 product would round them and flip strict argmins, so
+``replicate_workload`` refuses to run while
+``torch.backends.cuda.matmul.allow_tf32`` is set.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core import combi
+from repro_torch.core.paths import PathSet
+from repro_torch.core.reference import update_exact
+from repro_torch.core.replication import ReplicationScheme, subpath_structure
+from repro_torch.engine import LatencyEngine, PackedScheme
+from repro_torch.engine import backends as _backends
+from repro_torch.engine.packed import scatter_or_pairs, storage_per_server, test_bits
+from repro_torch.engine.streaming import resolve_device, to_device, to_host
+
+_INF = 1e30
+
+
+def _update_batch_core(
+    words: torch.Tensor,      # int32 [(n+1), W] — packed scheme, sacrificial row
+    objects: torch.Tensor,    # int32 [B, L]
+    lengths: torch.Tensor,    # int32 [B]
+    shard: torch.Tensor,      # int32 [n]
+    f: torch.Tensor,          # float32 [n]
+    tables: torch.Tensor,     # bool [H+1, C, H+1]
+    counts: torch.Tensor,     # int32 [H+1]
+    t: torch.Tensor,          # int32 [B] per-path latency budgets t_q
+    h_routed: torch.Tensor,   # int32 [B] routed path latency vs the snapshot
+    load: torch.Tensor,       # float32 [S] current storage per server
+    capacity: torch.Tensor,   # float32 [S] (ignored unless check_capacity)
+    epsilon: torch.Tensor,    # float32 scalar
+    check_capacity: bool,
+    routed_gate: bool,
+):
+    """One UPDATE round over a batch; scatter-ORs the chosen additions
+    into ``words`` in place.  Returns ``(words, applied_cost, no_solution,
+    chosen, srv, skipped)``.
+
+    The JAX package also returns an incremental load estimate; its batch loop
+    overwrites that estimate with the exact load after every batch
+    whenever capacity is checked, and reads it nowhere else, so the port
+    leaves it out.
+    """
+    B, L = objects.shape
+    Hp1 = tables.shape[2]
+    C = tables.shape[1]
+    S = load.shape[0]
+    dev = objects.device
+
+    home, seg, h = subpath_structure(objects, lengths, shard)
+    valid = seg >= 0
+    h_cl = h.clamp(0, Hp1 - 1).long()
+
+    # server of each subpath: all positions of a subpath share one home.
+    seg_cl = seg.clamp(0, Hp1 - 1).long()
+    srv = torch.zeros((B, Hp1), dtype=torch.int32, device=dev).scatter_reduce(
+        1, seg_cl, torch.where(valid, home + 1, 0), "amax", include_self=True
+    ) - 1  # [B, Hp1]; -1 for absent subpaths
+
+    # candidate tables for each path's h: sel [B, C, Hp1]
+    sel = tables[h_cl]
+    n_cand = counts[h_cl]  # [B]
+
+    # prev_sel[b, c, k] = largest selected subpath index <= k
+    ar_h = torch.arange(Hp1, device=dev)
+    idx = torch.where(sel, ar_h[None, None, :], -1)
+    prev_sel = torch.cummax(idx, dim=2).values  # [B, C, Hp1]
+
+    # per-position selected-predecessor j(seg_x): gather over k = seg_x
+    seg_e = seg_cl[:, None, :].expand(B, C, L)  # [B, C, L]
+    j_of_x = prev_sel.gather(2, seg_e)  # [B, C, L]
+
+    # interval mask: additions (x -> subpath k) iff j(seg_x) <= k < seg_x
+    k_r = ar_h[None, None, None, :]
+    window = (k_r >= j_of_x[..., None]) & (k_r < seg_e[..., None])  # [B,C,L,Hp1]
+    window = (
+        window
+        & valid[:, None, :, None]
+        & (h > t)[:, None, None, None]  # each path vs its OWN budget t_q
+    )
+    if routed_gate:
+        # a path the routed walk already serves within its budget against
+        # the same snapshot buys no replicas at all
+        window = window & (h_routed > t)[:, None, None, None]
+        skipped = (h > t) & (h_routed <= t)
+    else:
+        skipped = torch.zeros_like(t, dtype=torch.bool)
+
+    # needed(x, k): no copy of objects[x] at srv[k] yet (snapshot bit-test)
+    safe_obj = objects.clamp_min(0)
+    safe_srv = srv.clamp_min(0)
+    present = test_bits(words, safe_obj[:, :, None], safe_srv[:, None, :])  # [B, L, Hp1]
+    needed = (~present) & (srv[:, None, :] >= 0) & valid[:, :, None]
+
+    fx = f[safe_obj.long()] * valid.to(torch.float32)  # [B, L]
+    add = window & needed[:, None, :, :]  # [B, C, L, Hp1]
+    add_f = add.to(torch.float32)
+    cost = torch.einsum("bclk,bl->bc", add_f, fx)
+
+    cand_valid = torch.arange(C, device=dev)[None, :] < n_cand[:, None]
+    cost_m = torch.where(cand_valid, cost, _INF)
+
+    if check_capacity:
+        # marginal load per candidate per server: scatter f over srv[k]
+        contrib = torch.einsum("bclk,bl->bck", add_f, fx)
+        marg = torch.zeros((B, C, S + 1), dtype=torch.float32, device=dev)
+        bi = torch.arange(B, device=dev)[:, None, None].expand(B, C, Hp1)
+        ci = torch.arange(C, device=dev)[None, :, None].expand(B, C, Hp1)
+        si = safe_srv.clamp(0, S).long()[:, None, :].expand(B, C, Hp1)
+        marg.index_put_((bi, ci, si), contrib, accumulate=True)
+        marg = marg[..., :S]
+        # snapshot load; within-batch interactions ignored (lock-free
+        # semantics).  Feasibility is re-validated exactly by the caller.
+        new_load = load[None, None, :] + marg
+        ok_cap = torch.all(new_load <= capacity[None, None, :] + 1e-6, dim=-1)
+        mean = torch.mean(new_load, dim=-1)
+        ok_bal = torch.amax(new_load, dim=-1) <= (1.0 + epsilon) * mean + 1e-6
+        cost_m = torch.where(ok_cap & ok_bal, cost_m, _INF)
+
+    best = torch.argmin(cost_m, dim=1)  # [B] ties -> lowest index
+    best_cost = cost_m.gather(1, best[:, None])[:, 0]
+    no_solution = best_cost >= _INF
+
+    chosen = add[torch.arange(B, device=dev), best]  # [B, L, Hp1]
+    chosen = chosen & ~no_solution[:, None, None]
+
+    # scatter-OR into the packed words; masked-out writes go to the
+    # sacrificial row
+    obj_w = torch.where(chosen, safe_obj[:, :, None], -1)
+    srv_w = safe_srv[:, None, :].expand_as(chosen)
+    words = scatter_or_pairs(words, obj_w, srv_w)
+
+    applied_cost = torch.where(no_solution, 0.0, best_cost)
+    return words, applied_cost, no_solution, chosen, srv, skipped
+
+
+def _first_obj_of_subpaths(objects, lengths, shard, Hp1):
+    """[B, Hp1] first object of each subpath (resharding-map representative;
+    garbage where the subpath is absent)."""
+    B, L = objects.shape
+    _, seg, _ = subpath_structure(objects, lengths, shard)
+    valid = seg >= 0
+    seg_cl = seg.clamp(0, Hp1 - 1).long()
+    big = 2**30
+    pos = torch.arange(L, device=objects.device, dtype=torch.int32)[None, :]
+    first_pos = torch.full((B, Hp1), big, dtype=torch.int32, device=objects.device)
+    first_pos = first_pos.scatter_reduce(
+        1, seg_cl, torch.where(valid, pos, big), "amin", include_self=True
+    )
+    return objects.gather(1, first_pos.clamp(0, L - 1).long())
+
+
+@dataclasses.dataclass
+class GreedyStats:
+    total_cost: float = 0.0
+    failed_paths: int = 0
+    paths_processed: int = 0
+    fallback_paths: int = 0
+    replicas: int = 0
+    runtime_s: float = 0.0
+    rm: list | None = None
+    # paths the routed walk already served within budget (policy-aware
+    # greedy only): structurally infeasible under d, zero replicas bought
+    routed_skips: int = 0
+    # replicas dropped by the final same-policy prune sweep
+    pruned_replicas: int = 0
+    # paths still over budget under the routed policy after the bounded
+    # revalidation rounds — 0 means the scheme is routed-feasible
+    routed_violations: int = 0
+    # candidate-table residency: the largest host-resident block of
+    # C(h, t) selection rows ever built at once, and the total rows shipped
+    table_peak_rows: int = 0
+    table_total_rows: int = 0
+    # path rows the revalidation rounds did NOT re-walk
+    revalidate_rows_saved: int = 0
+    # host seconds per stage (gate, update, revalidate, prune)
+    stage_s: dict = dataclasses.field(default_factory=dict)
+
+
+def _tick(stats: GreedyStats, stage: str, t0: float, device) -> float:
+    """Add the seconds since ``t0`` to ``stats.stage_s[stage]`` (after the
+    device has caught up) and return the new start time."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    now = time.perf_counter()
+    stats.stage_s[stage] = stats.stage_s.get(stage, 0.0) + now - t0
+    return now
+
+
+def _device_load(packed: PackedScheme, f_d) -> torch.Tensor:
+    """float32 [S] storage per server from the packed words, on the device."""
+    return storage_per_server(packed.words, f_d)[: packed.n_servers]
+
+
+def _run_update_batches(
+    packed: PackedScheme,
+    vec_objects: np.ndarray,
+    vec_lengths: np.ndarray,
+    shard_d,
+    f_d,
+    tables,
+    counts,
+    t_vec: np.ndarray,
+    load,
+    cap_d,
+    eps_d,
+    check_capacity: bool,
+    batch_size: int,
+    stats: GreedyStats,
+    track_rm: bool,
+    routed_fn=None,
+):
+    """The batched UPDATE loop over vectorizable paths of one budget class.
+
+    ``routed_fn`` (policy-aware greedy) maps a device (objects, lengths)
+    batch to its routed path latencies against the *current* packed
+    snapshot; paths within budget under the routed walk are gated out of
+    the UPDATE.  Mutates ``packed`` and ``stats``; returns the load.
+    """
+    device = packed.device
+    for i in range(0, len(vec_objects), batch_size):
+        t0 = time.perf_counter()
+        # the JAX package pads the last batch to a fixed jit shape; rows are
+        # independent (pad rows buy nothing), so the port does not
+        o = vec_objects[i : i + batch_size]
+        o_d = to_device(o, device)
+        l_d = to_device(vec_lengths[i : i + batch_size], device)
+        if routed_fn is not None:
+            # routed latency against the snapshot the batch prices on
+            h_rt = routed_fn(o_d, l_d)
+            t0 = _tick(stats, "gate", t0, device)
+        else:
+            h_rt = torch.zeros(len(o), dtype=torch.int32, device=device)
+        packed.words, costs, failed, chosen, srv, skipped = _update_batch_core(
+            packed.words,
+            o_d,
+            l_d,
+            shard_d,
+            f_d,
+            tables,
+            counts,
+            to_device(t_vec[i : i + batch_size], device),
+            h_rt,
+            load,
+            cap_d,
+            eps_d,
+            check_capacity,
+            routed_fn is not None,
+        )
+        stats.total_cost += float(to_host(costs).sum())
+        stats.failed_paths += int(failed.sum())
+        stats.routed_skips += int(skipped.sum())
+        if check_capacity:
+            # exact load from the packed words (the UPDATE's estimate can
+            # over-count duplicate additions within a batch)
+            load = _device_load(packed, f_d)
+        if track_rm:
+            ch = to_host(chosen)
+            sv = to_host(srv)
+            fo = to_host(_first_obj_of_subpaths(o_d, l_d, shard_d, tables.shape[2]))
+            for b, x, kk in zip(*np.nonzero(ch)):
+                stats.rm.append((int(fo[b, kk]), int(o[b, x]), int(sv[b, kk])))
+        _tick(stats, "update", t0, device)
+    return load
+
+
+# host-residency bound on candidate-table construction: a budget class
+# whose padded C(h, t) table holds more rows than this is assembled on
+# the device from streamed chunks instead of one host materialization
+_TABLE_STREAM_ROWS = 2048
+
+
+def _tables_to_device(H: int, b: int, device, stats: GreedyStats | None = None):
+    """Device candidate tables for budget b, streaming when they are big."""
+    counts_np = np.array(
+        [combi.n_candidates(h, b) for h in range(H + 1)], np.int32
+    )
+    c_max = int(counts_np.max())
+    if c_max <= _TABLE_STREAM_ROWS:
+        tables_np, counts_full = combi.stacked_tables(H, b)
+        if stats is not None:
+            stats.table_peak_rows = max(stats.table_peak_rows, (H + 1) * c_max)
+            stats.table_total_rows += int(counts_np.sum())
+        return to_device(tables_np, device), to_device(counts_full, device)
+    tables = torch.ones((H + 1, c_max, H + 1), dtype=torch.bool, device=device)
+    peak = 0
+    total = 0
+    for h in range(H + 1):
+        r0 = 0
+        for chunk in combi.iter_comb_rows(h, b, _TABLE_STREAM_ROWS):
+            rows = chunk.shape[0]
+            tables[h, r0 : r0 + rows, : h + 1] = to_device(chunk, device)
+            r0 += rows
+            peak = max(peak, rows)
+            total += rows
+    if stats is not None:
+        stats.table_peak_rows = max(stats.table_peak_rows, peak)
+        stats.table_total_rows += total
+    return tables, to_device(counts_np, device)
+
+
+def _budget_class_plan(
+    ps: PathSet,
+    t_path: np.ndarray,
+    shard_d,
+    max_candidates: int,
+    skip_tables: bool = False,
+    stats: GreedyStats | None = None,
+):
+    """Bucket paths by distinct latency budget (ascending, tightest first).
+
+    Yields ``(budget, class_pathset, vec_idx, seq_idx, h_all, tables,
+    counts)`` per class.  ``skip_tables`` (policy-aware runs) yields
+    None tables: the routed class filter rebuilds them on the surviving
+    paths anyway.
+    """
+    device = shard_d.device
+    plan = []
+    for b in np.unique(t_path):
+        b = int(b)
+        idx = np.nonzero(t_path == b)[0]
+        cls = ps.select(idx)
+        _, _, h_all = subpath_structure(
+            to_device(np.asarray(cls.objects, np.int32), device),
+            to_device(np.asarray(cls.lengths, np.int32), device),
+            shard_d,
+        )
+        h_all = to_host(h_all)
+        H_needed = int(h_all.max()) if cls.n_paths else 0
+        H_vec = combi.max_h_within_budget(b, max_candidates, H_needed)
+        vec_idx = np.nonzero(h_all <= H_vec)[0]
+        seq_idx = np.nonzero(h_all > H_vec)[0]
+        if skip_tables:
+            tables = counts = None
+        else:
+            tables, counts = _tables_to_device(max(H_vec, b, 1), b, device, stats)
+        plan.append((b, cls, vec_idx, seq_idx, h_all, tables, counts))
+    return plan
+
+
+def _routed_host(routed_fn, objects: np.ndarray, lengths: np.ndarray, device) -> np.ndarray:
+    """Routed h (int64, host) of host path rows."""
+    h = routed_fn(
+        to_device(np.asarray(objects, np.int32), device),
+        to_device(np.asarray(lengths, np.int32), device),
+    )
+    return to_host(h).astype(np.int64)
+
+
+def _routed_violation_idx(routed_fn, ps: PathSet, t_path: np.ndarray, device):
+    """Indices of paths over budget under the routed policy (one eval)."""
+    h_rt = _routed_host(routed_fn, ps.objects, ps.lengths, device)
+    return np.nonzero(h_rt > t_path)[0]
+
+
+def _routed_eval_rows(routed_fn, ps, rows: np.ndarray, device) -> np.ndarray:
+    """Routed h for a compacted subset of ``ps``'s rows.  (The JAX package
+    pads the block to 128 rows to bound its jit traces; pad rows score
+    h = 0 and are dropped, so the port walks the rows as they are.)"""
+    return _routed_host(
+        routed_fn, np.asarray(ps.objects)[rows], np.asarray(ps.lengths)[rows], device
+    )
+
+
+def _revalidate_routed(routed_fn, ps, t_path, run_classes, stats, device,
+                       index=None) -> None:
+    """Bounded re-validation after a policy-aware pass.
+
+    Receding-horizon walks are not monotone under foreign replica
+    additions, so a path gated out early can regress by the end of the
+    pass: re-run UPDATE over the violating paths for up to
+    ``_POLICY_REVALIDATE`` rounds and record the residue in
+    ``stats.routed_violations``.  With ``index`` (a ``PathIndex`` over
+    ``ps``) each round re-walks only the rows the UPDATE could have
+    changed.
+    """
+    viol = _routed_violation_idx(routed_fn, ps, t_path, device)
+    for _ in range(_POLICY_REVALIDATE):
+        if not len(viol):
+            break
+        run_classes(ps.select(viol), t_path[viol])
+        if index is not None:
+            cand = index.dirty_paths(np.asarray(ps.objects)[viol])
+            stats.revalidate_rows_saved += int(ps.n_paths - len(cand))
+            h = _routed_eval_rows(routed_fn, ps, cand, device)
+            viol = cand[h > t_path[cand]]
+        else:
+            viol = _routed_violation_idx(routed_fn, ps, t_path, device)
+    stats.routed_violations = int(len(viol))
+
+
+def _routed_gate_fn(packed: PackedScheme, pol, backend: str, load=None):
+    """Routed-latency evaluator over the evolving packed snapshot.
+
+    Returns ``fn(objects, lengths) -> int32 [B]`` on the device, computing
+    h(p, r, rho; policy) against ``packed``'s *current* words, or None
+    when no gating is wanted (``pol`` is None).  ``backend`` picks the
+    implementation: ``torch`` (plain walk), ``kernel`` (the routed-walk
+    CUDA kernel) or ``reference`` (the pure-python oracle against a
+    per-call readback).  ``load`` is the forecast per-server load a
+    ``queue_aware`` policy prices the gate with.
+    """
+    if pol is None:
+        return None
+    _backends.check_policy(pol)
+    device = packed.device
+    if backend == "reference":
+        from repro_torch.core.reference import (  # lazy: no cycle at import
+            routed_path_latencies_reference,
+        )
+
+        def fn(objects, lengths):
+            h = routed_path_latencies_reference(
+                to_host(objects), to_host(lengths), packed.unpack(),
+                to_host(packed.shard), policy=pol, load=load,
+            )
+            return to_device(h, device)
+
+        return fn
+    if backend not in ("torch", "kernel"):
+        raise ValueError(
+            f"unknown policy_backend {backend!r}; use reference | torch | kernel"
+        )
+    rank = _backends._load_vector(load if pol.uses_load else None, packed.words)
+
+    def fn(objects, lengths):
+        return _backends.gate_counts(
+            objects, lengths, packed.words, packed.shard, pol, rank, backend=backend
+        )
+
+    return fn
+
+
+def _routed_class_filter(
+    cls: PathSet, b: int, h_all: np.ndarray, routed_fn, max_candidates: int,
+    device, stats: GreedyStats | None = None,
+):
+    """Rebuild one budget class's plan on the routed walk.
+
+    Evaluates the class's paths under the routed policy against the
+    current snapshot, drops the ones already within budget, and re-derives
+    H_vec + the C(h, t) tables from the *surviving* paths only.  Returns
+    ``(vec_idx, seq_idx, tables, counts, n_skipped)``.
+    """
+    h_rt = _routed_host(routed_fn, cls.objects, cls.lengths, device)
+    kept = np.nonzero(h_rt > b)[0]
+    # only structurally-infeasible paths the routed walk rescued count as
+    # skips (h <= b paths were no-ops under the closed form too)
+    n_skipped = int(((h_all > b) & (h_rt <= b)).sum())
+    H_needed = int(h_all[kept].max()) if len(kept) else 0
+    H_vec = combi.max_h_within_budget(b, max_candidates, H_needed)
+    vec_idx = kept[h_all[kept] <= H_vec]
+    seq_idx = kept[h_all[kept] > H_vec]
+    tables, counts = _tables_to_device(max(H_vec, b, 1), b, device, stats)
+    return vec_idx, seq_idx, tables, counts, n_skipped
+
+
+def _capacity_arrays(n_servers: int, capacity, epsilon, device):
+    check = capacity is not None or epsilon is not None
+    cap_arr = np.full((n_servers,), np.inf, np.float32)
+    if capacity is not None:
+        cap_arr = np.broadcast_to(
+            np.asarray(capacity, np.float32), (n_servers,)
+        ).copy()
+    eps = np.float32(epsilon if epsilon is not None else np.inf)
+    return check, to_device(cap_arr, device), torch.tensor(eps, device=device)
+
+
+# routed-feasibility re-validation rounds after a policy-aware pass
+_POLICY_REVALIDATE = 2
+
+
+def replicate_workload(
+    pathset: PathSet,
+    shard: np.ndarray,
+    n_servers: int,
+    t,
+    f: np.ndarray | None = None,
+    capacity: np.ndarray | float | None = None,
+    epsilon: float | None = None,
+    batch_size: int = 256,
+    max_candidates: int = 2048,
+    prune: bool = True,
+    track_rm: bool = False,
+    return_engine: bool = False,
+    policy=None,
+    policy_backend: str | None = None,
+    policy_prune: bool = True,
+    load: np.ndarray | None = None,
+    fused: bool = False,
+    mesh=None,
+    resilience=None,
+    device=None,
+):
+    """Alg 1 over a workload with the vectorized batched UPDATE.
+
+    Args mirror Def 4.4: ``t`` is the latency constraint — an int, a
+    per-query int vector, or an :class:`~repro_torch.core.slo.SLOSpec`;
+    ``f`` the storage cost function, ``capacity`` M_s, ``epsilon`` the
+    load imbalance bound.  ``track_rm`` additionally accumulates the §5.4
+    resharding map entries (u, v, s).
+
+    ``policy`` (str | ``RoutingPolicy``) prices every candidate under that
+    *routed* walk: per budget class the C(h, t) tables are rebuilt on the
+    paths the routed walk cannot already serve, every batch gates
+    additions on h(p, r, rho; policy) <= t_q against the snapshot it costs
+    candidates on (``stats.routed_skips``), the routed feasibility of the
+    whole workload is re-validated in bounded rounds, and with
+    ``policy_prune=True`` one serial prune sweep under the same policy
+    drops the within-batch redundancy (``stats.pruned_replicas``).
+    ``policy_backend`` selects the gate's evaluator (``torch`` |
+    ``kernel`` | ``reference``; default from the device).  The prune
+    resolves its backend from the device as well.
+
+    ``device`` defaults to ``"cuda"``.  ``fused``, ``mesh`` and
+    ``resilience`` are not ported yet and raise.
+    """
+    from repro_torch.core.slo import normalize_path_budgets  # local: no cycle
+    from repro_torch.engine.incremental import PathIndex
+    from repro_torch.engine.routing import resolve_policy
+
+    if fused or mesh is not None:
+        raise NotImplementedError("fused=True and mesh= land with the fused UPDATE kernel")
+    if resilience is not None:
+        raise NotImplementedError("the resilience gate is not ported yet")
+    device = resolve_device(device)
+    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "torch.backends.cuda.matmul.allow_tf32 is True: TF32 candidate "
+            "costs would flip strict argmins; set it to False"
+        )
+    policy_backend = _backends.resolve_backend(policy_backend, device)
+    t0 = time.perf_counter()
+    n = shard.shape[0]
+    pol = resolve_policy(policy)
+    _backends.check_policy(pol)
+    pol = None if pol.name == "home_first" else pol
+    t_path = normalize_path_budgets(t, pathset)
+    if prune:
+        # the budget joins the §5.3 dedup key: a tight-budget path must not
+        # be merged into a loose-budget duplicate
+        ps, keep = pathset.prune_redundant(
+            shard, extra_key=t_path, return_index=True
+        )
+        t_path = t_path[keep]
+    else:
+        ps = pathset
+    scheme = ReplicationScheme.from_sharding(shard, n_servers)
+    stats = GreedyStats(rm=[] if track_rm else None)
+    stats.paths_processed = ps.n_paths
+    if ps.n_paths == 0:
+        stats.runtime_s = time.perf_counter() - t0
+        if return_engine:
+            return scheme, stats, LatencyEngine(scheme, device=device)
+        return scheme, stats
+
+    f_arr = np.ones((n,), np.float32) if f is None else f.astype(np.float32)
+    packed = PackedScheme.from_sharding(scheme.shard, n_servers, device)
+    shard_d = packed.shard
+    f_d = to_device(f_arr, device)
+
+    check_capacity, cap_d, eps_d = _capacity_arrays(n_servers, capacity, epsilon, device)
+    srv_load = to_device(scheme.storage_per_server(f_arr).astype(np.float32), device)
+    routed_fn = _routed_gate_fn(packed, pol, policy_backend, load=load)
+
+    def run_classes(ps_run: PathSet, t_run: np.ndarray) -> None:
+        nonlocal srv_load
+        for b, cls, vec_idx, seq_idx, h_all, tables, counts in _budget_class_plan(
+            ps_run, t_run, shard_d, max_candidates,
+            skip_tables=routed_fn is not None, stats=stats,
+        ):
+            if routed_fn is not None and cls.n_paths:
+                tg = time.perf_counter()
+                vec_idx, seq_idx, tables, counts, n_skip = _routed_class_filter(
+                    cls, b, h_all, routed_fn, max_candidates, device, stats=stats
+                )
+                stats.routed_skips += n_skip
+                _tick(stats, "gate", tg, device)
+            srv_load = _run_update_batches(
+                packed,
+                cls.objects[vec_idx],
+                cls.lengths[vec_idx],
+                shard_d,
+                f_d,
+                tables,
+                counts,
+                np.full(len(vec_idx), b, np.int32),
+                srv_load,
+                cap_d,
+                eps_d,
+                check_capacity,
+                batch_size,
+                stats,
+                track_rm,
+                routed_fn=routed_fn,
+            )
+
+            # Exact fallback for enumeration-heavy paths, against a freshly
+            # synced host mask; additions are replayed into the packed words
+            # so later classes see them.
+            if len(seq_idx):
+                tu = time.perf_counter()
+                scheme.mask = packed.unpack()
+                fb_obj: list[int] = []
+                fb_srv: list[int] = []
+                for i in seq_idx:
+                    res = update_exact(
+                        scheme, cls.path(int(i)), b, f_arr, capacity,
+                        epsilon, policy=pol, load=load,
+                    )
+                    stats.fallback_paths += 1
+                    if res.feasible:
+                        stats.total_cost += res.cost
+                        fb_obj.extend(v for v, _ in res.additions)
+                        fb_srv.extend(s for _, s in res.additions)
+                        if track_rm:
+                            stats.rm.extend(res.rm_entries)
+                    else:
+                        stats.failed_paths += 1
+                if fb_obj:
+                    packed.add(np.asarray(fb_obj), np.asarray(fb_srv))
+                    if check_capacity:
+                        srv_load = _device_load(packed, f_d)
+                _tick(stats, "update", tu, device)
+
+    run_classes(ps, t_path)
+    if routed_fn is not None:
+        tr = time.perf_counter()
+        _revalidate_routed(
+            routed_fn, ps, t_path, run_classes, stats, device,
+            index=PathIndex(np.asarray(ps.objects), packed.n_objects),
+        )
+        _tick(stats, "revalidate", tr, device)
+
+    # single host readback of the packed words
+    scheme.mask = packed.unpack()
+
+    if pol is not None and policy_prune and stats.paths_processed:
+        from repro_torch.core.replication import prune_scheme_replicas
+
+        tp = time.perf_counter()
+        stats.pruned_replicas, _ = prune_scheme_replicas(
+            scheme, pathset, t, policy=pol, f=f_arr, load=load, device=device
+        )
+        if stats.pruned_replicas:
+            # removals are not monotone: the packed words are stale
+            packed = PackedScheme.from_mask(scheme.mask, scheme.shard, device)
+        _tick(stats, "prune", tp, device)
+
+    stats.replicas = scheme.replica_count()
+    stats.runtime_s = time.perf_counter() - t0
+    if return_engine:
+        return scheme, stats, LatencyEngine(scheme, packed=packed)
+    return scheme, stats
+
+
+def replicate_delta(*args, **kwargs):
+    """Warm-start UPDATE over delta paths: not ported yet."""
+    raise NotImplementedError("replicate_delta is not ported yet")
+
+
+def replicate_stream(*args, **kwargs):
+    """Streamed-ingestion greedy: not ported yet."""
+    raise NotImplementedError("replicate_stream is not ported yet")

@@ -1,0 +1,199 @@
+"""The three latency-evaluation backends behind ``LatencyEngine``.
+
+All backends compute the same quantity — h(p, r, rho), the number of
+distributed traversals of a path under the access function (paper
+Eqns 1-2) — with identical integer semantics:
+
+  ``reference``  pure-python oracle (``repro_torch.core.reference``), host mask.
+  ``torch``      plain torch ops over the packed device words; the walk
+                 over the L positions is a Python loop.
+  ``kernel``     the hand-written CUDA kernels (``repro_torch.kernels``);
+                 CUDA devices only.
+
+``resolve_backend`` fills in the default from the device: ``kernel`` on
+CUDA, ``torch`` on the CPU.  Asking for ``kernel`` on the CPU raises.
+The ``nearest_copy_dp`` policy is not ported yet and raises
+``NotImplementedError`` everywhere.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.engine.packed import test_bits
+from repro_torch.engine.routing import resolve_policy
+from repro_torch.engine.streaming import to_device
+from repro_torch.kernels.path_latency import path_latency, path_latency_plain
+from repro_torch.kernels.routed_walk import routed_walk, routed_walk_plain
+
+BACKENDS = ("reference", "torch", "kernel")
+
+DP_NOT_PORTED = "nearest_copy_dp lands with the scored-walk kernel"
+
+
+def resolve_backend(backend, device: torch.device) -> str:
+    """``None`` -> ``kernel`` on CUDA, ``torch`` on the CPU."""
+    if backend is None:
+        return "kernel" if device.type == "cuda" else "torch"
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; use {BACKENDS}")
+    if backend == "kernel" and device.type != "cuda":
+        raise ValueError("the kernel backend needs a CUDA device")
+    return backend
+
+
+def check_policy(pol) -> None:
+    if pol.name == "nearest_copy_dp":
+        raise NotImplementedError(DP_NOT_PORTED)
+
+
+def _valid(objects, lengths):
+    L = objects.shape[1]
+    return torch.arange(L, device=objects.device)[None, :] < lengths[:, None]
+
+
+# ---------------------------------------------------------------------------
+# Home-first evaluation.
+# ---------------------------------------------------------------------------
+# The torch scan of the access function over the packed words.  The JAX
+# package fills pad homes with 0 where its kernel prep uses -1 and clamps;
+# both give the same counts, and the plain version clamps.
+words_scan = path_latency_plain
+
+
+def bool_scan(objects, lengths, mask, shard):
+    """The same walk over an unpacked bool [n, S] mask instead of packed
+    words (the JAX package's legacy ``bool_scan``); an independent check
+    of the packed formulation."""
+    L = objects.shape[1]
+    valid = _valid(objects, lengths)
+    safe = objects.clamp_min(0).long()
+    home = torch.where(valid, shard[safe], 0).long()
+    server = home[:, 0]
+    cost = torch.zeros(objects.shape[0], dtype=torch.int32, device=objects.device)
+    for i in range(1, L):
+        miss = valid[:, i] & ~mask[safe[:, i], server]
+        cost += miss.int()
+        server = torch.where(miss, home[:, i], server)
+    return cost
+
+
+def kernel_eval(objects, lengths, words, shard):
+    """Home-first h per path through the CUDA kernel."""
+    return path_latency(objects, lengths, words, shard)
+
+
+def reference_eval(objects, lengths, mask, shard) -> np.ndarray:
+    """Pure-python oracle over a host mask (``repro_torch.core.reference``)."""
+    from repro_torch.core.reference import path_latencies_reference  # lazy: no cycle
+
+    return path_latencies_reference(objects, lengths, mask, shard)
+
+
+# ---------------------------------------------------------------------------
+# Policy-parameterized walk: the per-hop target is a function of (current
+# server, object words, home, load) instead of the constant ``home[obj]``.
+# ---------------------------------------------------------------------------
+def _root_home(objects, home):
+    return home[objects[:, 0].clamp_min(0).long()].int()
+
+
+def _load_vector(load, words) -> torch.Tensor:
+    """Pad a per-server load vector to the words' W*32 bit width.
+
+    Bits past ``n_servers`` are never set in the packed words, so the pad
+    value is irrelevant (padded servers are never candidates).
+    """
+    width = words.shape[1] * 32
+    out = np.zeros(width, np.float32)
+    if load is not None:
+        lv = np.asarray(load, np.float32)
+        out[: lv.shape[0]] = lv
+    return to_device(out, words.device)
+
+
+def kernel_routed_trace(objects, lengths, words, home, pol, rank, start=None):
+    """Policy-routed trace through the CUDA kernel; ``rank`` is the padded
+    ``[W*32]`` load vector."""
+    check_policy(pol)
+    if start is None:
+        start = _root_home(objects, home)
+    return routed_walk(objects, lengths, words, home, start, rank,
+                       lookahead=pol.lookahead,
+                       home_first=pol.name == "home_first")
+
+
+def _trace(objects, lengths, words, home, pol, rank, start, backend):
+    if backend == "kernel":
+        return kernel_routed_trace(objects, lengths, words, home, pol, rank, start)
+    if backend != "torch":
+        raise ValueError(f"device walks run on torch | kernel, got {backend!r}")
+    check_policy(pol)
+    if start is None:
+        start = _root_home(objects, home)
+    return routed_walk_plain(objects, lengths, words, home, start, rank,
+                             lookahead=pol.lookahead,
+                             home_first=pol.name == "home_first")
+
+
+def access_trace(objects, lengths, words, home, start=None, policy=None,
+                 load=None, backend: str = "torch"):
+    """Walk Eqn 1 recording the visited server and locality per position.
+
+    ``home`` is a per-object routing target (may be -1); ``start``
+    optionally overrides the per-path start server (default
+    ``home[root]``); ``policy`` selects the remote-hop rule and ``load``
+    is the per-server vector a ``queue_aware`` policy ranks holders by.
+    Returns (servers int32 [P, L], local bool [P, L]); position 0 counts
+    as local when the path is non-empty.
+    """
+    pol = resolve_policy(policy)
+    rank = _load_vector(load if pol.uses_load else None, words)
+    return _trace(objects, lengths, words, home, pol, rank, start, backend)
+
+
+def gate_counts(objects, lengths, words, shard, pol, rank, backend: str = "torch"):
+    """Routed h per path for a resolved policy and a padded ``[W*32]``
+    holder-rank vector ``rank`` (``_load_vector`` of the load for
+    ``queue_aware``, zeros otherwise)."""
+    _, local = _trace(objects, lengths, words, shard, pol, rank, None, backend)
+    return (_valid(objects, lengths) & ~local).sum(dim=1, dtype=torch.int32)
+
+
+def routed_counts(objects, lengths, words, shard, policy, load=None,
+                  backend: str = "torch"):
+    """h(p, r, rho) per path under a routing policy."""
+    pol = resolve_policy(policy)
+    rank = _load_vector(load if pol.uses_load else None, words)
+    return gate_counts(objects, lengths, words, shard, pol, rank, backend)
+
+
+def kernel_routed_eval(objects, lengths, words, shard, policy, load=None):
+    """Distributed-traversal counts from the routed-walk kernel."""
+    return routed_counts(objects, lengths, words, shard, policy, load, backend="kernel")
+
+
+def query_slack(path_lats, query_ids, t_q):
+    """Per-query slack t_Q - l_Q on the device (int32 [nq]).
+
+    l_Q is the max over the query's paths (Def 4.3); queries with no paths
+    have l_Q = 0 (slack = budget).
+    """
+    lq = torch.zeros_like(t_q).scatter_reduce(
+        0, query_ids.long(), path_lats.to(t_q.dtype), "amax", include_self=True
+    )
+    return t_q - lq
+
+
+def margin_cost(words, f, objects, servers):
+    """Marginal storage cost of candidate (object, server) additions.
+
+    Snapshot semantics against the device words: each pair whose bit is
+    not yet set contributes ``f[v]``; duplicates count once per
+    occurrence.  Negative pairs are ignored.  Reduces over the last axis.
+    """
+    ok = (objects >= 0) & (servers >= 0)
+    o = objects.clamp_min(0)
+    s = servers.clamp_min(0)
+    need = ok & ~test_bits(words, o, s)
+    return torch.where(need, f[o.long()], 0.0).sum(dim=-1)

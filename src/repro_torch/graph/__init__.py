@@ -1,0 +1,21 @@
+"""Graph storage, generators and partitioners (numpy copies)."""
+from repro_torch.graph.csr import CSRGraph
+from repro_torch.graph.generators import SNBLikeGraph, ogb_like, random_regular, snb_like
+from repro_torch.graph.partition import (
+    hash_partition,
+    hypergraph_partition,
+    ldg_partition,
+    make_sharding,
+)
+
+__all__ = [
+    "CSRGraph",
+    "SNBLikeGraph",
+    "snb_like",
+    "ogb_like",
+    "random_regular",
+    "hash_partition",
+    "ldg_partition",
+    "hypergraph_partition",
+    "make_sharding",
+]

@@ -19,6 +19,11 @@ def pytest_configure(config):
         "slow: long-running test (full-size / compile-heavy problem); "
         "skipped unless --runslow is given, keeping tier-1 fast",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the repro_torch CUDA kernels); skips "
+        "with a reason where torch.cuda.is_available() is False",
+    )
 
 
 def pytest_collection_modifyitems(config, items):

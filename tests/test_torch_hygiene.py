@@ -1,0 +1,109 @@
+"""Import and device hygiene of the PyTorch port (``repro_torch``).
+
+The port imports torch, numpy and the standard library only — never
+``jax`` and nothing of the JAX package ``repro`` — and its entry points
+run on CUDA unless the caller asks for the CPU: without a card they raise
+instead of silently falling back.
+"""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.core as T
+from repro_torch.engine import LatencyEngine, PackedScheme, resolve_backend
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: pathlib.Path) -> list[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.extend(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.append(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_repro(path):
+    for name in _imported_modules(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
+
+
+def test_port_import_leaves_jax_unloaded():
+    code = (
+        "import sys, repro_torch, repro_torch.core.greedy, repro_torch.workload;"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')];"
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def _small_case():
+    shard = np.array([0, 1, 2, 0, 1], np.int32)
+    ps = T.PathSet.from_lists([[0, 1, 2], [3, 4]])
+    return ps, shard, T.ReplicationScheme.from_sharding(shard, 3)
+
+
+ENTRY_POINTS = {
+    "LatencyEngine": lambda ps, shard, sc: LatencyEngine(sc),
+    "PackedScheme.from_sharding": lambda ps, shard, sc: PackedScheme.from_sharding(shard, 3),
+    "PackedScheme.from_mask": lambda ps, shard, sc: PackedScheme.from_mask(sc.mask, shard),
+    "replicate_workload": lambda ps, shard, sc: T.replicate_workload(ps, shard, 3, 1),
+    "is_latency_feasible": lambda ps, shard, sc: T.is_latency_feasible(ps, sc, 1),
+    "query_slacks": lambda ps, shard, sc: T.query_slacks(ps, sc, 1),
+    "path_latencies": lambda ps, shard, sc: T.path_latencies(ps, sc),
+    "prune_scheme_replicas": lambda ps, shard, sc: T.prune_scheme_replicas(sc, ps, 1),
+}
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_default_device_raises_without_card(no_card, name):
+    ps, shard, sc = _small_case()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ENTRY_POINTS[name](ps, shard, sc)
+
+
+def test_backend_resolves_from_device():
+    cpu = torch.device("cpu")
+    assert resolve_backend(None, cpu) == "torch"
+    assert resolve_backend(None, torch.device("cuda")) == "kernel"
+    assert resolve_backend("reference", cpu) == "reference"
+    with pytest.raises(ValueError, match="CUDA"):
+        resolve_backend("kernel", cpu)
+    with pytest.raises(ValueError, match="unknown backend"):
+        resolve_backend("jnp", cpu)
+    _, _, sc = _small_case()
+    assert LatencyEngine(sc, device="cpu").backend == "torch"
+    with pytest.raises(ValueError):
+        LatencyEngine(sc, device="cpu", backend="kernel")
+
+
+def test_unported_options_raise():
+    ps, shard, _ = _small_case()
+    for kw in ({"fused": True}, {"resilience": 1}, {"mesh": object()}):
+        with pytest.raises(NotImplementedError):
+            T.replicate_workload(ps, shard, 3, 1, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        T.replicate_delta(ps, None, 1)
+    with pytest.raises(NotImplementedError):
+        T.replicate_stream(None, shard, 3, 1)
