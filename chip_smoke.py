@@ -8,15 +8,31 @@ Phases (each prints one JSON line; any failed check exits non-zero):
   parity  each kernel against its plain torch version, exactly, on 1 M
           seeded random paths (L in {1, 6, 9}, 6 / 40 / 128 servers, bit 31
           set, -1 padding and empty rows; the routed walk under
-          home_first, nearest_copy and queue_aware with tied loads).
+          home_first, nearest_copy and queue_aware with tied loads; the
+          scored walk over the nearest_copy_dp tables of depth None and 2);
+          the fused UPDATE on seeded random 256-row batches in every gate
+          mode (none, routed with and without lookahead, queue-ranked,
+          scored with depth None and 2).
   main    the paper's pipeline on SNB scale 10: greedy replication under
           ``nearest_copy`` for t = 1 and 2, the feasibility check and the
           home-first latencies, on the kernel backend; the kernels' launch
           counters are zeroed just before and read just after.  The t = 1
           run is repeated with the torch gate and must give the same mask.
-  sweep   the engine's hot primitive at deployment scale (SNB scale 100,
+  fused   the fused provisioning path on the same workload:
+          ``replicate_workload(fused=True)`` under ``nearest_copy`` and
+          ``nearest_copy_dp`` for t = 1 and 2 on the kernel backend
+          (counters zeroed just before, read just after), each feasible
+          under its policy with 0 failed paths and 0 routed violations;
+          with unit sizes at t = 1 the kernel and torch backends must give
+          the same mask.  Where a ``nearest_copy`` mask differs from the
+          main phase's (sizes 1 + 0.1 * degree make near-tied candidate
+          costs round by summation order), the first diverging UPDATE
+          batch is found and printed with the path and both costs.
+  sweep   the engine's hot primitives at deployment scale (SNB scale 100,
           150,000 queries, ~1.4 M paths, 128 servers): kernel vs plain,
-          exact, then each timed as the median of 5 runs after a warm-up.
+          exact, then each timed as the median of 5 runs after a warm-up;
+          the scored walk over row chunks of those paths; the fused UPDATE
+          on 256- and 65,536-row batches of the SNB scale 10 paths.
 The last two lines are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1.
 """
@@ -33,6 +49,9 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (NVIDIA data sheet)
+# H100 SXM 32-bit rate outside the tensor cores (67 T/s for float32 in the
+# data sheet), taken as the peak of the fused UPDATE's integer mask ops
+INT32_OPS_PER_S = 67e12
 
 
 def emit(obj) -> None:
@@ -95,10 +114,35 @@ def random_case(seed: int, P: int, L: int, n_srv: int, n_obj: int, dev):
     return objects, lengths, words, shard, start, load
 
 
-def phase_parity(pl, rw, dev, P: int) -> dict:
+def fused_args(seed: int, B: int, L: int, n_srv: int, dev, combi):
+    """A seeded random fused-UPDATE batch: (words, objects, lengths, shard,
+    f, tables, counts, t, load) on the device, sizes multiples of 1/8."""
+    objects, lengths, words, shard, _, load = random_case(seed, B, L, n_srv, 5000, dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    n = shard.shape[0]
+    f = torch.randint(1, 24, (n,), generator=g, device=dev).float() / 8
+    tables, counts = combi.stacked_tables(max(L - 1, 1), 2 if L > 6 else 1)
+    t = torch.randint(0, 3, (B,), generator=g, device=dev, dtype=torch.int32)
+    return (words, objects, lengths, shard.clamp_min(0), f,
+            torch.from_numpy(tables).to(dev), torch.from_numpy(counts).to(dev), t, load)
+
+
+def fused_gates(routing):
+    """Gate mode -> (policy, whether it ranks holders by the load)."""
+    return {
+        "none": (None, False),
+        "routed": (routing.resolve_policy("nearest_copy"), False),
+        "no_lookahead": (routing.NearestCopy(lookahead=False), False),
+        "queue_aware": (routing.resolve_policy("queue_aware"), True),
+        "scored": (routing.nearest_copy_dp(), False),
+        "scored_depth2": (routing.nearest_copy_dp(2), False),
+    }
+
+
+def phase_parity(pl, rw, pu, backends, routing, combi, dev, P: int) -> dict:
     t0 = time.perf_counter()
     cases = []
-    max_err = {"path_latency": 0, "routed_walk": 0}
+    max_err = {"path_latency": 0, "routed_walk": 0, "scored_walk": 0, "fused_update": 0.0}
     for L in (1, 6, 9):
         for n_srv in (6, 40, 128):
             objects, lengths, words, shard, start, load = random_case(
@@ -117,27 +161,69 @@ def phase_parity(pl, rw, dev, P: int) -> dict:
                 max_err["routed_walk"] = max(max_err["routed_walk"], err)
                 check(torch.equal(s, ws) and torch.equal(loc, wl),
                       f"routed_walk {mode} L={L} S={n_srv}")
+            for depth in (-1, 2):
+                scores = backends._dp_score_tables(objects, lengths, words, depth)
+                s, loc = rw.scored_walk(objects, lengths, words, shard, start, scores)
+                ws, wl = rw.scored_walk_plain(objects, lengths, words, shard, start, scores)
+                err = int((s - ws).abs().max()) + int((loc != wl).sum())
+                max_err["scored_walk"] = max(max_err["scored_walk"], err)
+                check(torch.equal(s, ws) and torch.equal(loc, wl),
+                      f"scored_walk depth={depth} L={L} S={n_srv}")
+                del scores
             cases.append({"L": L, "n_servers": n_srv, "mean_h": float(got.float().mean())})
+    fused_cases = []
+    for gate, (pol, ranked) in fused_gates(routing).items():
+        for L, n_srv in ((1, 6), (6, 40), (9, 128)):
+            words, *args = fused_args(L * 100 + n_srv, 256, L, n_srv, dev, combi)
+            if not ranked:
+                args[-1] = torch.zeros_like(args[-1])
+            got = pu.fused_update(words.clone(), *args, pol=pol)
+            want = pu.fused_update_plain(words.clone(), *args, pol=pol)
+            err = float((got[1] - want[1]).abs().max())
+            err += sum(int((g != w).sum()) for g, w in zip(got[2:], want[2:]))
+            err += int((got[0][:-1] != want[0][:-1]).sum())  # sacrificial row: a sink
+            max_err["fused_update"] = max(max_err["fused_update"], err)
+            check(err == 0, f"fused_update {gate} L={L} S={n_srv}")
+            fused_cases.append({"gate": gate, "L": L, "n_servers": n_srv,
+                                "additions": int(got[3].sum()),
+                                "skipped": int(got[5].sum()),
+                                "no_solution": int(got[2].sum())})
     torch.cuda.synchronize()
     out = {"phase": "parity", "seconds": time.perf_counter() - t0, "paths": P,
-           "cases": cases, "max_abs_err": max_err, "exact": True}
+           "cases": cases, "fused_batches": fused_cases, "max_abs_err": max_err,
+           "exact": True}
     emit(out)
     return out
 
 
-def phase_main(T, pl, rw, graph_mod, workload_mod, engine_mod, scale: int, n_queries: int) -> dict:
-    t0 = time.perf_counter()
+def snb_case(graph_mod, workload_mod, scale: int, n_queries: int, n_srv: int):
+    """SNB-like graph, its short-read paths, a hash sharding and sizes."""
     snb = graph_mod.snb_like(scale=scale, seed=0)
     ps = workload_mod.snb_workload_materialized(snb, n_queries=n_queries, seed=0)
+    shard = graph_mod.hash_partition(snb.graph.n_nodes, n_srv)
+    return snb, ps, shard, snb.graph.object_sizes().astype(np.float32)
+
+
+KERNELS = ("path_latency", "routed_walk", "scored_walk", "fused_update")
+
+
+def zero_counts(mods) -> None:
+    for m, attr in mods:
+        setattr(m, attr, 0)
+
+
+def read_counts(mods) -> dict:
+    return {name: getattr(m, attr) for name, (m, attr) in zip(KERNELS, mods)}
+
+
+def phase_main(T, counters, case, engine_mod, scale: int, n_queries: int) -> dict:
+    t0 = time.perf_counter()
+    snb, ps, shard, f = case
     n = snb.graph.n_nodes
-    shard = graph_mod.hash_partition(n, 6)
-    f = snb.graph.object_sizes().astype(np.float32)
-    setup_s = time.perf_counter() - t0
     runs = {}
     schemes = {}
     # the main path: counters zeroed just before, read just after
-    pl.LAUNCHES = 0
-    rw.LAUNCHES = 0
+    zero_counts(counters)
     engine_mod.TRANSFER.reset()
     for t in (1, 2):
         ts = time.perf_counter()
@@ -165,7 +251,7 @@ def phase_main(T, pl, rw, graph_mod, workload_mod, engine_mod, scale: int, n_que
             "greedy_s": greedy_s,
             "stage_s": dict(st.stage_s, feasibility=feas_s, home_first_latencies=h_s),
         }
-    launches = {"path_latency": pl.LAUNCHES, "routed_walk": rw.LAUNCHES}
+    launches = read_counts(counters)
     transfer = engine_mod.TRANSFER.snapshot()
     check(launches["path_latency"] > 0, "path_latency kernel not launched on the main path")
     check(launches["routed_walk"] > 0, "routed_walk kernel not launched on the main path")
@@ -182,7 +268,7 @@ def phase_main(T, pl, rw, graph_mod, workload_mod, engine_mod, scale: int, n_que
         r = engine_mod.LatencyEngine(schemes[1], backend="reference").path_latencies(small, policy=pol)
         check(np.array_equal(k, r), f"kernel engine vs reference oracle ({pol})")
     out = {
-        "phase": "main", "seconds": time.perf_counter() - t0, "setup_s": setup_s,
+        "phase": "main", "seconds": time.perf_counter() - t0,
         "scale": scale, "n_queries": n_queries, "objects": int(n),
         "edges": int(snb.graph.n_edges), "paths": ps.n_paths, "max_len": ps.max_len,
         "n_servers": 6, "policy": "nearest_copy", "runs": runs, "launches": launches,
@@ -191,15 +277,139 @@ def phase_main(T, pl, rw, graph_mod, workload_mod, engine_mod, scale: int, n_que
         "torch_gate_t1_stage_s": st_t.stage_s,
     }
     emit(out)
+    out["schemes"] = schemes
     return out
 
 
-def time_ms(fn, reps: int = 5) -> float:
-    """Median device time of ``fn`` over ``reps`` runs after one warm-up."""
+def first_update_divergence(T, greedy, backends, pu, case, t: int, pol: str) -> dict:
+    """Where ``fused=True`` first parts from the separate pipeline.
+
+    Reruns ``replicate_workload(fused=True)`` on the kernel backend and
+    prices every batch twice more on copies of its snapshot: with the
+    ``fused_update`` kernel (costs summed x-major over [L, Hp1]) and with
+    the separate pipeline's gate + ``_update_batch_core`` (einsum costs).
+    The first batch whose choices differ is reported with the path, both
+    float32 costs and each choice's cost summed in float64.  Later batches
+    price different snapshots, so only the first divergence is compared.
+    """
+    _, ps, shard, f = case
+    orig = greedy._fused_update_batch
+    seen = {"batches": 0, "first": None}
+
+    def probe(words, acc, objects, lengths, shard_d, f_d, tables, counts, t_d, rank,
+              load, cap, eps, check_cap, pol_, backend):
+        if seen["first"] is None:
+            k = pu.fused_update(words.clone(), objects, lengths, shard_d, f_d, tables,
+                                counts, t_d, rank, pol=pol_)
+            h_rt = (torch.zeros_like(t_d) if pol_ is None else
+                    backends.gate_counts(objects, lengths, words, shard_d, pol_, rank,
+                                         backend=backend))
+            e = greedy._update_batch_core(words.clone(), objects, lengths, shard_d, f_d,
+                                          tables, counts, t_d, h_rt, load, cap, eps,
+                                          check_cap, pol_ is not None)
+            rows = torch.nonzero((k[3] != e[3]).flatten(1).any(dim=1)).flatten()
+            if len(rows):
+                r = int(rows[0])
+                fx = f_d[objects[r].clamp_min(0).long()].double()
+                exact = lambda ch: float((ch[r].double().sum(dim=1) * fx).sum())  # noqa: E731
+                seen["first"] = {
+                    "batch": seen["batches"], "rows": int(objects.shape[0]),
+                    "paths_differing": len(rows), "row": r,
+                    "objects": objects[r, : int(lengths[r])].tolist(), "t": int(t_d[r]),
+                    "kernel_cost": float(k[1][r]), "einsum_cost": float(e[1][r]),
+                    "kernel_choice_cost_f64": exact(k[3]),
+                    "einsum_choice_cost_f64": exact(e[3]),
+                }
+        seen["batches"] += 1
+        return orig(words, acc, objects, lengths, shard_d, f_d, tables, counts, t_d,
+                    rank, load, cap, eps, check_cap, pol_, backend)
+
+    greedy._fused_update_batch = probe
+    try:
+        T.replicate_workload(ps, shard, 6, t, f=f, policy=pol, fused=True)
+    finally:
+        greedy._fused_update_batch = orig
+    return {"fused_batches": seen["batches"], "first_divergence": seen["first"]}
+
+
+def phase_fused(T, greedy, backends, pu, counters, case, main_schemes: dict) -> dict:
+    t0 = time.perf_counter()
+    snb, ps, shard, f = case
+    runs = {}
+    schemes = {}
+    # the fused path: counters zeroed just before, read just after
+    zero_counts(counters)
+    for pol in ("nearest_copy", "nearest_copy_dp"):
+        for t in (1, 2):
+            ts = time.perf_counter()
+            scheme, st = T.replicate_workload(ps, shard, 6, t, f=f, policy=pol, fused=True)
+            greedy_s = time.perf_counter() - ts
+            feasible = T.is_latency_feasible(ps, scheme, t, policy=pol)
+            check(feasible, f"fused {pol} t={t}: scheme not feasible under {pol}")
+            check(st.failed_paths == 0, f"fused {pol} t={t}: {st.failed_paths} failed paths")
+            check(st.routed_violations == 0,
+                  f"fused {pol} t={t}: {st.routed_violations} routed violations")
+            schemes[pol, t] = scheme
+            runs[f"{pol}/t={t}"] = {
+                "replicas": st.replicas, "pruned": st.pruned_replicas,
+                "overhead": scheme.replication_overhead(f.astype(np.float64)),
+                "failed_paths": st.failed_paths, "routed_violations": st.routed_violations,
+                "routed_skips": st.routed_skips, "fallback_paths": st.fallback_paths,
+                "feasible": feasible, "greedy_s": greedy_s, "stage_s": st.stage_s,
+            }
+    launches = read_counts(counters)
+    check(launches["fused_update"] > 0, "fused_update kernel not launched on the fused path")
+    check(launches["scored_walk"] > 0, "scored_walk kernel not launched on the fused path")
+    # fused=True vs the main phase's fused=False (f = object_sizes): the
+    # kernel sums each cost in its own order, so near-ties may resolve
+    # differently (ROADMAP trap c); printed, not checked
+    same_as_separate = {
+        f"t={t}": bool(np.array_equal(schemes["nearest_copy", t].mask, main_schemes[t].mask))
+        for t in (1, 2)
+    }
+    divergence = {}
+    for t in (1, 2):
+        if not same_as_separate[f"t={t}"]:
+            diff = np.argwhere(schemes["nearest_copy", t].mask != main_schemes[t].mask)
+            divergence[f"t={t}"] = dict(
+                first_update_divergence(T, greedy, backends, pu, case, t, "nearest_copy"),
+                mask_cells_differ=len(diff), first_cell=diff[0].tolist())
+            print(f"fused vs separate nearest_copy t={t}: {divergence[f't={t}']}", flush=True)
+    # unit sizes make every candidate cost exact: kernel == torch backend
+    unit = {}
+    for pol in ("nearest_copy", "nearest_copy_dp"):
+        tk = time.perf_counter()
+        k_scheme, k_st = T.replicate_workload(ps, shard, 6, 1, policy=pol, fused=True)
+        tt = time.perf_counter()
+        t_scheme, t_st = T.replicate_workload(ps, shard, 6, 1, policy=pol, fused=True,
+                                              policy_backend="torch")
+        check(np.array_equal(k_scheme.mask, t_scheme.mask),
+              f"fused unit-f t=1 {pol}: kernel and torch backends differ")
+        unit[pol] = {"replicas": k_st.replicas, "kernel_s": tt - tk,
+                     "torch_s": time.perf_counter() - tt,
+                     "kernel_stage_s": k_st.stage_s, "torch_stage_s": t_st.stage_s}
+    out = {
+        "phase": "fused", "seconds": time.perf_counter() - t0, "paths": ps.n_paths,
+        "n_servers": 6, "runs": runs, "launches": launches,
+        "nearest_copy_same_as_separate": same_as_separate,
+        "nearest_copy_divergence": divergence,
+        "unit_f_t1_kernel_equals_torch": True, "unit_f_t1": unit,
+    }
+    emit(out)
+    return out
+
+
+def time_ms(fn, reps: int = 5, setup=None) -> float:
+    """Median device time of ``fn`` over ``reps`` runs after one warm-up;
+    ``setup`` (untimed) runs before each call."""
+    if setup is not None:
+        setup()
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if setup is not None:
+            setup()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -210,8 +420,102 @@ def time_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def phase_sweep(pl, rw, graph_mod, workload_mod, engine_mod, backends, scale: int,
-                n_queries: int, dev, launches: dict) -> dict:
+def sweep_scored(rw, backends, objects, lengths, wd, sd, start, W: int, chunk: int) -> dict:
+    """The scored walk over row chunks of the sweep's paths (the full
+    [P, L, W*32] score plane would not fit): exact against the plain
+    version, then kernel, plain and DP-table times summed over chunks.
+    The bound counts the routed walk's bytes plus 4 bytes for every holder
+    score a remote hop reads."""
+    P, L = objects.shape
+    out = {"kernel_ms": 0.0, "plain_ms": 0.0, "dp_tables_ms": 0.0, "bytes": 0,
+           "score_reads": 0, "chunk_rows": chunk}
+    for r in range(0, P, chunk):
+        o, ln, st = objects[r : r + chunk], lengths[r : r + chunk], start[r : r + chunk]
+        scores = backends._dp_score_tables(o, ln, wd, -1)
+        s, loc = rw.scored_walk(o, ln, wd, sd, st, scores)
+        ws, wl = rw.scored_walk_plain(o, ln, wd, sd, st, scores)
+        check(torch.equal(s, ws) and torch.equal(loc, wl), f"sweep scored_walk rows {r}: kernel vs plain")
+        valid = torch.arange(L, device=o.device)[None, :] < ln[:, None]
+        remote = valid & ~loc
+        holders = backends.unpack_bits(wd[o.clamp_min(0).long()]).sum(dim=-1)
+        reads = int(holders[remote].sum())
+        sum_len = int(ln.long().sum())
+        touched = int(torch.unique(o[valid]).numel())
+        out["score_reads"] += reads
+        out["bytes"] += (8 * len(o) + 4 * sum_len + (4 * W + 4) * touched
+                         + 5 * len(o) * L + 4 * reads)
+        out["kernel_ms"] += time_ms(lambda: rw.scored_walk(o, ln, wd, sd, st, scores))
+        out["plain_ms"] += time_ms(lambda: rw.scored_walk_plain(o, ln, wd, sd, st, scores))
+        out["dp_tables_ms"] += time_ms(lambda: backends._dp_score_tables(o, ln, wd, -1))
+        del scores, holders
+    return out
+
+
+def sweep_fused(pu, rw, backends, engine_mod, routing, combi, T, case, dev) -> dict:
+    """The fused UPDATE on the first 256 and 65,536 SNB scale 10 paths at
+    t = 1 against the sharding-only snapshot (the words are restored
+    before each timed call), with the routed and the scored gate.  Bound:
+    the larger of the bytes over the memory rate and the candidate loop's
+    sum_b n_cand(h_b) * L * Hp1 mask operations over the 32-bit rate."""
+    _, ps, shard, f = case
+    packed = engine_mod.PackedScheme.from_sharding(shard, 6, dev)
+    w0 = packed.words
+    W = w0.shape[1]
+    f_d = torch.from_numpy(f).to(dev)
+    rank = backends._load_vector(None, w0)
+    out = {}
+    for rows in (256, 65_536):
+        o = torch.from_numpy(np.asarray(ps.objects[:rows], np.int32)).to(dev)
+        ln = torch.from_numpy(np.asarray(ps.lengths[:rows], np.int32)).to(dev)
+        B = o.shape[0]
+        _, _, h = T.subpath_structure(o, ln, packed.shard)
+        H = combi.max_h_within_budget(1, 2048, int(h.max()))
+        tab_np, cnt_np = combi.stacked_tables(max(H, 1), 1)
+        tables = torch.from_numpy(tab_np).to(dev)
+        counts = torch.from_numpy(cnt_np).to(dev)
+        t = torch.ones(B, dtype=torch.int32, device=dev)
+        Hc, C, Hp1 = tables.shape
+        L = o.shape[1]
+        valid = torch.arange(L, device=dev)[None, :] < ln[:, None]
+        touched = int(torch.unique(o[valid]).numel())
+        ops = int(counts[h.clamp(0, Hp1 - 1).long()].sum()) * L * Hp1
+        for gate, pol in (("routed", routing.resolve_policy("nearest_copy")),
+                          ("scored", routing.nearest_copy_dp())):
+            w = w0.clone()
+            args = (o, ln, packed.shard, f_d, tables, counts, t, rank)
+            got = pu.fused_update(w.clone(), *args, pol=pol)
+            want = pu.fused_update_plain(w.clone(), *args, pol=pol)
+            check(all(torch.equal(g, x) for g, x in zip(got[1:], want[1:]))
+                  and torch.equal(got[0][:-1], want[0][:-1]),
+                  f"sweep fused_update {gate} B={rows}: kernel vs plain")
+            additions = int(got[3].sum())
+            reads = 0
+            if gate == "scored":
+                scores = backends._dp_score_tables(o, ln, w0, -1)
+                start = backends._root_home(o, packed.shard)
+                _, loc = rw.scored_walk(o, ln, w0, packed.shard, start, scores)
+                holders = backends.unpack_bits(w0[o.clamp_min(0).long()]).sum(dim=-1)
+                reads = int(holders[valid & ~loc].sum())
+            nbytes = (4 * B * L + 8 * B + (8 + 4 * W) * touched + tables.numel()
+                      + 4 * Hc + (4 * W * 32 if gate == "routed" else 4 * reads)
+                      + B * L * Hp1 + 4 * B * Hp1 + 6 * B + 4 * additions)
+            restore = lambda: w.copy_(w0)  # noqa: E731
+            out[f"{gate}/B={rows}"] = {
+                "kernel_ms": time_ms(lambda: pu.fused_update(w, *args, pol=pol), setup=restore),
+                "plain_ms": time_ms(lambda: pu.fused_update_plain(w, *args, pol=pol),
+                                    setup=restore),
+                "rows": B, "bytes": nbytes, "int_ops": ops, "additions": additions,
+                "candidates": int(counts[h.clamp(0, Hp1 - 1).long()].sum()),
+                "C": C, "Hp1": Hp1, "score_reads": reads,
+                "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3,
+                "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / INT32_OPS_PER_S
+                            else "operations",
+            }
+    return out
+
+
+def phase_sweep(pl, rw, pu, graph_mod, workload_mod, engine_mod, backends, routing, combi,
+                T, main_case, scale: int, n_queries: int, dev, launches: dict) -> dict:
     t0 = time.perf_counter()
     snb = graph_mod.snb_like(scale=scale, seed=0)
     ps = workload_mod.snb_workload_materialized(snb, n_queries=n_queries, seed=0)
@@ -268,9 +572,15 @@ def phase_sweep(pl, rw, graph_mod, workload_mod, engine_mod, backends, scale: in
             "plain_ms": time_ms(lambda: rw.routed_walk_plain(objects, lengths, wd, sd, start, lv, **kw)),
             "bytes": bytes_rw,
         }
+    timings["scored_walk"] = sweep_scored(rw, backends, objects, lengths, wd, sd, start,
+                                          W, chunk=262_144)
+    for name, v in sweep_fused(pu, rw, backends, engine_mod, routing, combi, T,
+                               main_case, dev).items():
+        timings[f"fused_update/{name}"] = v
     for name, v in timings.items():
-        v["bound_ms"] = v["bytes"] / HBM_BYTES_PER_S * 1e3
-        v["launches"] = launches[name.split("/")[0]]  # on the main path
+        v.setdefault("bound_ms", v["bytes"] / HBM_BYTES_PER_S * 1e3)
+        v.setdefault("bound_by", "bytes")
+        v["launches"] = launches[name.split("/")[0]]  # on its path
     out = {
         "phase": "sweep", "seconds": time.perf_counter() - t0, "setup_s": setup_s,
         "scale": scale, "n_queries": n_queries, "objects": int(n), "paths": P,
@@ -279,10 +589,18 @@ def phase_sweep(pl, rw, graph_mod, workload_mod, engine_mod, backends, scale: in
         "mean_h": {k: float(v.mean()) for k, v in h.items()},
         "exact": True, "timings": timings,
         "library_ms": None,
-        "library_note": "no single PyTorch call computes this data-dependent walk",
+        "library_note": "no single PyTorch call computes these data-dependent walks "
+                        "or the fused UPDATE round",
     }
     emit(out)
     return out
+
+
+def kernel_entry(name: str, source: str, replaces: str, launches: int, err, timing) -> dict:
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": timing["kernel_ms"],
+            "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+            "bound_by": timing["bound_by"], "library_ms": None}
 
 
 def main() -> int:
@@ -294,38 +612,52 @@ def main() -> int:
     from repro_torch import engine as engine_mod
     from repro_torch import graph as graph_mod
     from repro_torch import workload as workload_mod
-    from repro_torch.engine import backends
+    from repro_torch.core import combi
+    from repro_torch.core import greedy
+    from repro_torch.engine import backends, routing
     from repro_torch.kernels import build
     from repro_torch.kernels import path_latency as pl
+    from repro_torch.kernels import provision_update as pu
     from repro_torch.kernels import routed_walk as rw
 
     dev = torch.device("cuda")
+    counters = [(pl, "LAUNCHES"), (rw, "LAUNCHES"), (rw, "SCORED_LAUNCHES"), (pu, "LAUNCHES")]
     t_all = time.perf_counter()
     b = phase_build(build)
-    par = phase_parity(pl, rw, dev, P=1_000_000)
-    main_out = phase_main(T, pl, rw, graph_mod, workload_mod, engine_mod,
-                          scale=10, n_queries=20_000)
-    sw = phase_sweep(pl, rw, graph_mod, workload_mod, engine_mod, backends,
-                     scale=100, n_queries=150_000, dev=dev, launches=main_out["launches"])
+    par = phase_parity(pl, rw, pu, backends, routing, combi, dev, P=1_000_000)
+    ts = time.perf_counter()
+    case = snb_case(graph_mod, workload_mod, scale=10, n_queries=20_000, n_srv=6)
+    emit({"phase": "setup", "seconds": time.perf_counter() - ts, "scale": 10,
+          "n_queries": 20_000})
+    main_out = phase_main(T, counters, case, engine_mod, scale=10, n_queries=20_000)
+    fused_out = phase_fused(T, greedy, backends, pu, counters, case, main_out["schemes"])
+    # each kernel's launches on the path that exercises it
+    launches = {
+        "path_latency": main_out["launches"]["path_latency"],
+        "routed_walk": main_out["launches"]["routed_walk"],
+        "scored_walk": fused_out["launches"]["scored_walk"],
+        "fused_update": fused_out["launches"]["fused_update"],
+    }
+    sw = phase_sweep(pl, rw, pu, graph_mod, workload_mod, engine_mod, backends, routing,
+                     combi, T, case, scale=100, n_queries=150_000, dev=dev,
+                     launches=launches)
     emit({"phase": "total", "seconds": time.perf_counter() - t_all})
     print(b["nvidia_smi"], flush=True)
-    nc = sw["timings"]["routed_walk/nearest_copy"]
-    hf = sw["timings"]["path_latency"]
+    tm = sw["timings"]
+    err = par["max_abs_err"]
     emit({"kernels": [
-        {"name": "path_latency", "route": "cuda",
-         "source": "src/repro_torch/csrc/path_latency.cu",
-         "replaces": "src/repro/kernels/path_latency.py:68",
-         "launches": main_out["launches"]["path_latency"],
-         "max_abs_err": par["max_abs_err"]["path_latency"],
-         "ms": hf["kernel_ms"], "plain_ms": hf["plain_ms"], "bound_ms": hf["bound_ms"],
-         "bound_by": "bytes", "library_ms": None},
-        {"name": "routed_walk", "route": "cuda",
-         "source": "src/repro_torch/csrc/routed_walk.cu",
-         "replaces": "src/repro/kernels/routed_walk.py:121",
-         "launches": main_out["launches"]["routed_walk"],
-         "max_abs_err": par["max_abs_err"]["routed_walk"],
-         "ms": nc["kernel_ms"], "plain_ms": nc["plain_ms"], "bound_ms": nc["bound_ms"],
-         "bound_by": "bytes", "library_ms": None},
+        kernel_entry("path_latency", "src/repro_torch/csrc/path_latency.cu",
+                     "src/repro/kernels/path_latency.py:68", launches["path_latency"],
+                     err["path_latency"], tm["path_latency"]),
+        kernel_entry("routed_walk", "src/repro_torch/csrc/routed_walk.cu",
+                     "src/repro/kernels/routed_walk.py:121", launches["routed_walk"],
+                     err["routed_walk"], tm["routed_walk/nearest_copy"]),
+        kernel_entry("scored_walk", "src/repro_torch/csrc/scored_walk.cu",
+                     "src/repro/kernels/routed_walk.py:218", launches["scored_walk"],
+                     err["scored_walk"], tm["scored_walk"]),
+        kernel_entry("fused_update", "src/repro_torch/csrc/provision_update.cu",
+                     "src/repro/kernels/provision_update.py:218", launches["fused_update"],
+                     err["fused_update"], tm["fused_update/routed/B=256"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

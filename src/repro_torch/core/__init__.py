@@ -6,7 +6,8 @@ Public API:
   SLOSpec / TenantSpec        — per-query / per-tenant latency constraints
   path_latencies / query_latencies / query_slacks / is_latency_feasible
         — Eqns 1-3, thin wrappers over ``repro_torch.engine.LatencyEngine``
-  prune_scheme_replicas       — the serial policy prune sweep
+  prune_scheme_replicas       — the policy prune sweep (serial, or batched
+                                into independent groups with fused=True)
   replicate_workload          — vectorized greedy Alg 1 + Alg 2
   replicate_workload_exact    — faithful sequential Alg 1 + Alg 2
 """

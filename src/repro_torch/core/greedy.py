@@ -27,6 +27,15 @@ The float32 candidate costs are ``torch.einsum`` products.  On CUDA a
 TF32 product would round them and flip strict argmins, so
 ``replicate_workload`` refuses to run while
 ``torch.backends.cuda.matmul.allow_tf32`` is set.
+
+``fused=True`` runs each batch as one fused step (:func:`_fused_update_batch`):
+on the ``kernel`` backend the ``fused_update`` CUDA kernel does the gate,
+the candidate scoring and the scatter-OR; elsewhere the gate walk and
+:func:`_update_batch_core` run back to back.  Batch statistics stay on the
+device and are read once per budget class.  The kernel sums each
+candidate's cost in its own fixed order, not the einsum's, so with
+non-integer sizes a near-tie can resolve differently from ``fused=False``
+(ROADMAP trap c); with unit sizes every cost is exact and both agree.
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ from repro_torch.engine import LatencyEngine, PackedScheme
 from repro_torch.engine import backends as _backends
 from repro_torch.engine.packed import scatter_or_pairs, storage_per_server, test_bits
 from repro_torch.engine.streaming import resolve_device, to_device, to_host
+from repro_torch.kernels.provision_update import fused_update
 
 _INF = 1e30
 
@@ -182,6 +192,42 @@ def _first_obj_of_subpaths(objects, lengths, shard, Hp1):
     return objects.gather(1, first_pos.clamp(0, L - 1).long())
 
 
+def _fused_update_batch(
+    words, acc, objects, lengths, shard, f, tables, counts, t, rank, load,
+    capacity, epsilon, check_capacity: bool, pol, backend: str,
+):
+    """One *fused* UPDATE round: gate + candidate scoring + bit-test +
+    scatter-OR, with the batch statistics added into ``acc`` (float32 [3]:
+    cost, failed, skipped) on the device instead of read back per batch.
+
+    On the ``kernel`` backend without capacity checking the whole round is
+    the ``fused_update`` CUDA kernel; otherwise the routed gate
+    (``backends.gate_counts`` against the same words snapshot) feeds
+    :func:`_update_batch_core`, whose capacity check needs the full
+    ``[B, C, S]`` marginal-load plane the kernel never builds.  Returns
+    ``(words, chosen, srv)``; ``words`` and ``acc`` are updated in place.
+    """
+    if backend == "kernel" and not check_capacity:
+        words, costs, failed, chosen, srv, skipped = fused_update(
+            words, objects, lengths, shard, f, tables, counts, t, rank, pol=pol
+        )
+    else:
+        if pol is None:
+            h_routed = torch.zeros_like(t)
+        else:
+            h_routed = _backends.gate_counts(
+                objects, lengths, words, shard, pol, rank, backend=backend
+            )
+        words, costs, failed, chosen, srv, skipped = _update_batch_core(
+            words, objects, lengths, shard, f, tables, counts, t, h_routed,
+            load, capacity, epsilon, check_capacity, pol is not None,
+        )
+    acc += torch.stack(
+        [costs.sum(), failed.sum(dtype=torch.float32), skipped.sum(dtype=torch.float32)]
+    )
+    return words, chosen, srv
+
+
 @dataclasses.dataclass
 class GreedyStats:
     total_cost: float = 0.0
@@ -205,8 +251,30 @@ class GreedyStats:
     table_total_rows: int = 0
     # path rows the revalidation rounds did NOT re-walk
     revalidate_rows_saved: int = 0
-    # host seconds per stage (gate, update, revalidate, prune)
+    # host seconds per stage (gate, update, revalidate, prune; the batched
+    # prune also books its grouping as prune_plan and its group steps as
+    # prune_steps, both inside prune)
     stage_s: dict = dataclasses.field(default_factory=dict)
+
+
+class DeviceStatsAcc:
+    """Device-side accumulation of the fused UPDATE's batch statistics.
+
+    The fused driver adds (cost, failed, skipped) into the device float32
+    [3] ``acc`` per batch; :meth:`drain` does the one blocking readback,
+    once per budget class, folds the totals into a :class:`GreedyStats`
+    and zeroes ``acc``.
+    """
+
+    def __init__(self, device):
+        self.acc = torch.zeros((3,), dtype=torch.float32, device=device)
+
+    def drain(self, stats: GreedyStats) -> None:
+        a = to_host(self.acc)
+        stats.total_cost += float(a[0])
+        stats.failed_paths += int(a[1])
+        stats.routed_skips += int(a[2])
+        self.acc.zero_()
 
 
 def _tick(stats: GreedyStats, stage: str, t0: float, device) -> float:
@@ -241,15 +309,28 @@ def _run_update_batches(
     stats: GreedyStats,
     track_rm: bool,
     routed_fn=None,
+    fused: bool = False,
+    pol=None,
+    rank=None,
+    backend: str = "torch",
 ):
     """The batched UPDATE loop over vectorizable paths of one budget class.
 
-    ``routed_fn`` (policy-aware greedy) maps a device (objects, lengths)
-    batch to its routed path latencies against the *current* packed
-    snapshot; paths within budget under the routed walk are gated out of
-    the UPDATE.  Mutates ``packed`` and ``stats``; returns the load.
+    ``routed_fn`` (policy-aware greedy, separate-dispatch path) maps a
+    device (objects, lengths) batch to its routed path latencies against
+    the *current* packed snapshot; paths within budget under the routed
+    walk are gated out of the UPDATE.
+
+    ``fused`` runs each batch as one :func:`_fused_update_batch` step
+    instead: the gate under ``pol`` (``rank`` the padded holder rank) runs
+    against the same snapshot inside the step, on ``backend``, and the
+    statistics are read back (and the stage clock synchronised) once at
+    the end of the class.  Mutates ``packed`` and ``stats``; returns the
+    load.
     """
     device = packed.device
+    acc = DeviceStatsAcc(device) if fused else None
+    t_class = time.perf_counter()
     for i in range(0, len(vec_objects), batch_size):
         t0 = time.perf_counter()
         # the JAX package pads the last batch to a fixed jit shape; rows are
@@ -257,31 +338,26 @@ def _run_update_batches(
         o = vec_objects[i : i + batch_size]
         o_d = to_device(o, device)
         l_d = to_device(vec_lengths[i : i + batch_size], device)
-        if routed_fn is not None:
-            # routed latency against the snapshot the batch prices on
-            h_rt = routed_fn(o_d, l_d)
-            t0 = _tick(stats, "gate", t0, device)
+        t_d = to_device(t_vec[i : i + batch_size], device)
+        if fused:
+            packed.words, chosen, srv = _fused_update_batch(
+                packed.words, acc.acc, o_d, l_d, shard_d, f_d, tables, counts, t_d,
+                rank, load, cap_d, eps_d, check_capacity, pol, backend,
+            )
         else:
-            h_rt = torch.zeros(len(o), dtype=torch.int32, device=device)
-        packed.words, costs, failed, chosen, srv, skipped = _update_batch_core(
-            packed.words,
-            o_d,
-            l_d,
-            shard_d,
-            f_d,
-            tables,
-            counts,
-            to_device(t_vec[i : i + batch_size], device),
-            h_rt,
-            load,
-            cap_d,
-            eps_d,
-            check_capacity,
-            routed_fn is not None,
-        )
-        stats.total_cost += float(to_host(costs).sum())
-        stats.failed_paths += int(failed.sum())
-        stats.routed_skips += int(skipped.sum())
+            if routed_fn is not None:
+                # routed latency against the snapshot the batch prices on
+                h_rt = routed_fn(o_d, l_d)
+                t0 = _tick(stats, "gate", t0, device)
+            else:
+                h_rt = torch.zeros(len(o), dtype=torch.int32, device=device)
+            packed.words, costs, failed, chosen, srv, skipped = _update_batch_core(
+                packed.words, o_d, l_d, shard_d, f_d, tables, counts, t_d, h_rt,
+                load, cap_d, eps_d, check_capacity, routed_fn is not None,
+            )
+            stats.total_cost += float(to_host(costs).sum())
+            stats.failed_paths += int(failed.sum())
+            stats.routed_skips += int(skipped.sum())
         if check_capacity:
             # exact load from the packed words (the UPDATE's estimate can
             # over-count duplicate additions within a batch)
@@ -292,7 +368,12 @@ def _run_update_batches(
             fo = to_host(_first_obj_of_subpaths(o_d, l_d, shard_d, tables.shape[2]))
             for b, x, kk in zip(*np.nonzero(ch)):
                 stats.rm.append((int(fo[b, kk]), int(o[b, x]), int(sv[b, kk])))
-        _tick(stats, "update", t0, device)
+        if not fused:
+            _tick(stats, "update", t0, device)
+    if fused:
+        # one readback and one device sync per class, not per batch
+        acc.drain(stats)
+        _tick(stats, "update", t_class, device)
     return load
 
 
@@ -434,7 +515,6 @@ def _routed_gate_fn(packed: PackedScheme, pol, backend: str, load=None):
     """
     if pol is None:
         return None
-    _backends.check_policy(pol)
     device = packed.device
     if backend == "reference":
         from repro_torch.core.reference import (  # lazy: no cycle at import
@@ -538,23 +618,30 @@ def replicate_workload(
     additions on h(p, r, rho; policy) <= t_q against the snapshot it costs
     candidates on (``stats.routed_skips``), the routed feasibility of the
     whole workload is re-validated in bounded rounds, and with
-    ``policy_prune=True`` one serial prune sweep under the same policy
-    drops the within-batch redundancy (``stats.pruned_replicas``).
+    ``policy_prune=True`` one prune sweep under the same policy drops the
+    within-batch redundancy (``stats.pruned_replicas``).
     ``policy_backend`` selects the gate's evaluator (``torch`` |
     ``kernel`` | ``reference``; default from the device).  The prune
     resolves its backend from the device as well.
 
-    ``device`` defaults to ``"cuda"``.  ``fused``, ``mesh`` and
-    ``resilience`` are not ported yet and raise.
+    ``fused`` runs every batch as one fused step (gate + candidate
+    scoring + bit-test + scatter-OR, statistics reduced on the device; on
+    the ``kernel`` backend the ``fused_update`` CUDA kernel) and the final
+    prune as the batched independent-group sweep.  Under
+    ``policy_backend="reference"`` it runs the separate pipeline, as the
+    JAX package does.
+
+    ``device`` defaults to ``"cuda"``.  ``mesh`` and ``resilience`` are
+    not ported yet and raise.
     """
     from repro_torch.core.slo import normalize_path_budgets  # local: no cycle
     from repro_torch.engine.incremental import PathIndex
     from repro_torch.engine.routing import resolve_policy
 
-    if fused or mesh is not None:
-        raise NotImplementedError("fused=True and mesh= land with the fused UPDATE kernel")
     if resilience is not None:
         raise NotImplementedError("the resilience gate is not ported yet")
+    if mesh is not None:
+        raise NotImplementedError("mesh= (the sharded fused driver) is not ported yet")
     device = resolve_device(device)
     if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
@@ -565,7 +652,6 @@ def replicate_workload(
     t0 = time.perf_counter()
     n = shard.shape[0]
     pol = resolve_policy(policy)
-    _backends.check_policy(pol)
     pol = None if pol.name == "home_first" else pol
     t_path = normalize_path_budgets(t, pathset)
     if prune:
@@ -594,6 +680,11 @@ def replicate_workload(
     check_capacity, cap_d, eps_d = _capacity_arrays(n_servers, capacity, epsilon, device)
     srv_load = to_device(scheme.storage_per_server(f_arr).astype(np.float32), device)
     routed_fn = _routed_gate_fn(packed, pol, policy_backend, load=load)
+    fused = fused and policy_backend != "reference"
+    # the fused gate's padded holder rank
+    rank = _backends._load_vector(
+        load if (pol is not None and pol.uses_load) else None, packed.words
+    ) if fused else None
 
     def run_classes(ps_run: PathSet, t_run: np.ndarray) -> None:
         nonlocal srv_load
@@ -624,7 +715,11 @@ def replicate_workload(
                 batch_size,
                 stats,
                 track_rm,
-                routed_fn=routed_fn,
+                routed_fn=None if fused else routed_fn,
+                fused=fused,
+                pol=pol,
+                rank=rank,
+                backend=policy_backend,
             )
 
             # Exact fallback for enumeration-heavy paths, against a freshly
@@ -672,7 +767,8 @@ def replicate_workload(
 
         tp = time.perf_counter()
         stats.pruned_replicas, _ = prune_scheme_replicas(
-            scheme, pathset, t, policy=pol, f=f_arr, load=load, device=device
+            scheme, pathset, t, policy=pol, f=f_arr, load=load, fused=fused,
+            device=device, stage_s=stats.stage_s,
         )
         if stats.pruned_replicas:
             # removals are not monotone: the packed words are stale

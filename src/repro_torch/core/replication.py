@@ -13,6 +13,7 @@ takes ``device`` (default ``"cuda"``) and resolves its backend from it.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -20,6 +21,7 @@ import torch
 from repro_torch.core.paths import PathSet
 from repro_torch.engine import LatencyEngine, pack_bool_mask
 from repro_torch.engine import backends as _backends
+from repro_torch.engine.packed import scatter_clear_pairs, scatter_or_pairs
 from repro_torch.engine.streaming import resolve_device, to_device, to_host
 
 
@@ -238,6 +240,63 @@ def is_latency_feasible(
     ))
 
 
+_PRUNE_GROUP_MAX = 512  # candidates per batched prune step
+
+
+def _prune_group_step(words, gobj, gsrv, robj, rlen, rt, rcand, shard, rank, pol,
+                      backend: str):
+    """One batched prune round over an independent candidate group.
+
+    Clears the group's ``G`` candidate bits at once, re-walks every
+    affected row under the policy, scatter-maxes each row's violation onto
+    its candidate (``rcand``), and restores exactly the violating
+    candidates' bits.  Updates ``words`` in place; returns bool [G], True
+    where the candidate must stay.
+    """
+    G = gobj.shape[0]
+    scatter_clear_pairs(words, gobj, gsrv)
+    h = _backends.gate_counts(robj, rlen, words, shard, pol, rank, backend=backend)
+    viol = (h > rt).int()
+    bad = torch.zeros((G,), dtype=torch.int32, device=words.device)
+    bad = bad.scatter_reduce(0, rcand.long(), viol, "amax").bool()
+    scatter_or_pairs(words, torch.where(bad, gobj, -1), gsrv)
+    return bad
+
+
+def _independent_groups(order, vs, affected, n_paths, group_max):
+    """Partition prune candidates into serially-equivalent batches.
+
+    Two candidates are independent iff no path touches both objects:
+    neither's keep/drop decision can change what the other's affected
+    walks read.  Greedy sweep in the serial (descending-f) order with
+    *deferral closure*: once a candidate is deferred, its affected rows
+    block every later candidate from joining the current group, so no
+    candidate is evaluated against a snapshot that differs from the
+    serial sweep's.  Once a group is full every later candidate is
+    deferred, so the round stops scanning there (the JAX package's loop
+    scans on, marking rows no later candidate can use): same groups.
+    """
+    remaining = list(order)
+    groups = []
+    while remaining:
+        used = np.zeros(n_paths, bool)
+        group: list[int] = []
+        deferred: list[int] = []
+        for pos, i in enumerate(remaining):
+            if len(group) == group_max:
+                deferred.extend(remaining[pos:])
+                break
+            rows = affected(int(vs[i]))
+            if not used[rows].any():
+                group.append(i)
+            else:
+                deferred.append(i)
+            used[rows] = True
+        groups.append(group)
+        remaining = deferred
+    return groups
+
+
 def prune_scheme_replicas(
     scheme: ReplicationScheme,
     pathset: PathSet,
@@ -248,6 +307,8 @@ def prune_scheme_replicas(
     fused: bool = False,
     load: np.ndarray | None = None,
     device=None,
+    group_max: int = _PRUNE_GROUP_MAX,
+    stage_s: dict | None = None,
 ) -> tuple[int, float]:
     """Drop replicas a policy-routed walk doesn't need for feasibility.
 
@@ -259,18 +320,21 @@ def prune_scheme_replicas(
     candidate clears one bit on the device and re-walks just those paths.
     Mutates ``scheme`` in place; returns ``(n_dropped, bytes_saved)``.
 
-    One serial greedy sweep; the batched independent-group sweep
-    (``fused=True``) is not ported yet and raises.
+    One greedy sweep, not an optimal set cover.  ``fused=True`` batches
+    it: candidates whose objects never share a path are independent, so
+    each independent group (at most ``group_max``, see
+    :func:`_independent_groups`) is cleared, re-walked and selectively
+    restored in one :func:`_prune_group_step`, decision for decision the
+    serial sweep's.  Under ``backend="reference"`` the sweep stays serial.
+    ``stage_s`` (a ``GreedyStats.stage_s`` dict) receives the batched
+    sweep's host seconds as ``prune_plan`` (grouping) and ``prune_steps``.
     """
     from repro_torch.core.slo import normalize_path_budgets  # local: no cycle
     from repro_torch.engine.incremental import PathIndex
     from repro_torch.engine.routing import resolve_policy
 
-    if fused:
-        raise NotImplementedError("the batched prune lands with the fused UPDATE")
     device = resolve_device(device)
     pol = resolve_policy(policy)
-    _backends.check_policy(pol)
     engine = LatencyEngine(scheme, backend=backend, device=device)
     backend = engine.backend
     objects = np.asarray(pathset.objects, np.int32)
@@ -312,6 +376,37 @@ def prune_scheme_replicas(
     order = np.argsort(-fv[vs], kind="stable")
     n_dropped = 0
     bytes_saved = 0.0
+
+    if fused and backend != "reference" and len(order):
+        t0 = time.perf_counter()
+        groups = _independent_groups(order, vs, affected, pathset.n_paths, group_max)
+        t1 = time.perf_counter()
+        for group in groups:
+            gi = np.asarray(group)
+            rows = [affected(int(v)) for v in vs[gi]]
+            sizes = [len(r) for r in rows]
+            ridx = np.concatenate(rows)
+            bad = _prune_group_step(
+                packed.words,
+                to_device(vs[gi].astype(np.int32), device),
+                to_device(ss[gi].astype(np.int32), device),
+                to_device(objects[ridx], device), to_device(lengths[ridx], device),
+                to_device(t_path[ridx].astype(np.int32), device),
+                to_device(np.repeat(np.arange(len(gi), dtype=np.int32), sizes), device),
+                packed.shard, rank, pol, backend,
+            )
+            keep = ~to_host(bad)
+            if keep.any():
+                gk = gi[keep]
+                n_dropped += int(keep.sum())
+                bytes_saved += float(fv[vs[gk]].sum())
+                scheme.mask[vs[gk], ss[gk]] = False
+        if stage_s is not None:
+            t2 = time.perf_counter()
+            stage_s["prune_plan"] = stage_s.get("prune_plan", 0.0) + t1 - t0
+            stage_s["prune_steps"] = stage_s.get("prune_steps", 0.0) + t2 - t1
+        return n_dropped, bytes_saved
+
     for i in order:
         v, s = int(vs[i]), int(ss[i])
         packed.set_bit(v, s, False)

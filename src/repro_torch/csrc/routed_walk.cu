@@ -12,42 +12,17 @@
 //   are tried first.
 //
 // Design: one thread per path.  The per-server load vector is staged in
-// shared memory; a pick walks the set bits of the object's W words with
-// __ffs instead of unpacking a [W*32] plane, so a thread touches only the
-// words of its own objects.  Like the home-first walk it is bound by the
+// shared memory; a pick (`pick_holder`, walk_common.cuh) walks the set bits
+// of the object's W words with __ffs instead of unpacking a [W*32] plane,
+// so a thread touches only the words of its own objects.  Like the home-first walk it is bound by the
 // bytes it reads and writes (the [P, L] trace dominates); no tensor cores.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace {
+#include "walk_common.cuh"
 
-// Lowest-load holder among the set bits of row[w] & mask[w]; home wins a
-// tie with the minimum, then the lowest id.  -1 when no bit is set.
-__device__ __forceinline__ int pick_holder(const uint32_t* row,
-                                           const uint32_t* mask, int W,
-                                           int home, const float* load) {
-  int best_id = -1;
-  float best = 0.0f;
-  for (int w = 0; w < W; ++w) {
-    uint32_t bits = row[w] & (mask ? mask[w] : 0xFFFFFFFFu);
-    while (bits) {
-      const int b = __ffs(bits) - 1;
-      bits &= bits - 1;
-      const int s = (w << 5) + b;
-      const float l = load[s];
-      if (best_id < 0 || l < best) {
-        best = l;
-        best_id = s;
-      }
-    }
-  }
-  if (best_id >= 0 && home >= 0 && home < (W << 5)) {
-    const uint32_t hw = row[home >> 5] & (mask ? mask[home >> 5] : 0xFFFFFFFFu);
-    if (((hw >> (home & 31)) & 1u) && load[home] <= best) return home;
-  }
-  return best_id;
-}
+namespace {
 
 template <bool HOME_FIRST, bool LOOKAHEAD>
 __global__ void routed_walk_kernel(const int32_t* __restrict__ objects,

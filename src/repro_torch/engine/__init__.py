@@ -6,7 +6,8 @@
   RawScheme      — minimal mask+shard scheme carrier
   PackedScheme   — the device-resident packed int32 bitmask state
   RoutingPolicy  — remote-hop target selection for the access walk
-                   (home_first | nearest_copy | queue_aware)
+                   (home_first | nearest_copy | queue_aware |
+                   nearest_copy_dp)
   TRANSFER       — host<->device transfer accounting
   PathIndex      — CSR object->path inverted index
 """

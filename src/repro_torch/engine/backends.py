@@ -12,23 +12,32 @@ Eqns 1-2) — with identical integer semantics:
 
 ``resolve_backend`` fills in the default from the device: ``kernel`` on
 CUDA, ``torch`` on the CPU.  Asking for ``kernel`` on the CPU raises.
-The ``nearest_copy_dp`` policy is not ported yet and raises
-``NotImplementedError`` everywhere.
+``nearest_copy_dp`` scores holders with the suffix-DP tables of
+:func:`_dp_score_tables` (torch ops on either backend) and walks with the
+scored pick (``scored_walk`` on ``kernel``, its plain version on
+``torch``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.engine.packed import test_bits
+from repro_torch.engine.packed import test_bits, unpack_bits
 from repro_torch.engine.routing import resolve_policy
 from repro_torch.engine.streaming import to_device
 from repro_torch.kernels.path_latency import path_latency, path_latency_plain
-from repro_torch.kernels.routed_walk import routed_walk, routed_walk_plain
+from repro_torch.kernels.routed_walk import (
+    routed_walk,
+    routed_walk_plain,
+    scored_walk,
+    scored_walk_plain,
+)
 
 BACKENDS = ("reference", "torch", "kernel")
 
-DP_NOT_PORTED = "nearest_copy_dp lands with the scored-walk kernel"
+# float32 elements of one DP score plane [rows, L, W*32]: a DP walk over
+# more rows than this is split into row chunks (256 MiB per plane)
+DP_PLANE_ELEMS = 1 << 26
 
 
 def resolve_backend(backend, device: torch.device) -> str:
@@ -40,11 +49,6 @@ def resolve_backend(backend, device: torch.device) -> str:
     if backend == "kernel" and device.type != "cuda":
         raise ValueError("the kernel backend needs a CUDA device")
     return backend
-
-
-def check_policy(pol) -> None:
-    if pol.name == "nearest_copy_dp":
-        raise NotImplementedError(DP_NOT_PORTED)
 
 
 def _valid(objects, lengths):
@@ -112,28 +116,96 @@ def _load_vector(load, words) -> torch.Tensor:
     return to_device(out, words.device)
 
 
-def kernel_routed_trace(objects, lengths, words, home, pol, rank, start=None):
-    """Policy-routed trace through the CUDA kernel; ``rank`` is the padded
-    ``[W*32]`` load vector."""
-    check_policy(pol)
-    if start is None:
-        start = _root_home(objects, home)
-    return routed_walk(objects, lengths, words, home, start, rank,
-                       lookahead=pol.lookahead,
-                       home_first=pol.name == "home_first")
+# ---------------------------------------------------------------------------
+# Depth-k suffix DP (``nearest_copy_dp``): score every server by the optimal
+# paid-hop count over the next k accesses, then walk with the scored pick.
+# ---------------------------------------------------------------------------
+def _dp_score_tables(objects, lengths, words, depth: int) -> torch.Tensor:
+    """``E[p, pos, s]``: optimal paid hops over the next ``depth`` accesses.
+
+    The port of the JAX package's ``backends._dp_score_tables`` (the
+    batched twin of ``routing.dp_suffix_scores``; the dead -1 state is
+    tracked in a separate ``D`` plane).  A hop may land on any holder of
+    the hopped-to object; an object with no holder sends the walk to the
+    dead state, from which nothing is local but later hops still revive.
+    ``depth < 0`` scores the whole suffix (one backward loop over the
+    positions); ``depth >= 0`` runs ``depth`` window-widening sweeps.
+    Values are small integers in float32, so every backend agrees
+    exactly.  Returns float32 ``[P, L, W*32]``.
+    """
+    P, L = objects.shape
+    dev = objects.device
+    valid = torch.arange(L, device=dev)[None, :] < lengths[:, None]
+    hold = unpack_bits(words[objects.clamp_min(0).long()]) & valid[:, :, None]
+    Sp = hold.shape[2]
+    if L == 1:
+        return torch.zeros((P, L, Sp), dtype=torch.float32, device=dev)
+
+    def hop_cost(hold_next, V_next, D_next):
+        vmin = torch.where(hold_next, V_next, torch.inf).amin(dim=-1)
+        return 1.0 + torch.where(hold_next.any(dim=-1), vmin, D_next)
+
+    if depth < 0:
+        # full suffix: one backward pass, carry = (V at pos + 1, dead value)
+        V = torch.zeros((P, Sp), dtype=torch.float32, device=dev)
+        D = torch.zeros((P,), dtype=torch.float32, device=dev)
+        rows = [V]
+        for pos in range(L - 2, -1, -1):
+            hold_next, v_next = hold[:, pos + 1], valid[:, pos + 1]
+            hop = hop_cost(hold_next, V, D)
+            V = torch.where(v_next[:, None], torch.where(hold_next, V, hop[:, None]), 0.0)
+            D = torch.where(v_next, hop, 0.0)
+            rows.append(V)
+        return torch.stack(rows[::-1], dim=1)
+
+    # window-widening sweeps: E_m[pos] from E_{m-1}[pos + 1] (position shift)
+    E = torch.zeros((P, L, Sp), dtype=torch.float32, device=dev)
+    D = torch.zeros((P, L), dtype=torch.float32, device=dev)
+    hold_next = torch.cat([hold[:, 1:], torch.zeros_like(hold[:, :1])], dim=1)
+    v_next = torch.cat([valid[:, 1:], torch.zeros_like(valid[:, :1])], dim=1)
+    for _ in range(depth):
+        E_next = torch.cat([E[:, 1:], torch.zeros_like(E[:, :1])], dim=1)
+        D_next = torch.cat([D[:, 1:], torch.zeros_like(D[:, :1])], dim=1)
+        hop = hop_cost(hold_next, E_next, D_next)  # [P, L]
+        E = torch.where(v_next[:, :, None],
+                        torch.where(hold_next, E_next, hop[:, :, None]), 0.0)
+        D = torch.where(v_next, hop, 0.0)
+    return E
+
+
+def _dp_depth(pol) -> int:
+    return -1 if pol.depth is None else int(pol.depth)
+
+
+def _dp_trace(objects, lengths, words, home, start, depth: int, backend: str):
+    """Scored walk over the DP tables, in row chunks of at most
+    ``DP_PLANE_ELEMS`` score elements (rows are independent)."""
+    walk = scored_walk if backend == "kernel" else scored_walk_plain
+    P, L = objects.shape
+    step = max(1, DP_PLANE_ELEMS // (L * words.shape[1] * 32))
+    servers, local = [], []
+    for r in range(0, max(P, 1), step):
+        o, ln = objects[r : r + step], lengths[r : r + step]
+        scores = _dp_score_tables(o, ln, words, depth)
+        s, l = walk(o, ln, words, home, start[r : r + step], scores)
+        servers.append(s)
+        local.append(l)
+    return torch.cat(servers), torch.cat(local)
 
 
 def _trace(objects, lengths, words, home, pol, rank, start, backend):
-    if backend == "kernel":
-        return kernel_routed_trace(objects, lengths, words, home, pol, rank, start)
-    if backend != "torch":
+    """Policy-routed trace: the CUDA kernels on ``kernel``, their plain
+    versions on ``torch``.  ``rank`` is the padded ``[W*32]`` load vector
+    (unused by ``nearest_copy_dp``, whose scores are the DP tables)."""
+    if backend not in ("torch", "kernel"):
         raise ValueError(f"device walks run on torch | kernel, got {backend!r}")
-    check_policy(pol)
     if start is None:
         start = _root_home(objects, home)
-    return routed_walk_plain(objects, lengths, words, home, start, rank,
-                             lookahead=pol.lookahead,
-                             home_first=pol.name == "home_first")
+    if pol.name == "nearest_copy_dp":
+        return _dp_trace(objects, lengths, words, home, start, _dp_depth(pol), backend)
+    walk = routed_walk if backend == "kernel" else routed_walk_plain
+    return walk(objects, lengths, words, home, start, rank,
+                lookahead=pol.lookahead, home_first=pol.name == "home_first")
 
 
 def access_trace(objects, lengths, words, home, start=None, policy=None,

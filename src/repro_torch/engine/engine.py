@@ -171,7 +171,6 @@ class LatencyEngine:
         if incremental:
             raise NotImplementedError("incremental evaluation lands with IncrementalEval")
         pol = resolve_policy(policy)
-        backends.check_policy(pol)
         if pathset.n_paths == 0:
             return np.zeros((0,), dtype=np.int32)
         if self.backend == "reference":
@@ -235,7 +234,6 @@ class LatencyEngine:
         host arrays (servers int32 [P, L], local bool [P, L]).
         """
         pol = resolve_policy(policy)
-        backends.check_policy(pol)
         pinned = isinstance(pathset, DevicePaths)
         if self.backend == "reference":
             from repro_torch.core.reference import routed_trace_reference  # lazy

@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` source is compiled for ``sm_90a`` by its own ``nvcc``
 process (all started together), and the objects are linked into one
 shared library with a plain C interface, loaded with ``ctypes``.  The
 library lands in ``build/repro_torch_kernels/<hash>/`` at the repository
-root, keyed by a hash of the sources and flags, so a changed source is
-rebuilt and an unchanged one is reused.  Nothing here runs at import.
+root, keyed by a hash of the sources, the shared ``csrc/*.cuh`` headers
+and the flags, so a changed source or header is rebuilt and an unchanged
+tree is reused.  Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -27,6 +28,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "path_latency_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     "routed_walk_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "scored_walk_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "fused_update_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _P, _P, _P, _P, _P, _P, _P],
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -49,7 +53,7 @@ def _sources() -> list[pathlib.Path]:
 
 def library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(CFLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / "librepro_torch_kernels.so"

@@ -1,0 +1,247 @@
+"""One fused greedy UPDATE round (paper Alg 2 hot loop) over a path batch.
+
+Replaces the TPU kernel ``fused_update_pallas`` in
+``src/repro/kernels/provision_update.py`` (``_make_kernel``).  Per path,
+against one snapshot of the packed words: the policy-routed gate walk,
+the server-local subpaths under d (Def 5.1), the needed bit-tests, and
+the strict argmin over the C(h, t) candidates' float32 costs; the
+winner's additions are then OR-ed into the words.
+
+The CUDA source is ``repro_torch/csrc/provision_update.cu``: one warp per
+path, lanes striding over the candidates, a shuffle reduction for the
+argmin (ties -> lowest index), and a second tiny launch on the same stream
+that applies the chosen additions with ``atomicOr`` once every path has
+been priced.  Gate modes: ``none`` (``pol=None``), ``routed`` (with or
+without lookahead; ``rank`` is the ``[W*32]`` holder rank) and ``scored``
+(``nearest_copy_dp``: the DP tables of the batch are computed with torch
+ops before the launch, as the JAX package computes them before its
+kernel).
+
+Bound on the card: bytes (objects, touched words, homes and sizes, the
+``[B, L, Hp1]`` chosen plane); the candidate loop's sum_b n_cand(h_b) * L
+mask operations are far below the card's integer rate at the C(h, t)
+sizes the greedy vectorises.
+
+Each candidate's cost is summed x-major over ``[L, Hp1]`` in float32, in
+the kernel (``__fadd_rn``) and in :func:`fused_update_plain` alike, so the
+two agree exactly.  The JAX package's kernel reduces in XLA's order: its
+costs equal these exactly when every sum is exact (sizes that are
+multiples of 1/8, for instance) and to float32 rounding otherwise.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.engine.backends import _dp_depth, _dp_score_tables
+from repro_torch.engine.packed import scatter_or_pairs, test_bits
+from repro_torch.kernels.build import check_launch, load_library
+from repro_torch.kernels.routed_walk import routed_walk_plain, scored_walk_plain
+
+LAUNCHES = 0
+
+_INF = 1e30
+# the kernel's per-path limits: one 64-bit mask per position over the
+# subpaths (Hp1 <= L after the table cut in `fused_update`), and the rank
+# vector in shared memory
+MAX_L = 64
+MAX_W = 64
+
+_GATE = {"none": 0, "routed": 1, "scored": 2}
+
+
+def _gate_mode(pol) -> str:
+    if pol is None:
+        return "none"
+    return "scored" if pol.name == "nearest_copy_dp" else "routed"
+
+
+def fused_update_plain(words, objects, lengths, shard, f, tables, counts, t,
+                       rank, pol=None):
+    """Plain torch version: ``(words, applied_cost, no_solution, chosen,
+    srv, skipped)``; OR-s the chosen additions into ``words`` in place.
+
+    ``words`` int32 [(n+1), W] (sacrificial last row), ``objects`` int32
+    [B, L] (-1 pad), ``lengths`` / ``t`` int32 [B], ``shard`` int32 [n],
+    ``f`` float32 [n], ``tables`` bool [Hc, C, Hp1] candidate retained
+    sets, ``counts`` int32 [Hc], ``rank`` float32 [W*32] (the gate's
+    holder rank), ``pol`` a resolved non-home-first policy or None (no
+    gate).  Mirrors the TPU kernel op for op: ``srv[k]`` from the
+    positions with ``seg == k``, ``h`` clipped to ``Hp1 - 1``, ``n_cand``
+    = ``counts[h]`` (0 beyond ``Hc``), strict argmin with ties to the
+    lowest candidate, costs summed x-major over ``[L, Hp1]``.
+    """
+    B, L = objects.shape
+    Hc, C, Hp1 = tables.shape
+    dev = objects.device
+    pos = torch.arange(L, device=dev)[None, :]
+    valid = pos < lengths[:, None]
+    safe = objects.clamp_min(0).long()
+    home = torch.where(valid, shard[safe], -1).int()
+    fpos = f[safe] * valid.to(torch.float32)
+    start = shard[objects[:, 0].clamp_min(0).long()].int()
+
+    # subpath structure under d (Def 5.1)
+    prev = torch.cat(
+        [torch.full((B, 1), -2, dtype=torch.int32, device=dev), home[:, :-1]], dim=1
+    )
+    boundary = valid & (pos > 0) & (home != prev)
+    seg = torch.where(valid, torch.cumsum(boundary.int(), dim=1, dtype=torch.int32), -1)
+    h = torch.where(valid, seg, 0).amax(dim=1)
+    h_cl = h.clamp(0, Hp1 - 1).long()
+    seg_cl = seg.clamp(0, Hp1 - 1).long()
+    srv = torch.stack(
+        [torch.where(valid & (seg == k), home + 1, 0).amax(dim=1) - 1 for k in range(Hp1)],
+        dim=1,
+    ).int()  # [B, Hp1]; -1 for absent subpaths
+
+    # policy-routed gate walk against the snapshot
+    over = h > t
+    mode = _gate_mode(pol)
+    if mode == "none":
+        gate_ok = over
+        skipped = torch.zeros_like(over)
+    else:
+        if mode == "scored":
+            scores = _dp_score_tables(objects, lengths, words, _dp_depth(pol))
+            _, local = scored_walk_plain(objects, lengths, words, shard, start, scores)
+        else:
+            _, local = routed_walk_plain(objects, lengths, words, shard, start, rank,
+                                         lookahead=pol.lookahead)
+        h_routed = (valid & ~local).sum(dim=1, dtype=torch.int32)
+        gate_ok = over & (h_routed > t)
+        skipped = over & (h_routed <= t)
+
+    # needed(x, k): no copy of objects[x] at srv[k] yet
+    srv_c = srv.clamp_min(0)
+    present = test_bits(words, safe[:, :, None], srv_c[:, None, :])
+    needed = ~present & (srv >= 0)[:, None, :] & valid[:, :, None]
+
+    # every candidate's interval mask: additions x -> k iff j(seg_x) <= k < seg_x
+    in_tab = h_cl < Hc
+    h_tab = h_cl.clamp(max=Hc - 1)
+    n_cand = torch.where(in_tab, counts[h_tab], 0)
+    sel = tables[h_tab] & in_tab[:, None, None]  # [B, C, Hp1]
+    ar_h = torch.arange(Hp1, device=dev)
+    prev_sel = torch.cummax(torch.where(sel, ar_h, -1), dim=2).values
+    seg_e = seg_cl[:, None, :].expand(B, C, L)
+    j_of_x = prev_sel.gather(2, seg_e)  # [B, C, L]
+    window = (
+        (ar_h >= j_of_x[..., None])
+        & (ar_h < seg_e[..., None])
+        & valid[:, None, :, None]
+        & gate_ok[:, None, None, None]
+    )
+    add = window & needed[:, None]  # [B, C, L, Hp1]
+
+    # float32 costs, summed x-major over [L, Hp1] (the kernel's order)
+    cost = torch.zeros((B, C), dtype=torch.float32, device=dev)
+    for x in range(L):
+        fx = fpos[:, x, None]
+        for k in range(Hp1):
+            cost = cost + torch.where(add[:, :, x, k], fx, 0.0)
+    cost = torch.where(torch.arange(C, device=dev)[None, :] < n_cand[:, None], cost, _INF)
+    best = torch.argmin(cost, dim=1)  # ties -> lowest index
+    best_cost = cost.gather(1, best[:, None])[:, 0]
+    no_solution = best_cost >= _INF
+    chosen = add[torch.arange(B, device=dev), best] & ~no_solution[:, None, None]
+
+    obj_w = torch.where(chosen, safe[:, :, None], -1)
+    srv_w = srv_c[:, None, :].expand_as(chosen)
+    words = scatter_or_pairs(words, obj_w, srv_w)
+    applied = torch.where(no_solution, 0.0, best_cost)
+    return words, applied, no_solution, chosen, srv, skipped
+
+
+def _check(words, objects, lengths, shard, f, tables, counts, t, rank):
+    dev = objects.device
+    for name, x, dt in (("words", words, torch.int32), ("objects", objects, torch.int32),
+                        ("lengths", lengths, torch.int32), ("shard", shard, torch.int32),
+                        ("f", f, torch.float32), ("tables", tables, torch.bool),
+                        ("counts", counts, torch.int32), ("t", t, torch.int32),
+                        ("rank", rank, torch.float32)):
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, objects on {dev}")
+        if x.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if objects.dim() != 2 or objects.shape[1] < 1:
+        raise ValueError(f"objects must be [B, L] with L >= 1, got {tuple(objects.shape)}")
+    B = objects.shape[0]
+    if lengths.shape != (B,) or t.shape != (B,):
+        raise ValueError("lengths and t must be [B]")
+    if words.dim() != 2 or words.shape[0] != shard.shape[0] + 1 or f.shape != shard.shape:
+        raise ValueError("words must be [n + 1, W], shard and f [n]")
+    if tables.dim() != 3 or counts.shape != (tables.shape[0],):
+        raise ValueError("tables must be [Hc, C, Hp1] and counts [Hc]")
+    if rank.shape != (words.shape[1] * 32,):
+        raise ValueError(f"rank must be [W*32] = [{words.shape[1] * 32}]")
+
+
+def fused_update(words, objects, lengths, shard, f, tables, counts, t, rank,
+                 pol=None):
+    """One fused UPDATE round: the CUDA kernel on CUDA tensors, the plain
+    version on CPU tensors.  Same contract as :func:`fused_update_plain`;
+    ``words`` is updated in place and returned.
+
+    A path has h <= L - 1 subpath boundaries, so table rows and subpath
+    columns past L are never read: tables wider than L (a budget t >= L)
+    are cut to L columns before the round and ``chosen`` / ``srv`` padded
+    back (False / -1).  The kernel takes L <= ``MAX_L`` and W <=
+    ``MAX_W`` (64 each) and raises ``ValueError`` beyond them.
+    """
+    _check(words, objects, lengths, shard, f, tables, counts, t, rank)
+    B, L = objects.shape
+    Hp1 = tables.shape[2]
+    if Hp1 <= L:
+        return _fused_update(words, objects, lengths, shard, f, tables, counts, t,
+                             rank, pol)
+    rows = min(tables.shape[0], L)
+    words, cost, no_sol, chosen, srv, skipped = _fused_update(
+        words, objects, lengths, shard, f, tables[:rows, :, :L].contiguous(),
+        counts[:rows].contiguous(), t, rank, pol,
+    )
+    chosen = torch.cat([chosen, chosen.new_zeros((B, L, Hp1 - L))], dim=2)
+    srv = torch.cat([srv, srv.new_full((B, Hp1 - L), -1)], dim=1)
+    return words, cost, no_sol, chosen, srv, skipped
+
+
+def _fused_update(words, objects, lengths, shard, f, tables, counts, t, rank, pol):
+    global LAUNCHES
+    if objects.device.type == "cpu":
+        return fused_update_plain(words, objects, lengths, shard, f, tables, counts,
+                                  t, rank, pol=pol)
+    if objects.device.type != "cuda":
+        raise ValueError(f"unsupported device {objects.device}")
+    B, L = objects.shape
+    W = words.shape[1]
+    Hc, C, Hp1 = tables.shape
+    for name, v, lim in (("L", L, MAX_L), ("W", W, MAX_W)):
+        if v > lim:
+            raise ValueError(f"fused_update: {name} = {v} exceeds the kernel's limit {lim}")
+    dev = objects.device
+    mode = _gate_mode(pol)
+    if mode == "scored":
+        rank = _dp_score_tables(objects, lengths, words, _dp_depth(pol)).contiguous()
+    chosen = torch.empty((B, L, Hp1), dtype=torch.uint8, device=dev)
+    srv = torch.empty((B, Hp1), dtype=torch.int32, device=dev)
+    cost = torch.empty((B,), dtype=torch.float32, device=dev)
+    no_sol = torch.empty((B,), dtype=torch.uint8, device=dev)
+    skipped = torch.empty((B,), dtype=torch.uint8, device=dev)
+    if B:
+        lib = load_library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.fused_update_launch(
+                objects.data_ptr(), lengths.data_ptr(), shard.data_ptr(), f.data_ptr(),
+                tables.view(torch.uint8).data_ptr(), counts.data_ptr(), t.data_ptr(),
+                rank.data_ptr(), B, L, W, Hc, C, Hp1, _GATE[mode],
+                int(mode == "routed" and pol.lookahead), words.data_ptr(),
+                chosen.data_ptr(), srv.data_ptr(), cost.data_ptr(), no_sol.data_ptr(),
+                skipped.data_ptr(), stream,
+            )
+        check_launch("fused_update", err)
+        LAUNCHES += 1
+    no_sol = no_sol.view(torch.bool)
+    applied = torch.where(no_sol, 0.0, cost)
+    return words, applied, no_sol, chosen.view(torch.bool), srv, skipped.view(torch.bool)

@@ -1,13 +1,17 @@
 """Policy-routed access walk (Eqn 1 + a routing policy), full trace.
 
-Replaces the TPU kernel ``routed_walk_pallas`` in
-``src/repro/kernels/routed_walk.py`` (``_make_kernel``, ``_pick``,
-``_unpack``).  The CUDA source is ``repro_torch/csrc/routed_walk.cu``:
-one thread per path; the per-server load vector sits in shared memory; a
-remote hop's pick walks the set bits of the object's W words with
-``__ffs`` (holders of the next object first under ``lookahead``) instead
-of unpacking the ``[W*32, block]`` plane the TPU kernel builds.
-``home_first`` and ``lookahead`` are template flags.
+Replaces the TPU kernels ``routed_walk_pallas`` and ``scored_walk_pallas``
+in ``src/repro/kernels/routed_walk.py`` (``_make_kernel``,
+``_make_scored_kernel``, ``_pick``, ``_unpack``).  The CUDA sources are
+``repro_torch/csrc/routed_walk.cu`` and ``scored_walk.cu``, sharing the
+holder pick of ``walk_common.cuh``: one thread per path; a remote hop's
+pick walks the set bits of the object's W words with ``__ffs`` (holders
+of the next object first under ``lookahead``) instead of unpacking the
+``[W*32, block]`` plane the TPU kernels build.  The routed walk ranks
+holders by a per-server load vector staged in shared memory
+(``home_first`` and ``lookahead`` are template flags); the scored walk
+(``nearest_copy_dp``) ranks them by the path's own score row
+``scores[p, i, :]`` and has no lookahead.
 
 Bound on the card: bytes.  Per path the walk reads the objects and the
 length once, the start server, and per valid position the object's W
@@ -16,9 +20,13 @@ writes the ``[P, L]`` int32 server trace and the ``[P, L]`` uint8
 locality trace.  The integer work per byte is small, so device-memory
 bandwidth is the ceiling; the trace writes dominate for short paths.
 
+The scored walk adds, per remote hop, one 4-byte score read for every
+holder of the hopped-to object; its score plane ``[P, L, W*32]`` is the
+largest input, but only the holders' entries are read.
+
 Semantics (kept exactly): ``server0 = len > 0 ? start : 0`` and position 0
 is local iff ``len > 0``; a -1 server is never local at the next
-position; the pick takes the lowest load, home wins ties (when
+position; the pick takes the lowest load (score), home wins ties (when
 ``home >= 0``), then the lowest id; no holder gives -1.
 """
 from __future__ import annotations
@@ -29,14 +37,17 @@ from repro_torch.engine.packed import unpack_bits
 from repro_torch.kernels.build import check_launch, load_library
 
 LAUNCHES = 0
+SCORED_LAUNCHES = 0
 
 
 def pick_targets(cand, home, load):
     """Lowest-load holder per lane; home wins ties, then the lowest id.
 
     ``cand`` bool [P, Sp], ``home`` int32 [P] (may be -1), ``load`` float32
-    [Sp].  Returns int32 [P]; -1 when a lane has no candidate.  The scalar
-    twin is ``repro_torch.engine.routing.pick_holder_host``.
+    [Sp] (one shared rank per server) or [P, Sp] (a per-lane score row).
+    Returns int32 [P]; -1 when a lane has no candidate.  The scalar twins
+    are ``repro_torch.engine.routing.pick_holder_host`` and
+    ``pick_holder_scored``.
     """
     any_c = cand.any(dim=1)
     lv = torch.where(cand, load.expand_as(cand), torch.inf)
@@ -90,14 +101,44 @@ def routed_walk_plain(objects, lengths, words, home, start, load,
     return torch.stack(servers, dim=1), torch.stack(locals_, dim=1)
 
 
-def _check(objects, lengths, words, home, start, load):
+def scored_walk_plain(objects, lengths, words, home, start, scores):
+    """Plain torch version of the scored walk: (servers, local).
+
+    The port of the JAX package's ``backends._scored_walk``: the routed
+    walk without lookahead whose remote-hop pick ranks holders by
+    ``scores[:, i, :]`` (float32 [P, L, W*32], the ``nearest_copy_dp``
+    cost-to-go) instead of a shared load vector.  Other arguments as in
+    :func:`routed_walk_plain`.
+    """
+    P, L = objects.shape
+    dev = objects.device
+    valid = torch.arange(L, device=dev)[None, :] < lengths[:, None]
+    safe = objects.clamp_min(0).long()
+    hrows = home[safe]
+    server = torch.where(valid[:, 0], start, 0).int()
+    servers = [server]
+    locals_ = [valid[:, 0]]
+    for i in range(1, L):
+        w_t = words[safe[:, i]]
+        srv_c = server.clamp_min(0).long()
+        word = w_t.gather(1, (srv_c // 32)[:, None])[:, 0]
+        has_local = ((word >> (srv_c % 32)) & 1).bool() & (server >= 0)
+        tgt = pick_targets(unpack_bits(w_t), hrows[:, i], scores[:, i])
+        nxt = torch.where(has_local, server, tgt.int())
+        server = torch.where(valid[:, i], nxt, server)
+        servers.append(server)
+        locals_.append(has_local & valid[:, i])
+    return torch.stack(servers, dim=1), torch.stack(locals_, dim=1)
+
+
+def _check(objects, lengths, words, home, start, load, scored: bool = False):
     dev = objects.device
     for name, t, dt in (("objects", objects, torch.int32),
                         ("lengths", lengths, torch.int32),
                         ("words", words, torch.int32),
                         ("home", home, torch.int32),
                         ("start", start, torch.int32),
-                        ("load", load, torch.float32)):
+                        ("scores" if scored else "load", load, torch.float32)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, objects on {dev}")
         if t.dtype != dt:
@@ -111,8 +152,11 @@ def _check(objects, lengths, words, home, start, load):
         raise ValueError("lengths and start must be [P]")
     if words.dim() != 2 or home.dim() != 1 or words.shape[0] != home.shape[0] + 1:
         raise ValueError("words must be [n + 1, W] and home [n]")
-    if load.shape != (words.shape[1] * 32,):
-        raise ValueError(f"load must be [W*32] = [{words.shape[1] * 32}]")
+    Sp = words.shape[1] * 32
+    if scored and load.shape != (P, objects.shape[1], Sp):
+        raise ValueError(f"scores must be [P, L, W*32] = [{P}, {objects.shape[1]}, {Sp}]")
+    if not scored and load.shape != (Sp,):
+        raise ValueError(f"load must be [W*32] = [{Sp}]")
 
 
 def routed_walk(objects, lengths, words, home, start, load,
@@ -142,4 +186,31 @@ def routed_walk(objects, lengths, words, home, start, load,
         )
     check_launch("routed_walk", err)
     LAUNCHES += 1
+    return servers, local.view(torch.bool)
+
+
+def scored_walk(objects, lengths, words, home, start, scores):
+    """(servers, local): the scored-walk CUDA kernel on a CUDA tensor, the
+    plain version on a CPU tensor.  See :func:`scored_walk_plain`."""
+    global SCORED_LAUNCHES
+    _check(objects, lengths, words, home, start, scores, scored=True)
+    if objects.device.type == "cpu":
+        return scored_walk_plain(objects, lengths, words, home, start, scores)
+    if objects.device.type != "cuda":
+        raise ValueError(f"unsupported device {objects.device}")
+    P, L = objects.shape
+    servers = torch.empty((P, L), dtype=torch.int32, device=objects.device)
+    local = torch.empty((P, L), dtype=torch.uint8, device=objects.device)
+    if P == 0:
+        return servers, local.view(torch.bool)
+    lib = load_library()
+    with torch.cuda.device(objects.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.scored_walk_launch(
+            objects.data_ptr(), lengths.data_ptr(), words.data_ptr(),
+            home.data_ptr(), start.data_ptr(), scores.data_ptr(),
+            P, L, words.shape[1], servers.data_ptr(), local.data_ptr(), stream,
+        )
+    check_launch("scored_walk", err)
+    SCORED_LAUNCHES += 1
     return servers, local.view(torch.bool)

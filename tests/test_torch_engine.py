@@ -4,9 +4,10 @@ The port's ``torch`` backend (and its ``reference`` oracle) is held
 against ``repro``'s ``jnp`` backend, its ``pallas`` backend (interpret
 mode on the CPU, as ``tests/test_engine.py`` runs it) and its
 ``reference`` oracle: integer path latencies and full access traces
-under ``home_first``, ``nearest_copy`` and ``queue_aware``.  Each
-kernel's plain torch version is also held against the Pallas kernel it
-replaces, on the gathered inputs that kernel takes.
+under ``home_first``, ``nearest_copy``, ``queue_aware`` and
+``nearest_copy_dp``.  Each kernel's plain torch version is also held
+against the Pallas kernel it replaces, on the gathered inputs that kernel
+takes.
 """
 import numpy as np
 import pytest
@@ -26,7 +27,7 @@ from repro_torch.kernels.path_latency import path_latency_plain
 from repro_torch.kernels.routed_walk import routed_walk_plain
 
 CPU = "cpu"
-POLICIES = ("home_first", "nearest_copy", "queue_aware")
+POLICIES = ("home_first", "nearest_copy", "queue_aware", "nearest_copy_dp")
 
 
 def _case(seed, n_obj=150, n_srv=5, n_paths=200, max_len=7, extra=0.15):
@@ -89,7 +90,7 @@ def test_bool_scan_matches_jax():
     assert np.array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("policy", ["nearest_copy", "queue_aware"])
+@pytest.mark.parametrize("policy", ["nearest_copy", "queue_aware", "nearest_copy_dp"])
 def test_backend_functions_match_jax(policy):
     from repro.engine import backends as jb
     from repro_torch.engine import backends as tb
@@ -211,17 +212,18 @@ def test_margin_costs_match():
 
 
 def test_nearest_copy_dp_raises():
+    """``nearest_copy_dp`` no longer raises anywhere (it runs through the
+    engine and the greedy); only the unported incremental plane does."""
     jps, tps, mask, shard, _ = _case(10)
-    _, teng = _engines(mask, shard)
+    jeng, teng = _engines(mask, shard)
+    want = jeng["jnp"].path_latencies(jps, policy="nearest_copy_dp")
     for e in teng.values():
-        with pytest.raises(NotImplementedError, match="scored-walk kernel"):
-            e.path_latencies(tps, policy="nearest_copy_dp")
-        with pytest.raises(NotImplementedError, match="scored-walk kernel"):
-            e.access_trace(tps, policy="nearest_copy_dp")
-    with pytest.raises(NotImplementedError, match="scored-walk kernel"):
-        T.replicate_workload(tps, shard, 5, 1, policy="nearest_copy_dp", device=CPU)
-    with pytest.raises(NotImplementedError):
-        teng["torch"].path_latencies(tps, incremental=True)
+        assert np.array_equal(e.path_latencies(tps, policy="nearest_copy_dp"), want)
+    scheme, _ = T.replicate_workload(tps, shard, 5, 1, policy="nearest_copy_dp", device=CPU)
+    assert T.is_latency_feasible(tps, scheme, 1, policy="nearest_copy_dp", device=CPU)
+    for policy in POLICIES:
+        with pytest.raises(NotImplementedError, match="incremental"):
+            teng["torch"].path_latencies(tps, policy=policy, incremental=True)
 
 
 def _gathered(seed, P, L, n_srv):

@@ -51,7 +51,7 @@ def workload():
     return random_workload(np.random.default_rng(0))
 
 
-@pytest.mark.parametrize("policy", [None, "nearest_copy", "queue_aware"])
+@pytest.mark.parametrize("policy", [None, "nearest_copy", "queue_aware", "nearest_copy_dp"])
 @pytest.mark.parametrize("t", [0, 1, 2])
 def test_masks_bit_identical(workload, t, policy):
     ps, shard = workload

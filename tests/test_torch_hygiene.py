@@ -100,7 +100,7 @@ def test_backend_resolves_from_device():
 
 def test_unported_options_raise():
     ps, shard, _ = _small_case()
-    for kw in ({"fused": True}, {"resilience": 1}, {"mesh": object()}):
+    for kw in ({"resilience": 1}, {"mesh": object()}, {"fused": True, "mesh": object()}):
         with pytest.raises(NotImplementedError):
             T.replicate_workload(ps, shard, 3, 1, device="cpu", **kw)
     with pytest.raises(NotImplementedError):

@@ -3,16 +3,22 @@
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False; on a machine with an NVIDIA GPU
 run ``PYTHONPATH=src python -m pytest -q tests/test_torch_kernels.py``.
-Comparisons are exact: every output is an integer or a bool.
+Comparisons are exact: every output is an integer or a bool, and the
+fused UPDATE's float32 costs are summed in the same order by the kernel
+and its plain version.
 """
 import numpy as np
 import pytest
 import torch
 
 import repro_torch.core as T
-from repro_torch.engine import LatencyEngine
+from repro_torch.core import combi
+from repro_torch.engine import LatencyEngine, resolve_policy
+from repro_torch.engine.backends import _dp_score_tables
 from repro_torch.engine.packed import pack_bool_mask
+from repro_torch.engine.routing import NearestCopy, nearest_copy_dp
 from repro_torch.kernels import path_latency as pl_mod
+from repro_torch.kernels import provision_update as pu_mod
 from repro_torch.kernels import routed_walk as rw_mod
 
 pytestmark = pytest.mark.cuda
@@ -95,3 +101,105 @@ def test_kernel_backend_greedy_matches_torch(cuda):
         assert np.array_equal(a.mask, b.mask) and np.array_equal(a.mask, c.mask)
         assert LatencyEngine(a).backend == "kernel"
         assert T.is_latency_feasible(ps, a, 1, policy=policy)
+
+
+@pytest.mark.parametrize("depth", [None, 2])
+@pytest.mark.parametrize("L,n_srv", [(1, 6), (6, 40), (9, 128)])
+def test_scored_walk_kernel_matches_plain(cuda, depth, L, n_srv):
+    x = _inputs(L * 11, 20_000, L, n_srv, cuda)
+    scores = _dp_score_tables(x["objects"], x["lengths"], x["words"],
+                              -1 if depth is None else depth)
+    args = (x["objects"], x["lengths"], x["words"], x["shard"], x["start"], scores)
+    before = rw_mod.SCORED_LAUNCHES
+    s, l = rw_mod.scored_walk(*args)
+    torch.cuda.synchronize()
+    assert rw_mod.SCORED_LAUNCHES == before + 1
+    ws, wl = rw_mod.scored_walk_plain(*args)
+    assert torch.equal(s, ws)
+    assert torch.equal(l, wl)
+
+
+FUSED_GATES = {
+    "none": None,
+    "routed": resolve_policy("nearest_copy"),
+    "no_lookahead": NearestCopy(lookahead=False),
+    "queue_aware": resolve_policy("queue_aware"),
+    "scored": nearest_copy_dp(),
+    "scored_depth2": nearest_copy_dp(2),
+}
+
+
+def _fused_inputs(seed, B, L, n_srv, device, t_budget):
+    x = _inputs(seed, B, L, n_srv, device)
+    x["shard"] = x["shard"].clamp_min(0)
+    rng = np.random.default_rng(seed + 1)
+    n = x["shard"].shape[0]
+    x["f"] = torch.from_numpy((rng.integers(1, 24, n) / 8).astype(np.float32)).to(device)
+    tables, counts = combi.stacked_tables(max(L - 1, 1), t_budget)
+    x["tables"] = torch.from_numpy(tables).to(device)
+    x["counts"] = torch.from_numpy(counts).to(device)
+    x["t"] = torch.from_numpy(rng.integers(0, 3, B).astype(np.int32)).to(device)
+    return x
+
+
+@pytest.mark.parametrize("gate", list(FUSED_GATES))
+@pytest.mark.parametrize("L,n_srv", [(1, 6), (6, 40), (9, 128)])
+def test_fused_update_kernel_matches_plain(cuda, gate, L, n_srv):
+    x = _fused_inputs(L * 13, 20_000, L, n_srv, cuda, 2 if L > 6 else 1)
+    pol = FUSED_GATES[gate]
+    rank = x["load"] if gate == "queue_aware" else torch.zeros_like(x["load"])
+    args = (x["objects"], x["lengths"], x["shard"], x["f"], x["tables"],
+            x["counts"], x["t"], rank)
+    before = pu_mod.LAUNCHES
+    got = pu_mod.fused_update(x["words"].clone(), *args, pol=pol)
+    torch.cuda.synchronize()
+    assert pu_mod.LAUNCHES == before + 1
+    want = pu_mod.fused_update_plain(x["words"].clone(), *args, pol=pol)
+    # the words without the sacrificial last row (a write sink)
+    assert torch.equal(got[0][:-1], want[0][:-1])
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+    assert bool(got[3].any()) or L == 1
+
+
+def test_fused_update_kernel_wide_tables(cuda):
+    """Tables wider than the kernel's 64 subpath columns (a budget t >= L)
+    are cut to L columns: the kernel equals the plain version on the full
+    tables."""
+    x = _fused_inputs(5, 2_000, 9, 40, cuda, 1)
+    tables, counts = combi.stacked_tables(69, 1)             # Hp1 = 70 > 64
+    args = (x["objects"], x["lengths"], x["shard"], x["f"],
+            torch.from_numpy(tables).to(cuda), torch.from_numpy(counts).to(cuda),
+            x["t"], torch.zeros_like(x["load"]))
+    pol = resolve_policy("nearest_copy")
+    got = pu_mod.fused_update(x["words"].clone(), *args, pol=pol)
+    want = pu_mod.fused_update_plain(x["words"].clone(), *args, pol=pol)
+    assert torch.equal(got[0][:-1], want[0][:-1])
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+
+
+def test_fused_update_rejects_beyond_limits(cuda):
+    x = _fused_inputs(3, 64, 65, 6, cuda, 1)
+    with pytest.raises(ValueError, match="limit 64"):
+        pu_mod.fused_update(x["words"], x["objects"], x["lengths"], x["shard"], x["f"],
+                            x["tables"], x["counts"], x["t"], x["load"])
+
+
+@pytest.mark.parametrize("policy", [None, "nearest_copy", "nearest_copy_dp"])
+def test_kernel_backend_fused_greedy_matches_torch(cuda, policy):
+    """Unit sizes make every candidate cost exact, so the fused kernel's
+    summation order cannot flip an argmin: all three runs agree."""
+    from conftest import random_workload
+
+    ps, shard = random_workload(np.random.default_rng(1))
+    ps = T.PathSet(ps.objects, ps.lengths, ps.query_ids)
+    before = pu_mod.LAUNCHES
+    a, sa = T.replicate_workload(ps, shard, 5, 1, policy=policy, fused=True)
+    assert pu_mod.LAUNCHES > before
+    b, sb = T.replicate_workload(ps, shard, 5, 1, policy=policy, fused=True,
+                                 policy_backend="torch")
+    c, _ = T.replicate_workload(ps, shard, 5, 1, policy=policy, device="cpu")
+    assert np.array_equal(a.mask, b.mask) and np.array_equal(a.mask, c.mask)
+    assert sa.failed_paths == sb.failed_paths == 0
+    assert T.is_latency_feasible(ps, a, 1, policy=policy)
