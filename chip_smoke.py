@@ -33,11 +33,32 @@ Phases (each prints one JSON line; any failed check exits non-zero):
           exact, then each timed as the median of 5 runs after a warm-up;
           the scored walk over row chunks of those paths; the fused UPDATE
           on 256- and 65,536-row batches of the SNB scale 10 paths.
+  lm_parity  the attention and embedding-bag kernels against their plain
+          versions on seeded inputs: flash prefill on the JAX package's
+          sweep shapes plus qwen2-7b's (KV 4, G 7, hd 128, S 4096) and
+          danube's (KV 8, G 4, hd 120, window 4096, S 8192); decode on the
+          sweep shapes plus T = 4100 with lengths 0 .. T; the bag in sum and
+          mean with all-padding bags.  f32 at 2e-5 (TF32 off), bf16 at 3e-2
+          (flash) and 2e-2 (decode), the bag at 1e-5.
+  lm      qwen2-7b at full width in bf16 from a seeded random init:
+          ``forward`` on 2 x 4,096 tokens with ``use_flash_prefill`` (28
+          flash launches) and without (blockwise torch-op attention), the
+          logits compared at the stated tolerance; the same two forwards at
+          full width in f32 with 2 layers, at 1e-4; then 4 prompts of 1,024
+          tokens served by ``prefill`` and 16 greedy ``decode_step``s, each
+          step's logits held against ``forward`` on the same tokens;
+          ``ops.decode_attention`` on layer 0's cache against its plain
+          version.  Each kernel is timed at these shapes beside its plain
+          version and ``scaled_dot_product_attention``.
+  bag     ``ops.embedding_bag`` at MIND's widths: a 2^26 x 64 f32 item
+          table and 4,096 bags of 50 ids with ~10% padding, in mean and sum,
+          against the plain version, timed beside ``F.embedding_bag``.
 The last two lines are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -52,6 +73,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (NVIDIA data sheet)
 # H100 SXM 32-bit rate outside the tensor cores (67 T/s for float32 in the
 # data sheet), taken as the peak of the fused UPDATE's integer mask ops
 INT32_OPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
+# bf16 forward at full width, flash vs torch-op attention: the logits have
+# std ~1; a 28-layer bf16 model at widths 448 and 896 on the CPU differed by
+# at most 0.090 / 0.098 and 0.014 / 0.015 on average between the branches
+LOGIT_MAX_TOL, LOGIT_MEAN_TOL = 0.5, 0.05
 
 
 def emit(obj) -> None:
@@ -204,7 +230,8 @@ def snb_case(graph_mod, workload_mod, scale: int, n_queries: int, n_srv: int):
     return snb, ps, shard, snb.graph.object_sizes().astype(np.float32)
 
 
-KERNELS = ("path_latency", "routed_walk", "scored_walk", "fused_update")
+KERNELS = ("path_latency", "routed_walk", "scored_walk", "fused_update",
+           "flash_prefill", "decode_attention", "embedding_bag")
 
 
 def zero_counts(mods) -> None:
@@ -596,11 +623,305 @@ def phase_sweep(pl, rw, pu, graph_mod, workload_mod, engine_mod, backends, routi
     return out
 
 
+def seeded(g, shape, dtype, dev) -> torch.Tensor:
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+def close_err(got, want, tol: float) -> tuple[float, bool]:
+    """(max |got - want|, whether |got - want| <= tol + tol * |want| everywhere)."""
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    return float(d.max()), bool((d <= tol + tol * want.abs()).all())
+
+
+def bound(ops: float, nbytes: float, ops_per_s: float) -> dict:
+    """The least time for ``ops`` operations at ``ops_per_s`` and ``nbytes``
+    moved once at the memory rate, and which of the two bounds it."""
+    t_ops, t_bytes = ops / ops_per_s, nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3, "ops": ops, "bytes": nbytes,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def flash_bound(B: int, S: int, KV: int, G: int, hd: int, window: int, elt: int) -> dict:
+    """Causal GQA attention: 4 * hd flops per (query head, key) pair the
+    mask keeps, at the bf16 tensor-core rate, against q, k, v and the output
+    moved once."""
+    keys = torch.arange(1, S + 1, dtype=torch.float64)
+    pairs = float((keys.clamp(max=window) if window > 0 else keys).sum())
+    nbytes = (2 * B * S * KV * G * hd + 2 * B * S * KV * hd) * elt
+    return bound(4.0 * B * KV * G * hd * pairs, nbytes, BF16_FLOPS_PER_S)
+
+
+def phase_lm_parity(fp, da, eb, dev) -> dict:
+    """Each new kernel against its plain version on seeded inputs."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(13)
+    max_err = {"flash_prefill": 0.0, "decode_attention": 0.0, "embedding_bag": 0.0}
+    cases = {}  # "kernel/dtype" -> number of cases, tolerance, largest error
+
+    def record(kernel, case, got, want, tol):
+        err, ok = close_err(got, want, tol)
+        max_err[kernel] = max(max_err[kernel], err)
+        key = f"{kernel}/{case['dtype']}"
+        cases[key] = {"cases": cases.get(key, {"cases": 0})["cases"] + 1, "tol": tol,
+                      "max_abs_err": max(err, cases.get(key, {}).get("max_abs_err", 0.0))}
+        check(ok, f"{kernel} {case}: kernel vs plain beyond {tol} (max err {err})")
+
+    dtypes = ((torch.float32, "float32"), (torch.bfloat16, "bfloat16"))
+    for B, S, KV, G, hd, win in ((2, 256, 2, 4, 64, 0), (1, 128, 1, 8, 32, 0),
+                                 (2, 256, 4, 2, 64, 48), (1, 4096, 4, 7, 128, 0),
+                                 (1, 8192, 8, 4, 120, 4096)):
+        for dt, name in dtypes:
+            q = seeded(g, (B, S, KV, G, hd), dt, dev)
+            k = seeded(g, (B, S, KV, hd), dt, dev)
+            v = seeded(g, (B, S, KV, hd), dt, dev)
+            got = fp.flash_prefill(q, k, v, win)
+            # the plain version one kv head at a time bounds its [S, S] scores
+            for h in range(KV):
+                want = fp.flash_prefill_plain(q[:, :, h:h + 1], k[:, :, h:h + 1],
+                                              v[:, :, h:h + 1], win)
+                record("flash_prefill", dict(B=B, S=S, KV=KV, G=G, hd=hd, window=win,
+                                             dtype=name, kv_head=h),
+                       got[:, :, h:h + 1], want, 3e-2 if dt == torch.bfloat16 else 2e-5)
+            del q, k, v, got, want
+    for B, KV, G, hd, T, lens in ((2, 2, 4, 64, 300, None), (1, 1, 8, 128, 1024, None),
+                                  (3, 4, 1, 64, 77, None),
+                                  (9, 4, 7, 128, 4100, [0, 1, 2, 31, 32, 33, 2050, 4099, 4100])):
+        if lens is None:
+            lengths = torch.randint(1, T + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+        else:
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for dt, name in dtypes:
+            q = seeded(g, (B, KV, G, hd), dt, dev)
+            k = seeded(g, (B, T, KV, hd), dt, dev)
+            v = seeded(g, (B, T, KV, hd), dt, dev)
+            record("decode_attention", dict(B=B, KV=KV, G=G, hd=hd, T=T, dtype=name,
+                                            lengths=lengths.tolist()),
+                   da.decode_attention(q, k, v, lengths), da.decode_attention_plain(q, k, v, lengths),
+                   2e-2 if dt == torch.bfloat16 else 2e-5)
+    N, d, B, L = 100_000, 64, 1024, 50
+    ids = torch.randint(0, N, (B, L), generator=g, device=dev, dtype=torch.int32)
+    ids[torch.rand((B, L), generator=g, device=dev) < 0.1] = -1
+    ids[:8] = -1                      # all-padding bags
+    ids[8, :3] = torch.tensor([N, N + 7, 2**31 - 1], dtype=torch.int32)  # past the table
+    for dt, name in dtypes:
+        table = seeded(g, (N, d), dt, dev)
+        for mode in ("mean", "sum"):
+            got = eb.embedding_bag(table, ids, mode)
+            check(bool((got[:8] == 0).all()), f"embedding_bag {mode} {name}: all-padding bag not 0")
+            record("embedding_bag", dict(N=N, d=d, B=B, L=L, mode=mode, dtype=name),
+                   got, eb.embedding_bag_plain(table, ids, mode), 1e-5)
+    torch.cuda.synchronize()
+    out = {"phase": "lm_parity", "seconds": time.perf_counter() - t0,
+           "allow_tf32": torch.backends.cuda.matmul.allow_tf32, "max_abs_err": max_err,
+           "cases": cases}
+    emit(out)
+    return out
+
+
+def set_flash(model, on: bool) -> None:
+    """Switch ``use_flash_prefill`` on the model and every layer."""
+    cfg = dataclasses.replace(model.cfg, use_flash_prefill=on)
+    for m in (model, *model.layers):
+        m.cfg = cfg
+
+
+def logit_gap(a, b) -> dict:
+    d = (a - b).abs()
+    return {"max_abs": float(d.max()), "mean_abs": float(d.mean()),
+            "argmax_agree": float((a.argmax(-1) == b.argmax(-1)).float().mean()),
+            "ref_std": float(b.std())}
+
+
+def check_gap(gap: dict, what: str) -> None:
+    check(gap["max_abs"] <= LOGIT_MAX_TOL and gap["mean_abs"] <= LOGIT_MEAN_TOL,
+          f"{what}: logits differ by {gap} (tolerance max {LOGIT_MAX_TOL}, "
+          f"mean {LOGIT_MEAN_TOL})")
+
+
+def synced(fn):
+    """(result, host seconds) of ``fn`` run to completion on the card."""
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - ts
+
+
+def time_flash(fp, F, cfg, dev) -> dict:
+    """flash_prefill at the forward's per-layer shape, beside its plain
+    version and scaled_dot_product_attention (causal, GQA)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, S, KV, hd = 2, 4096, cfg.n_kv_heads, cfg.hd
+    G = cfg.n_heads // KV
+    q = seeded(g, (B, S, KV, G, hd), cfg.dtype, dev)
+    k = seeded(g, (B, S, KV, hd), cfg.dtype, dev)
+    v = seeded(g, (B, S, KV, hd), cfg.dtype, dev)
+    qh = q.reshape(B, S, KV * G, hd).transpose(1, 2).contiguous()
+    kh, vh = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    lib = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, enable_gqa=True)
+    lib_err = float((lib.transpose(1, 2).reshape(q.shape).float()
+                     - fp.flash_prefill(q, k, v).float()).abs().max())
+    out = {"shape": [B, S, KV, G, hd], "dtype": str(cfg.dtype),
+           "kernel_ms": time_ms(lambda: fp.flash_prefill(q, k, v)),
+           "plain_ms": time_ms(lambda: fp.flash_prefill_plain(q, k, v)),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               qh, kh, vh, is_causal=True, enable_gqa=True)),
+           "library_vs_kernel_max_abs": lib_err}
+    out.update(flash_bound(B, S, KV, G, hd, 0, q.element_size()))
+    return out
+
+
+def time_decode(da, F, q, k, v, lengths) -> dict:
+    """decode_attention on a cache, beside its plain version and
+    scaled_dot_product_attention with a length mask (GQA)."""
+    B, KV, G, hd = q.shape
+    T = k.shape[1]
+    qh = q.reshape(B, KV * G, 1, hd)
+    kh, vh = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = (torch.arange(T, device=q.device)[None, :] < lengths[:, None])[:, None, None, :]
+    lib = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, enable_gqa=True)
+    lib_err = float((lib.reshape(q.shape).float()
+                     - da.decode_attention(q, k, v, lengths).float()).abs().max())
+    rows = int(lengths.clamp(0, T).sum())
+    elt = q.element_size()
+    out = {"shape": [B, KV, G, hd, T], "dtype": str(q.dtype),
+           "kernel_ms": time_ms(lambda: da.decode_attention(q, k, v, lengths)),
+           "plain_ms": time_ms(lambda: da.decode_attention_plain(q, k, v, lengths)),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               qh, kh, vh, attn_mask=mask, enable_gqa=True)),
+           "library_vs_kernel_max_abs": lib_err}
+    out.update(bound(4.0 * B * KV * G * hd * T, 2 * rows * KV * hd * elt + 2 * q.numel() * elt
+                     + 4 * B, BF16_FLOPS_PER_S))
+    return out
+
+
+def phase_lm(TM, qwen2, fp, da, ops, F, counters, dev) -> dict:
+    """qwen2-7b at full width in bf16: flash and torch-op forwards, then a
+    few requests served by prefill and greedy decode steps."""
+    t0 = time.perf_counter()
+    cfg = qwen2.FULL
+    stage_s = {}
+    g = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        model, stage_s["init"] = synced(lambda: TM.Transformer(
+            cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0)))
+        n_params = sum(p.numel() for p in model.parameters())
+        tokens = torch.randint(0, cfg.vocab, (2, 4096), generator=g, device=dev)
+        # the main path: counters zeroed just before, read just after
+        zero_counts(counters)
+        set_flash(model, True)
+        flash_logits, stage_s["forward_flash"] = synced(lambda: model(tokens))
+        set_flash(model, False)
+        torch_logits, stage_s["forward_torch_ops"] = synced(lambda: model(tokens))
+        check(bool(torch.isfinite(flash_logits).all()), "flash forward: non-finite logits")
+        check(flash_logits.shape == (*tokens.shape, cfg.vocab), "flash forward: logits malformed")
+        forward_gap = logit_gap(flash_logits, torch_logits)
+        del flash_logits, torch_logits
+        check_gap(forward_gap, "forward flash vs torch ops")
+        # serving: 4 prompts of 1,024 tokens, 16 greedy decode steps
+        prompts = torch.randint(0, cfg.vocab, (4, 1024), generator=g, device=dev)
+        (cache, lg), stage_s["prefill"] = synced(lambda: model.prefill(prompts, max_len=1040))
+        step_logits, gen, decode_s = [lg], [lg.argmax(-1)], []
+        for _ in range(16):
+            (cache, lg), sec = synced(lambda: model.decode_step(cache, gen[-1]))
+            decode_s.append(sec)
+            step_logits.append(lg)
+            gen.append(lg.argmax(-1))
+        full = torch.cat([prompts, torch.stack(gen[:16], dim=1)], dim=1)
+        ref, stage_s["forward_1040"] = synced(lambda: model(full))
+        serve_gaps = [logit_gap(step_logits[i], ref[:, 1023 + i]) for i in range(17)]
+        for i, gap in enumerate(serve_gaps):
+            check_gap(gap, "prefill vs forward" if i == 0 else f"decode step {i} vs forward")
+        del ref, step_logits
+        # decode_attention on layer 0's cache, lengths = the cache index
+        KV, G, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
+        q = seeded(g, (4, KV, G, hd), cfg.dtype, dev)
+        k0, v0 = cache["k"][0], cache["v"][0]
+        lengths = torch.full((4,), cache["index"], dtype=torch.int32, device=dev)
+        (dec, stage_s["decode_attention_op"]) = synced(
+            lambda: ops.decode_attention(q, k0, v0, lengths))
+        dec_err, ok = close_err(dec, da.decode_attention_plain(q, k0, v0, lengths), 2e-2)
+        check(ok, f"decode_attention on the layer-0 cache: max err {dec_err}")
+        launches = read_counts(counters)
+        check(launches["flash_prefill"] > 0, "flash_prefill kernel not launched on the lm path")
+        check(launches["decode_attention"] > 0, "decode_attention kernel not launched")
+        timings = {"flash_prefill": time_flash(fp, F, cfg, dev),
+                   "decode_attention": time_decode(da, F, q, k0, v0, lengths)}
+        del model, cache, k0, v0
+        torch.cuda.empty_cache()
+        # f32 at full width, 2 layers: the flash branch within 1e-4 of torch ops
+        cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+        m32 = TM.Transformer(cfg32, device=dev, generator=torch.Generator(device=dev).manual_seed(2))
+        t32 = torch.randint(0, cfg.vocab, (1, 1024), generator=g, device=dev)
+        set_flash(m32, True)
+        a = m32(t32)
+        set_flash(m32, False)
+        f32_err, ok = close_err(a, m32(t32), 1e-4)
+        check(ok, f"f32 forward flash vs torch ops: max err {f32_err} beyond 1e-4")
+        del m32, a
+        torch.cuda.empty_cache()
+    out = {"phase": "lm", "seconds": time.perf_counter() - t0, "config": cfg.name,
+           "params": n_params, "dtype": str(cfg.dtype), "forward_tokens": list(tokens.shape),
+           "forward_flash_vs_torch_ops": forward_gap,
+           "logit_tol": {"max_abs": LOGIT_MAX_TOL, "mean_abs": LOGIT_MEAN_TOL},
+           "serve": {"prompts": list(prompts.shape), "max_len": 1040, "decode_steps": 16,
+                     "gaps_vs_forward": serve_gaps, "decode_step_s": decode_s,
+                     "tokens_per_s": 4 * 16 / sum(decode_s)},
+           "decode_attention_layer0_max_abs_err": dec_err,
+           "f32_two_layer_flash_vs_torch_ops_max_abs": f32_err,
+           "stage_s": stage_s, "launches": launches, "timings": timings,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    emit(out)
+    return out
+
+
+def phase_bag(eb, ops, F, counters, dev) -> dict:
+    """ops.embedding_bag at MIND's widths (src/repro/configs/mind.py: 2^26
+    items x 64, history length 50), 4,096 bags with ~10% padding."""
+    t0 = time.perf_counter()
+    N, d, B, L = 2**26, 64, 4096, 50
+    g = torch.Generator(device=dev).manual_seed(3)
+    table = torch.randn((N, d), generator=g, device=dev)
+    # ids below N - 1, the padding row F.embedding_bag is given below
+    ids = torch.randint(0, N - 1, (B, L), generator=g, device=dev, dtype=torch.int32)
+    ids[torch.rand((B, L), generator=g, device=dev) < 0.1] = -1
+    setup_s = time.perf_counter() - t0
+    # the main path: counters zeroed just before, read just after
+    zero_counts(counters)
+    got = {mode: ops.embedding_bag(table, ids, mode) for mode in ("mean", "sum")}
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    check(launches["embedding_bag"] > 0, "embedding_bag kernel not launched on the bag path")
+    errs = {}
+    for mode, out_ in got.items():
+        check(out_.shape == (B, d) and bool(torch.isfinite(out_).all()), f"bag {mode}: malformed")
+        errs[mode], ok = close_err(out_, eb.embedding_bag_plain(table, ids, mode), 1e-5)
+        check(ok, f"bag {mode}: kernel vs plain max err {errs[mode]}")
+    lib_ids = torch.where(ids < 0, N - 1, ids)
+    lib = F.embedding_bag(lib_ids, table, mode="mean", padding_idx=N - 1)
+    real = int((ids >= 0).sum())
+    timing = {"kernel_ms": time_ms(lambda: eb.embedding_bag(table, ids, "mean")),
+              "plain_ms": time_ms(lambda: eb.embedding_bag_plain(table, ids, "mean")),
+              "library_ms": time_ms(lambda: F.embedding_bag(lib_ids, table, mode="mean",
+                                                            padding_idx=N - 1)),
+              "library_vs_kernel_max_abs": float((lib - got["mean"]).abs().max()),
+              "rows_read": real}
+    timing.update(bound(float(real * d), real * d * 4 + B * L * 4 + B * d * 4, INT32_OPS_PER_S))
+    del table, lib, lib_ids
+    torch.cuda.empty_cache()
+    out = {"phase": "bag", "seconds": time.perf_counter() - t0, "setup_s": setup_s,
+           "table": [N, d], "bags": B, "bag_len": L, "padding_share": 1 - real / (B * L),
+           "max_abs_err": errs, "launches": launches, "timing": timing}
+    emit(out)
+    return out
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int, err, timing) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": timing["kernel_ms"],
             "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-            "bound_by": timing["bound_by"], "library_ms": None}
+            "bound_by": timing["bound_by"], "library_ms": timing.get("library_ms")}
 
 
 def main() -> int:
@@ -615,13 +936,22 @@ def main() -> int:
     from repro_torch.core import combi
     from repro_torch.core import greedy
     from repro_torch.engine import backends, routing
+    import torch.nn.functional as F
+
+    from repro_torch.configs import qwen2_7b
     from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import ops
     from repro_torch.kernels import path_latency as pl
     from repro_torch.kernels import provision_update as pu
     from repro_torch.kernels import routed_walk as rw
+    from repro_torch.models import transformer as TM
 
     dev = torch.device("cuda")
-    counters = [(pl, "LAUNCHES"), (rw, "LAUNCHES"), (rw, "SCORED_LAUNCHES"), (pu, "LAUNCHES")]
+    counters = [(pl, "LAUNCHES"), (rw, "LAUNCHES"), (rw, "SCORED_LAUNCHES"), (pu, "LAUNCHES"),
+                (fp, "LAUNCHES"), (da, "LAUNCHES"), (eb, "LAUNCHES")]
     t_all = time.perf_counter()
     b = phase_build(build)
     par = phase_parity(pl, rw, pu, backends, routing, combi, dev, P=1_000_000)
@@ -641,6 +971,14 @@ def main() -> int:
     sw = phase_sweep(pl, rw, pu, graph_mod, workload_mod, engine_mod, backends, routing,
                      combi, T, case, scale=100, n_queries=150_000, dev=dev,
                      launches=launches)
+    del case, main_out, fused_out
+    torch.cuda.empty_cache()
+    lm_par = phase_lm_parity(fp, da, eb, dev)
+    lm = phase_lm(TM, qwen2_7b, fp, da, ops, F, counters, dev)
+    bag = phase_bag(eb, ops, F, counters, dev)
+    launches.update(flash_prefill=lm["launches"]["flash_prefill"],
+                    decode_attention=lm["launches"]["decode_attention"],
+                    embedding_bag=bag["launches"]["embedding_bag"])
     emit({"phase": "total", "seconds": time.perf_counter() - t_all})
     print(b["nvidia_smi"], flush=True)
     tm = sw["timings"]
@@ -658,6 +996,16 @@ def main() -> int:
         kernel_entry("fused_update", "src/repro_torch/csrc/provision_update.cu",
                      "src/repro/kernels/provision_update.py:218", launches["fused_update"],
                      err["fused_update"], tm["fused_update/routed/B=256"]),
+        kernel_entry("embedding_bag", "src/repro_torch/csrc/embedding_bag.cu",
+                     "src/repro/kernels/embedding_bag.py:45", launches["embedding_bag"],
+                     lm_par["max_abs_err"]["embedding_bag"], bag["timing"]),
+        kernel_entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
+                     "src/repro/kernels/flash_prefill.py:69", launches["flash_prefill"],
+                     lm_par["max_abs_err"]["flash_prefill"], lm["timings"]["flash_prefill"]),
+        kernel_entry("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+                     "src/repro/kernels/decode_attention.py:64", launches["decode_attention"],
+                     lm_par["max_abs_err"]["decode_attention"],
+                     lm["timings"]["decode_attention"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -18,6 +18,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -31,7 +33,14 @@ SIGNATURES = {
     "scored_walk_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "fused_update_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    # the last int before the stream is a DTYPE_CODES value
+    "flash_prefill_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "decode_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "embedding_bag_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
+
+# floating-point element types the attention and embedding kernels take
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None

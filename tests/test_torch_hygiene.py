@@ -16,7 +16,10 @@ import pytest
 import torch
 
 import repro_torch.core as T
+from repro_torch.configs import qwen2_7b
 from repro_torch.engine import LatencyEngine, PackedScheme, resolve_backend
+from repro_torch.kernels import decode_attention, embedding_bag, flash_prefill, ops
+from repro_torch.models import transformer as TM
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -42,7 +45,8 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 def test_port_import_leaves_jax_unloaded():
     code = (
-        "import sys, repro_torch, repro_torch.core.greedy, repro_torch.workload;"
+        "import sys, repro_torch, repro_torch.core.greedy, repro_torch.workload,"
+        " repro_torch.models, repro_torch.configs, repro_torch.kernels.ops;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')];"
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -67,6 +71,9 @@ ENTRY_POINTS = {
     "query_slacks": lambda ps, shard, sc: T.query_slacks(ps, sc, 1),
     "path_latencies": lambda ps, shard, sc: T.path_latencies(ps, sc),
     "prune_scheme_replicas": lambda ps, shard, sc: T.prune_scheme_replicas(sc, ps, 1),
+    "ops.path_latency": lambda ps, shard, sc: ops.path_latency(ps, sc),
+    "Transformer": lambda ps, shard, sc: TM.Transformer(qwen2_7b.SMOKE),
+    "cache_init": lambda ps, shard, sc: TM.cache_init(qwen2_7b.SMOKE, 1, 8),
 }
 
 
@@ -107,3 +114,38 @@ def test_unported_options_raise():
         T.replicate_delta(ps, None, 1)
     with pytest.raises(NotImplementedError):
         T.replicate_stream(None, shard, 3, 1)
+
+
+def _kernel_calls(device):
+    q = torch.zeros(1, 128, 1, 2, 32, device=device)
+    k = torch.zeros(1, 128, 1, 32, device=device)
+    q1 = torch.zeros(1, 1, 2, 32, device=device)
+    lengths = torch.ones(1, dtype=torch.int32, device=device)
+    table = torch.zeros(4, 8, device=device)
+    ids = torch.zeros(2, 3, dtype=torch.int32, device=device)
+    return {
+        "flash_prefill": lambda: ops.flash_prefill(q, k, k),
+        "decode_attention": lambda: ops.decode_attention(q1, k, k, lengths),
+        "embedding_bag": lambda: ops.embedding_bag(table, ids),
+    }
+
+
+@pytest.mark.parametrize("name", ["flash_prefill", "decode_attention", "embedding_bag"])
+def test_kernel_ops_dispatch_by_tensor_device(name):
+    """A CPU tensor runs the plain version (no launch counted); any device
+    but the CPU and CUDA raises.  A CUDA tensor launches the kernel
+    (tests/test_torch_lm_kernels.py, on a card)."""
+    mod = {"flash_prefill": flash_prefill, "decode_attention": decode_attention,
+           "embedding_bag": embedding_bag}[name]
+    before = mod.LAUNCHES
+    out = _kernel_calls("cpu")[name]()
+    assert out.device.type == "cpu" and torch.isfinite(out).all()
+    assert mod.LAUNCHES == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        _kernel_calls("meta")[name]()
+
+
+def test_model_runs_on_the_cpu_when_asked():
+    m = TM.Transformer(qwen2_7b.SMOKE, device="cpu")
+    assert m.embed.device.type == "cpu" and m.layers[0].wq.device.type == "cpu"
+    assert TM.cache_init(qwen2_7b.SMOKE, 1, 8, device="cpu")["k"].device.type == "cpu"
