@@ -4,7 +4,9 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (each prints one JSON line; any failed check exits non-zero):
   build   compile the CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
-          sm_90a) and print the card, its power limit and the TF32 flag.
+          sm_90a) and print the card, its power limit, the TF32 flag and
+          ptxas's registers, shared memory and spills of the attention
+          kernels.
   parity  each kernel against its plain torch version, exactly, on 1 M
           seeded random paths (L in {1, 6, 9}, 6 / 40 / 128 servers, bit 31
           set, -1 padding and empty rows; the routed walk under
@@ -34,27 +36,36 @@ Phases (each prints one JSON line; any failed check exits non-zero):
           the scored walk over row chunks of those paths; the fused UPDATE
           on 256- and 65,536-row batches of the SNB scale 10 paths.
   lm_parity  the attention and embedding-bag kernels against their plain
-          versions on seeded inputs: flash prefill on the JAX package's
-          sweep shapes plus qwen2-7b's (KV 4, G 7, hd 128, S 4096) and
-          danube's (KV 8, G 4, hd 120, window 4096, S 8192); decode on the
-          sweep shapes plus T = 4100 with lengths 0 .. T; the bag in sum and
-          mean with all-padding bags.  f32 at 2e-5 (TF32 off), bf16 at 3e-2
-          (flash) and 2e-2 (decode), the bag at 1e-5.
+          versions on seeded inputs: flash prefill (bf16 on the wgmma
+          kernel, f32 on the CUDA-core kernel) on the JAX package's sweep
+          shapes plus qwen2-7b's (KV 4, G 7, hd 128, S 4096: 128-row tiles
+          cross positions mid-group), chatglm3's group of 16 with a window,
+          a group of 5 at hd 32 and danube's (KV 8, G 4, hd 120, window
+          4096, S 8192); decode on the sweep shapes plus T = 4100 with
+          lengths 0 .. T and T = 1040 and 3001 (not multiples of the
+          64-key split chunk) with lengths at the chunk edges; the bag in
+          sum and mean with all-padding bags.  f32 at 2e-5 (TF32 off), bf16
+          at 3e-2 (flash) and 2e-2 (decode), the bag at 1e-5.
   lm      qwen2-7b at full width in bf16 from a seeded random init:
           ``forward`` on 2 x 4,096 tokens with ``use_flash_prefill`` (28
-          flash launches) and without (blockwise torch-op attention), the
-          logits compared at the stated tolerance; the same two forwards at
+          flash launches, all on the tensor-core kernel) and without
+          (blockwise torch-op attention), the logits compared at the stated
+          tolerance and the two forwards' seconds reported side by side; the same two forwards at
           full width in f32 with 2 layers, at 1e-4; then 4 prompts of 1,024
           tokens served by ``prefill`` and 16 greedy ``decode_step``s, each
           step's logits held against ``forward`` on the same tokens;
           ``ops.decode_attention`` on layer 0's cache against its plain
           version.  Each kernel is timed at these shapes beside its plain
-          version and ``scaled_dot_product_attention``.
+          version and ``scaled_dot_product_attention``; the flash kernel's
+          f32 route is timed at the same shape.
   bag     ``ops.embedding_bag`` at MIND's widths: a 2^26 x 64 f32 item
           table and 4,096 bags of 50 ids with ~10% padding, in mean and sum,
           against the plain version, timed beside ``F.embedding_bag``.
 The last two lines are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1.
+Each timed call is timed twice: "ms" with the card idle at the start
+event, so a call shorter than its host enqueue is timed from the host,
+and "device_ms" behind a sleep kernel, so only the card's time counts.
 """
 from __future__ import annotations
 
@@ -97,6 +108,15 @@ def gpu_name_and_power() -> str:
     return res.stdout.strip()
 
 
+def ptxas_lines(build, src: str) -> list[str]:
+    """The kernel names and the register, shared-memory and spill lines of
+    ``nvcc -Xptxas=-v``'s output for one source, from the log that the build
+    keeps beside the library."""
+    log = build.library_path().parent / f"{src}.log"
+    return [line.replace("ptxas info    :", "").strip() for line in log.read_text().splitlines()
+            if "Compiling entry function" in line or "Used" in line or "spill" in line]
+
+
 def phase_build(build) -> dict:
     t0 = time.perf_counter()
     build.load_library()
@@ -110,6 +130,7 @@ def phase_build(build) -> dict:
         "nvidia_smi": smi,
         "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
         "torch": torch.__version__, "cuda": torch.version.cuda, "numpy": np.__version__,
+        "ptxas": {src: ptxas_lines(build, src) for src in ("flash_prefill", "decode_attention")},
     }
     emit(out)
     return out
@@ -230,8 +251,10 @@ def snb_case(graph_mod, workload_mod, scale: int, n_queries: int, n_srv: int):
     return snb, ps, shard, snb.graph.object_sizes().astype(np.float32)
 
 
+# the launch counters, in the order of main()'s `counters`; flash_prefill_tc
+# counts the flash launches that went to the tensor-core kernel
 KERNELS = ("path_latency", "routed_walk", "scored_walk", "fused_update",
-           "flash_prefill", "decode_attention", "embedding_bag")
+           "flash_prefill", "flash_prefill_tc", "decode_attention", "embedding_bag")
 
 
 def zero_counts(mods) -> None:
@@ -426,9 +449,20 @@ def phase_fused(T, greedy, backends, pu, counters, case, main_schemes: dict) -> 
     return out
 
 
-def time_ms(fn, reps: int = 5, setup=None) -> float:
-    """Median device time of ``fn`` over ``reps`` runs after one warm-up;
-    ``setup`` (untimed) runs before each call."""
+# GPU clock cycles (~1 ms) of the sleep kernel that `time_ms(busy_first=True)`
+# runs before its start event
+SLEEP_CYCLES = 2_000_000
+
+
+def time_ms(fn, reps: int = 5, setup=None, busy_first: bool = False) -> float:
+    """Median time of ``fn`` over ``reps`` runs after one warm-up, between
+    CUDA events recorded just before and just after the call; ``setup``
+    (untimed) runs before each call.  The card is idle when the start event
+    is recorded, so a call whose host enqueue outlasts its kernels is timed
+    from the host: this is the "ms" of the kernels line.  With
+    ``busy_first`` a sleep kernel runs just before the start event, so the
+    host has queued the whole call before the card reaches it, and the time
+    is the call's device time from its first kernel to its last."""
     if setup is not None:
         setup()
     fn()
@@ -439,12 +473,21 @@ def time_ms(fn, reps: int = 5, setup=None) -> float:
             setup()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if busy_first:
+            torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
         fn()
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def timed(key: str, fn, reps: int = 5, setup=None) -> dict:
+    """``{key}_ms`` (the call, :func:`time_ms`) and ``{key}_device_ms`` (its
+    device time, ``busy_first``) of ``fn``."""
+    return {f"{key}_ms": time_ms(fn, reps, setup),
+            f"{key}_device_ms": time_ms(fn, reps, setup, busy_first=True)}
 
 
 def sweep_scored(rw, backends, objects, lengths, wd, sd, start, W: int, chunk: int) -> dict:
@@ -454,8 +497,7 @@ def sweep_scored(rw, backends, objects, lengths, wd, sd, start, W: int, chunk: i
     The bound counts the routed walk's bytes plus 4 bytes for every holder
     score a remote hop reads."""
     P, L = objects.shape
-    out = {"kernel_ms": 0.0, "plain_ms": 0.0, "dp_tables_ms": 0.0, "bytes": 0,
-           "score_reads": 0, "chunk_rows": chunk}
+    out = {"bytes": 0, "score_reads": 0, "chunk_rows": chunk}
     for r in range(0, P, chunk):
         o, ln, st = objects[r : r + chunk], lengths[r : r + chunk], start[r : r + chunk]
         scores = backends._dp_score_tables(o, ln, wd, -1)
@@ -471,9 +513,11 @@ def sweep_scored(rw, backends, objects, lengths, wd, sd, start, W: int, chunk: i
         out["score_reads"] += reads
         out["bytes"] += (8 * len(o) + 4 * sum_len + (4 * W + 4) * touched
                          + 5 * len(o) * L + 4 * reads)
-        out["kernel_ms"] += time_ms(lambda: rw.scored_walk(o, ln, wd, sd, st, scores))
-        out["plain_ms"] += time_ms(lambda: rw.scored_walk_plain(o, ln, wd, sd, st, scores))
-        out["dp_tables_ms"] += time_ms(lambda: backends._dp_score_tables(o, ln, wd, -1))
+        for key, ms in {**timed("kernel", lambda: rw.scored_walk(o, ln, wd, sd, st, scores)),
+                        **timed("plain", lambda: rw.scored_walk_plain(o, ln, wd, sd, st, scores)),
+                        **timed("dp_tables", lambda: backends._dp_score_tables(o, ln, wd, -1)),
+                        }.items():
+            out[key] = out.get(key, 0.0) + ms
         del scores, holders
     return out
 
@@ -528,9 +572,9 @@ def sweep_fused(pu, rw, backends, engine_mod, routing, combi, T, case, dev) -> d
                       + B * L * Hp1 + 4 * B * Hp1 + 6 * B + 4 * additions)
             restore = lambda: w.copy_(w0)  # noqa: E731
             out[f"{gate}/B={rows}"] = {
-                "kernel_ms": time_ms(lambda: pu.fused_update(w, *args, pol=pol), setup=restore),
-                "plain_ms": time_ms(lambda: pu.fused_update_plain(w, *args, pol=pol),
-                                    setup=restore),
+                **timed("kernel", lambda: pu.fused_update(w, *args, pol=pol), setup=restore),
+                **timed("plain", lambda: pu.fused_update_plain(w, *args, pol=pol),
+                        setup=restore),
                 "rows": B, "bytes": nbytes, "int_ops": ops, "additions": additions,
                 "candidates": int(counts[h.clamp(0, Hp1 - 1).long()].sum()),
                 "C": C, "Hp1": Hp1, "score_reads": reads,
@@ -586,8 +630,8 @@ def phase_sweep(pl, rw, pu, graph_mod, workload_mod, engine_mod, backends, routi
     bytes_rw = 8 * P + 4 * sum_len + (4 * W + 4) * touched + 4 * W * 32 + 5 * P * L
     timings = {
         "path_latency": {
-            "kernel_ms": time_ms(lambda: pl.path_latency(objects, lengths, wd, sd)),
-            "plain_ms": time_ms(lambda: pl.path_latency_plain(objects, lengths, wd, sd)),
+            **timed("kernel", lambda: pl.path_latency(objects, lengths, wd, sd)),
+            **timed("plain", lambda: pl.path_latency_plain(objects, lengths, wd, sd)),
             "bytes": bytes_pl,
         }
     }
@@ -595,8 +639,9 @@ def phase_sweep(pl, rw, pu, graph_mod, workload_mod, engine_mod, backends, routi
                         ("nearest_copy", zero, dict(home_first=False, lookahead=True)),
                         ("queue_aware", qload, dict(home_first=False, lookahead=True))):
         timings[f"routed_walk/{pol}"] = {
-            "kernel_ms": time_ms(lambda: rw.routed_walk(objects, lengths, wd, sd, start, lv, **kw)),
-            "plain_ms": time_ms(lambda: rw.routed_walk_plain(objects, lengths, wd, sd, start, lv, **kw)),
+            **timed("kernel", lambda: rw.routed_walk(objects, lengths, wd, sd, start, lv, **kw)),
+            **timed("plain", lambda: rw.routed_walk_plain(objects, lengths, wd, sd, start, lv,
+                                                          **kw)),
             "bytes": bytes_rw,
         }
     timings["scored_walk"] = sweep_scored(rw, backends, objects, lengths, wd, sd, start,
@@ -670,6 +715,7 @@ def phase_lm_parity(fp, da, eb, dev) -> dict:
     dtypes = ((torch.float32, "float32"), (torch.bfloat16, "bfloat16"))
     for B, S, KV, G, hd, win in ((2, 256, 2, 4, 64, 0), (1, 128, 1, 8, 32, 0),
                                  (2, 256, 4, 2, 64, 48), (1, 4096, 4, 7, 128, 0),
+                                 (1, 2048, 2, 16, 128, 700), (1, 384, 2, 5, 32, 0),
                                  (1, 8192, 8, 4, 120, 4096)):
         for dt, name in dtypes:
             q = seeded(g, (B, S, KV, G, hd), dt, dev)
@@ -686,7 +732,9 @@ def phase_lm_parity(fp, da, eb, dev) -> dict:
             del q, k, v, got, want
     for B, KV, G, hd, T, lens in ((2, 2, 4, 64, 300, None), (1, 1, 8, 128, 1024, None),
                                   (3, 4, 1, 64, 77, None),
-                                  (9, 4, 7, 128, 4100, [0, 1, 2, 31, 32, 33, 2050, 4099, 4100])):
+                                  (9, 4, 7, 128, 4100, [0, 1, 2, 31, 32, 33, 2050, 4099, 4100]),
+                                  (4, 4, 7, 128, 1040, [1040, 63, 64, 65]),
+                                  (6, 8, 4, 120, 3001, [0, 1, 63, 64, 65, 3001])):
         if lens is None:
             lengths = torch.randint(1, T + 1, (B,), generator=g, device=dev, dtype=torch.int32)
         else:
@@ -763,12 +811,17 @@ def time_flash(fp, F, cfg, dev) -> dict:
     lib_err = float((lib.transpose(1, 2).reshape(q.shape).float()
                      - fp.flash_prefill(q, k, v).float()).abs().max())
     out = {"shape": [B, S, KV, G, hd], "dtype": str(cfg.dtype),
-           "kernel_ms": time_ms(lambda: fp.flash_prefill(q, k, v)),
-           "plain_ms": time_ms(lambda: fp.flash_prefill_plain(q, k, v)),
-           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+           **timed("kernel", lambda: fp.flash_prefill(q, k, v)),
+           **timed("plain", lambda: fp.flash_prefill_plain(q, k, v)),
+           **timed("library", lambda: F.scaled_dot_product_attention(
                qh, kh, vh, is_causal=True, enable_gqa=True)),
            "library_vs_kernel_max_abs": lib_err}
     out.update(flash_bound(B, S, KV, G, hd, 0, q.element_size()))
+    # the f32 route (the CUDA-core kernel) on the same values
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    before = fp.TC_LAUNCHES
+    out["f32_kernel_ms"] = time_ms(lambda: fp.flash_prefill(q32, k32, v32), reps=3)
+    check(fp.TC_LAUNCHES == before, "flash_prefill f32 went to the tensor-core kernel")
     return out
 
 
@@ -786,9 +839,9 @@ def time_decode(da, F, q, k, v, lengths) -> dict:
     rows = int(lengths.clamp(0, T).sum())
     elt = q.element_size()
     out = {"shape": [B, KV, G, hd, T], "dtype": str(q.dtype),
-           "kernel_ms": time_ms(lambda: da.decode_attention(q, k, v, lengths)),
-           "plain_ms": time_ms(lambda: da.decode_attention_plain(q, k, v, lengths)),
-           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+           **timed("kernel", lambda: da.decode_attention(q, k, v, lengths)),
+           **timed("plain", lambda: da.decode_attention_plain(q, k, v, lengths)),
+           **timed("library", lambda: F.scaled_dot_product_attention(
                qh, kh, vh, attn_mask=mask, enable_gqa=True)),
            "library_vs_kernel_max_abs": lib_err}
     out.update(bound(4.0 * B * KV * G * hd * T, 2 * rows * KV * hd * elt + 2 * q.numel() * elt
@@ -845,6 +898,9 @@ def phase_lm(TM, qwen2, fp, da, ops, F, counters, dev) -> dict:
         check(ok, f"decode_attention on the layer-0 cache: max err {dec_err}")
         launches = read_counts(counters)
         check(launches["flash_prefill"] > 0, "flash_prefill kernel not launched on the lm path")
+        check(launches["flash_prefill_tc"] == launches["flash_prefill"] == cfg.n_layers,
+              f"flash_prefill: {launches['flash_prefill_tc']} of {launches['flash_prefill']} "
+              f"launches on the tensor-core kernel, expected all {cfg.n_layers}")
         check(launches["decode_attention"] > 0, "decode_attention kernel not launched")
         timings = {"flash_prefill": time_flash(fp, F, cfg, dev),
                    "decode_attention": time_decode(da, F, q, k0, v0, lengths)}
@@ -870,6 +926,10 @@ def phase_lm(TM, qwen2, fp, da, ops, F, counters, dev) -> dict:
                      "tokens_per_s": 4 * 16 / sum(decode_s)},
            "decode_attention_layer0_max_abs_err": dec_err,
            "f32_two_layer_flash_vs_torch_ops_max_abs": f32_err,
+           "flash_prefill_tc_launches": launches["flash_prefill_tc"],
+           "flash_prefill_f32_ms": timings["flash_prefill"]["f32_kernel_ms"],
+           "forward_s": {"flash": stage_s["forward_flash"],
+                         "torch_ops": stage_s["forward_torch_ops"]},
            "stage_s": stage_s, "launches": launches, "timings": timings,
            "max_memory_allocated": torch.cuda.max_memory_allocated()}
     emit(out)
@@ -901,10 +961,10 @@ def phase_bag(eb, ops, F, counters, dev) -> dict:
     lib_ids = torch.where(ids < 0, N - 1, ids)
     lib = F.embedding_bag(lib_ids, table, mode="mean", padding_idx=N - 1)
     real = int((ids >= 0).sum())
-    timing = {"kernel_ms": time_ms(lambda: eb.embedding_bag(table, ids, "mean")),
-              "plain_ms": time_ms(lambda: eb.embedding_bag_plain(table, ids, "mean")),
-              "library_ms": time_ms(lambda: F.embedding_bag(lib_ids, table, mode="mean",
-                                                            padding_idx=N - 1)),
+    timing = {**timed("kernel", lambda: eb.embedding_bag(table, ids, "mean")),
+              **timed("plain", lambda: eb.embedding_bag_plain(table, ids, "mean")),
+              **timed("library", lambda: F.embedding_bag(lib_ids, table, mode="mean",
+                                                         padding_idx=N - 1)),
               "library_vs_kernel_max_abs": float((lib - got["mean"]).abs().max()),
               "rows_read": real}
     timing.update(bound(float(real * d), real * d * 4 + B * L * 4 + B * d * 4, INT32_OPS_PER_S))
@@ -918,10 +978,16 @@ def phase_bag(eb, ops, F, counters, dev) -> dict:
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int, err, timing) -> dict:
+    """One kernel of the kernels line: "ms", "plain_ms" and "library_ms" time
+    each call from the host (:func:`time_ms`), the "*device_ms" keys the same
+    calls' device time (``busy_first``)."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": timing["kernel_ms"],
             "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-            "bound_by": timing["bound_by"], "library_ms": timing.get("library_ms")}
+            "bound_by": timing["bound_by"], "library_ms": timing.get("library_ms"),
+            "device_ms": timing["kernel_device_ms"],
+            "plain_device_ms": timing["plain_device_ms"],
+            "library_device_ms": timing.get("library_device_ms")}
 
 
 def main() -> int:
@@ -951,7 +1017,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     counters = [(pl, "LAUNCHES"), (rw, "LAUNCHES"), (rw, "SCORED_LAUNCHES"), (pu, "LAUNCHES"),
-                (fp, "LAUNCHES"), (da, "LAUNCHES"), (eb, "LAUNCHES")]
+                (fp, "LAUNCHES"), (fp, "TC_LAUNCHES"), (da, "LAUNCHES"), (eb, "LAUNCHES")]
     t_all = time.perf_counter()
     b = phase_build(build)
     par = phase_parity(pl, rw, pu, backends, routing, combi, dev, P=1_000_000)

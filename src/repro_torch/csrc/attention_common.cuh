@@ -1,5 +1,6 @@
-// The online-softmax attention step shared by flash_prefill.cu and
-// decode_attention.cu.
+// The online-softmax attention step of flash_prefill.cu's CUDA-core kernel
+// (the f32 route), and the conversion and warp-reduction helpers that
+// decode_attention.cu shares with it.
 //
 // One warp owns R query rows of one (batch, kv head).  Lane `lane` holds
 // dims lane + 32 * i (i < D, D = ceil(hd / 32)) of each row's query and

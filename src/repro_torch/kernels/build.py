@@ -23,7 +23,7 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-CFLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+CFLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argtypes (pointers and the stream as c_void_p)
@@ -35,7 +35,9 @@ SIGNATURES = {
                             _I, _I, _P, _P, _P, _P, _P, _P, _P],
     # the last int before the stream is a DTYPE_CODES value
     "flash_prefill_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "decode_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "flash_prefill_wgmma_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _P],
     "embedding_bag_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
@@ -86,14 +88,16 @@ def build() -> pathlib.Path:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )))
     errors = []
-    for cmd, _, proc in procs:
+    for cmd, obj, proc in procs:
         log, _ = proc.communicate()
+        obj.with_suffix(".log").write_text(log)  # ptxas registers, shared memory, spills
         if proc.returncode != 0:
             errors.append(f"{' '.join(cmd)}\n{log}")
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     tmp = out_dir / f"{so.name}.{os.getpid()}.tmp"
-    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in procs)]
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in procs),
+            "-ldl"]
     res = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{' '.join(link)}\n{res.stdout}")

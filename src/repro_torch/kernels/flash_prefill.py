@@ -2,25 +2,33 @@
 
 Replaces the TPU kernel ``flash_prefill_pallas`` in
 ``src/repro/kernels/flash_prefill.py`` (body ``_kernel``).  The CUDA source
-is ``repro_torch/csrc/flash_prefill.cu`` with the online-softmax step of
-``csrc/attention_common.cuh``: one block per (batch, kv head, tile of 64
-query rows), the rows ordered position-major (row = pos * G + g) so any
-group size G fits; lanes run over hd, so hd need not be a multiple of 32.
-The K and V tiles are staged in shared memory once for all the G query
-heads of a kv head, and the tiles above the diagonal and before the window
-are never loaded.
+is ``repro_torch/csrc/flash_prefill.cu``; it holds two hand-written
+kernels, and :func:`kernel_route` picks one by dtype:
+
+- ``"wgmma"`` (bf16, hd a multiple of 8): Hopper's tensor cores.  A block
+  of two consumer warpgroups and a producer warp takes 128 query rows of
+  one (batch, kv head), ordered position-major (row = pos * G + g) so any
+  G fits and each K/V tile serves all G heads; K and V stream through a
+  3-stage TMA ring of 64-key tiles; S = Q K^T and O += P V run as
+  ``wgmma`` with P in bf16 registers; the online softmax works on the
+  accumulator fragment, one quad shuffle per row per tile.
+- ``"cuda_core"`` (f32, and bf16 with hd not a multiple of 8, which TMA's
+  16-byte rows need): the f32 CUDA-core kernel with the online-softmax step
+  of ``csrc/attention_common.cuh``.  Neither bf16 nor TF32 products meet
+  the f32 tolerance (2e-5 against the plain version).
+
+Tiles above the diagonal and before the window are never loaded.
 
 Bound on the card: operations.  The causal product is 4 * B * H * hd
 flops per (query, key) pair that the mask keeps, against a few bytes per
 element of q, k, v and the output; far above the tensor cores' flops per
-byte.  This first kernel runs on the f32 CUDA cores with a shuffle-reduced
-dot product per score, so it is well off that bound; tensor cores are a
-later change.
+byte.
 
 Semantics (kept): q [B, S, KV, G, hd], k/v [B, S, KV, hd], f32 or bf16;
 query head h = kv * G + g; position i attends to keys j <= i with
 i - j < window when window > 0; scores (q . k) / sqrt(hd) and the softmax
-in f32; output [B, S, KV, G, hd] in q's dtype.
+in f32; output [B, S, KV, G, hd] in q's dtype.  The wgmma route rounds P
+to bf16 before the P V product, as the model's torch-op attention does.
 """
 from __future__ import annotations
 
@@ -28,8 +36,9 @@ import torch
 
 from repro_torch.kernels.build import DTYPE_CODES, check_launch, load_library
 
-LAUNCHES = 0
-MAX_HD = 128  # four f32 accumulators per lane
+LAUNCHES = 0     # kernel launches, both routes
+TC_LAUNCHES = 0  # of them, the tensor-core (wgmma) route's
+MAX_HD = 128     # wgmma: hd padded to 128; CUDA cores: four f32 accumulators per lane
 
 
 def flash_prefill_plain(q, k, v, window: int = 0) -> torch.Tensor:
@@ -62,32 +71,55 @@ def _check(q, k, v):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
 
 
-def flash_prefill(q, k, v, window: int = 0) -> torch.Tensor:
-    """Causal (optionally windowed) GQA attention: the CUDA kernel on a
-    CUDA tensor, the plain version on a CPU tensor.  See
-    :func:`flash_prefill_plain`."""
-    global LAUNCHES
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_prefill_plain(q, k, v, window)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    B, S, KV, G, hd = q.shape
+def kernel_route(q, k, v) -> str:
+    """The CUDA kernel that takes these (checked) inputs on a card:
+    ``"wgmma"`` for bf16 with hd a multiple of 8, else ``"cuda_core"``.
+    Raises for hd > MAX_HD or a non-contiguous input."""
+    hd = q.shape[-1]
     if hd > MAX_HD:
         raise ValueError(f"flash_prefill kernel takes hd <= {MAX_HD}, got {hd}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return "wgmma" if q.dtype == torch.bfloat16 and hd % 8 == 0 else "cuda_core"
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, copied if its data does not start on 16 bytes (TMA and the
+    16-byte loads need it; a fresh allocation always does)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def flash_prefill(q, k, v, window: int = 0) -> torch.Tensor:
+    """Causal (optionally windowed) GQA attention: a CUDA kernel on a CUDA
+    tensor (see :func:`kernel_route`), the plain version on a CPU tensor.
+    See :func:`flash_prefill_plain`."""
+    global LAUNCHES, TC_LAUNCHES
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_prefill_plain(q, k, v, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    route = kernel_route(q, k, v)
+    B, S, KV, G, hd = q.shape
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_prefill_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, KV, G, hd, int(window), DTYPE_CODES[q.dtype], stream,
-        )
-    check_launch("flash_prefill", err)
+        if route == "wgmma":
+            q, k, v = _aligned(q), _aligned(k), _aligned(v)
+            err = lib.flash_prefill_wgmma_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, S, KV, G, hd, int(window), stream,
+            )
+        else:
+            err = lib.flash_prefill_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, S, KV, G, hd, int(window), DTYPE_CODES[q.dtype], stream,
+            )
+    check_launch(f"flash_prefill ({route})", err)
     LAUNCHES += 1
+    TC_LAUNCHES += route == "wgmma"
     return out

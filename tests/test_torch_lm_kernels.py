@@ -206,6 +206,8 @@ def _randn(g, shape, dtype, dev):
 @pytest.mark.parametrize("B,S,KV,G,hd,win", [
     (2, 256, 2, 4, 64, 0), (1, 128, 1, 8, 32, 0), (2, 256, 4, 2, 64, 48),
     (1, 512, 4, 7, 128, 0), (1, 512, 2, 16, 128, 0), (1, 640, 2, 4, 120, 200),
+    (1, 4096, 2, 7, 128, 0), (1, 2048, 2, 16, 128, 700), (1, 384, 2, 5, 32, 0),
+    (1, 256, 2, 3, 36, 0),   # hd not a multiple of 8: bf16 takes the CUDA-core kernel
 ])
 def test_flash_prefill_kernel_matches_plain(cuda, B, S, KV, G, hd, win, dtype):
     g = torch.Generator(device=cuda).manual_seed(S + G + hd)
@@ -213,10 +215,11 @@ def test_flash_prefill_kernel_matches_plain(cuda, B, S, KV, G, hd, win, dtype):
     q = _randn(g, (B, S, KV, G, hd), tdt, cuda)
     k = _randn(g, (B, S, KV, hd), tdt, cuda)
     v = _randn(g, (B, S, KV, hd), tdt, cuda)
-    before = fp.LAUNCHES
+    before, tc_before = fp.LAUNCHES, fp.TC_LAUNCHES
     got = fp.flash_prefill(q, k, v, win)
     torch.cuda.synchronize()
     assert fp.LAUNCHES == before + 1
+    assert fp.TC_LAUNCHES == tc_before + (fp.kernel_route(q, k, v) == "wgmma")
     tol = 3e-2 if dtype == "bfloat16" else 2e-5
     torch.testing.assert_close(got.float(), fp.flash_prefill_plain(q, k, v, win).float(),
                                atol=tol, rtol=tol)
@@ -225,11 +228,14 @@ def test_flash_prefill_kernel_matches_plain(cuda, B, S, KV, G, hd, win, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("KV,G,hd,T", [(2, 4, 64, 300), (1, 8, 128, 1024), (4, 1, 64, 77),
-                                       (4, 7, 128, 4100), (2, 16, 120, 1040)])
+                                       (4, 7, 128, 4100), (2, 16, 120, 1040),
+                                       (4, 7, 128, 1040), (1, 32, 128, 4100),
+                                       (2, 3, 36, 77)])  # element loads: 36 * 2 B rows
 def test_decode_attention_kernel_matches_plain(cuda, KV, G, hd, T, dtype):
     g = torch.Generator(device=cuda).manual_seed(T + G)
     tdt = DTYPES[dtype]
-    lengths = torch.tensor([0, 1, 2, 31, 32, 33, T // 2, T - 1, T, T + 5],
+    # chunk edges: the splits are multiples of 64 keys
+    lengths = torch.tensor([0, 1, 2, 31, 32, 33, 63, 64, 65, 129, T // 2, T - 1, T, T + 5],
                            dtype=torch.int32, device=cuda)
     B = lengths.numel()
     q = _randn(g, (B, KV, G, hd), tdt, cuda)
