@@ -6,7 +6,7 @@ Phases (each prints one JSON line; any failed check exits non-zero):
   build   compile the CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
           sm_90a) and print the card, its power limit, the TF32 flag and
           ptxas's registers, shared memory and spills of the attention
-          kernels.
+          and walk kernels.
   parity  each kernel against its plain torch version, exactly, on 1 M
           seeded random paths (L in {1, 6, 9}, 6 / 40 / 128 servers, bit 31
           set, -1 padding and empty rows; the routed walk under
@@ -18,8 +18,10 @@ Phases (each prints one JSON line; any failed check exits non-zero):
   main    the paper's pipeline on SNB scale 10: greedy replication under
           ``nearest_copy`` for t = 1 and 2, the feasibility check and the
           home-first latencies, on the kernel backend; the kernels' launch
-          counters are zeroed just before and read just after.  The t = 1
-          run is repeated with the torch gate and must give the same mask.
+          counters are zeroed just before and read just after; the serial
+          prune must launch ``prune_walk`` once per t.  The t = 1 run is
+          repeated with the torch gate and must give the same mask.  An
+          untimed re-run records the rows of every launch of kernels 1-4.
   fused   the fused provisioning path on the same workload:
           ``replicate_workload(fused=True)`` under ``nearest_copy`` and
           ``nearest_copy_dp`` for t = 1 and 2 on the kernel backend
@@ -29,7 +31,19 @@ Phases (each prints one JSON line; any failed check exits non-zero):
           the same mask.  Where a ``nearest_copy`` mask differs from the
           main phase's (sizes 1 + 0.1 * degree make near-tied candidate
           costs round by summation order), the first diverging UPDATE
-          batch is found and printed with the path and both costs.
+          batch is found and printed with the path and both costs.  An
+          untimed re-run records the rows per launch, as in main.
+  prune   the serial prune's kernel on the main path's inputs: the first
+          2,000 t = 1 candidates through ``prune_walk`` and its plain loop
+          under home_first, nearest_copy and queue_aware (keep flags and
+          words identical), seeded random cases for the plain-loop bucket;
+          the whole t = 1 and t = 2 sweeps against the batched prune on the
+          torch backend from the same schemes (keep flags, words and masks
+          identical, and the main phase's counts and masks equal to it);
+          the t = 1 sweep timed with its µs per candidate, and the routed
+          walk at the old per-candidate prune's median row count.
+  shapes  kernels 1-4 timed once each at the median rows per launch of the
+          path that launches them (main or fused), with their byte bounds.
   sweep   the engine's hot primitives at deployment scale (SNB scale 100,
           150,000 queries, ~1.4 M paths, 128 servers): kernel vs plain,
           exact, then each timed as the median of 5 runs after a warm-up;
@@ -61,7 +75,9 @@ Phases (each prints one JSON line; any failed check exits non-zero):
   bag     ``ops.embedding_bag`` at MIND's widths: a 2^26 x 64 f32 item
           table and 4,096 bags of 50 ids with ~10% padding, in mean and sum,
           against the plain version, timed beside ``F.embedding_bag``.
-The last two lines are the kernels' JSON summary and
+The last two lines are the kernels' JSON summary (kernels 1-4 timed at
+the sweep's shapes, and under "main_shape_*" at their paths' median
+rows per launch) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1.
 Each timed call is timed twice: "ms" with the card idle at the start
 event, so a call shorter than its host enqueue is timed from the host,
@@ -69,6 +85,7 @@ and "device_ms" behind a sleep kernel, so only the card's time counts.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -130,7 +147,8 @@ def phase_build(build) -> dict:
         "nvidia_smi": smi,
         "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
         "torch": torch.__version__, "cuda": torch.version.cuda, "numpy": np.__version__,
-        "ptxas": {src: ptxas_lines(build, src) for src in ("flash_prefill", "decode_attention")},
+        "ptxas": {src: ptxas_lines(build, src)
+                  for src in ("flash_prefill", "decode_attention", "routed_walk", "prune_walk")},
     }
     emit(out)
     return out
@@ -254,7 +272,8 @@ def snb_case(graph_mod, workload_mod, scale: int, n_queries: int, n_srv: int):
 # the launch counters, in the order of main()'s `counters`; flash_prefill_tc
 # counts the flash launches that went to the tensor-core kernel
 KERNELS = ("path_latency", "routed_walk", "scored_walk", "fused_update",
-           "flash_prefill", "flash_prefill_tc", "decode_attention", "embedding_bag")
+           "flash_prefill", "flash_prefill_tc", "decode_attention", "embedding_bag",
+           "prune_walk")
 
 
 def zero_counts(mods) -> None:
@@ -266,7 +285,62 @@ def read_counts(mods) -> dict:
     return {name: getattr(m, attr) for name, (m, attr) in zip(KERNELS, mods)}
 
 
-def phase_main(T, counters, case, engine_mod, scale: int, n_queries: int) -> dict:
+def row_targets(backends, greedy) -> dict:
+    """Kernel rows 1-4 -> (module, name its caller looks up, position of the
+    [P, L] objects argument)."""
+    return {"path_latency": (backends, "path_latency", 0),
+            "routed_walk": (backends, "routed_walk", 0),
+            "scored_walk": (backends, "scored_walk", 0),
+            "fused_update": (greedy, "fused_update", 1)}
+
+
+@contextlib.contextmanager
+def record_rows(targets: dict):
+    """Record the path rows P of every launch of the targets' kernels while
+    the block runs: each name is replaced, where its caller looks it up, by
+    a function that notes ``objects.shape[0]`` of a launching call (a CUDA
+    tensor with P > 0) and calls the wrapper."""
+    seen = {name: [] for name in targets}
+    originals = {name: getattr(mod, attr) for name, (mod, attr, _) in targets.items()}
+
+    def recorder(name, fn, pos):
+        def rec(*args, **kwargs):
+            objects = args[pos]
+            if objects.is_cuda and objects.shape[0]:
+                seen[name].append(int(objects.shape[0]))
+            return fn(*args, **kwargs)
+        return rec
+
+    for name, (mod, attr, pos) in targets.items():
+        setattr(mod, attr, recorder(name, originals[name], pos))
+    try:
+        yield seen
+    finally:
+        for name, (mod, attr, _) in targets.items():
+            setattr(mod, attr, originals[name])
+
+
+def rows_per_launch(counters, targets: dict, calls) -> dict:
+    """min / median / max path rows per launch of kernels 1-4 over an
+    untimed re-run of ``calls``, outside every measured window: the
+    counters are zeroed before it, and the recorded calls must be the
+    launches it counted."""
+    zero_counts(counters)
+    with record_rows(targets) as seen:
+        for call in calls:
+            call()
+    launches = read_counts(counters)
+    out = {}
+    for name, ps in seen.items():
+        check(len(ps) == launches[name],
+              f"{name}: {len(ps)} recorded calls vs {launches[name]} counted launches")
+        if ps:
+            out[name] = {"launches": len(ps), "min": min(ps),
+                         "median": int(statistics.median_low(ps)), "max": max(ps)}
+    return out
+
+
+def phase_main(T, counters, targets, case, engine_mod, scale: int, n_queries: int) -> dict:
     t0 = time.perf_counter()
     snb, ps, shard, f = case
     n = snb.graph.n_nodes
@@ -305,6 +379,9 @@ def phase_main(T, counters, case, engine_mod, scale: int, n_queries: int) -> dic
     transfer = engine_mod.TRANSFER.snapshot()
     check(launches["path_latency"] > 0, "path_latency kernel not launched on the main path")
     check(launches["routed_walk"] > 0, "routed_walk kernel not launched on the main path")
+    check(launches["prune_walk"] == 2,
+          f"prune_walk launched {launches['prune_walk']} times on the main path, "
+          "expected 2 (one serial prune per t)")
     # the t = 1 run with the plain torch gate must give the same mask
     tt = time.perf_counter()
     scheme_t, st_t = T.replicate_workload(ps, shard, 6, 1, f=f, policy="nearest_copy",
@@ -317,12 +394,19 @@ def phase_main(T, counters, case, engine_mod, scale: int, n_queries: int) -> dic
         k = engine_mod.LatencyEngine(schemes[1]).path_latencies(small, policy=pol)
         r = engine_mod.LatencyEngine(schemes[1], backend="reference").path_latencies(small, policy=pol)
         check(np.array_equal(k, r), f"kernel engine vs reference oracle ({pol})")
+
+    def rerun(t):
+        scheme = T.replicate_workload(ps, shard, 6, t, f=f, policy="nearest_copy")[0]
+        T.is_latency_feasible(ps, scheme, t, policy="nearest_copy")
+        T.path_latencies(ps, scheme)
+
+    rows = rows_per_launch(counters, targets, [lambda t=t: rerun(t) for t in (1, 2)])
     out = {
         "phase": "main", "seconds": time.perf_counter() - t0,
         "scale": scale, "n_queries": n_queries, "objects": int(n),
         "edges": int(snb.graph.n_edges), "paths": ps.n_paths, "max_len": ps.max_len,
         "n_servers": 6, "policy": "nearest_copy", "runs": runs, "launches": launches,
-        "transfer": transfer,
+        "rows_per_launch": rows, "transfer": transfer,
         "torch_gate_t1_identical": True, "torch_gate_t1_s": torch_gate_s,
         "torch_gate_t1_stage_s": st_t.stage_s,
     }
@@ -382,7 +466,7 @@ def first_update_divergence(T, greedy, backends, pu, case, t: int, pol: str) -> 
     return {"fused_batches": seen["batches"], "first_divergence": seen["first"]}
 
 
-def phase_fused(T, greedy, backends, pu, counters, case, main_schemes: dict) -> dict:
+def phase_fused(T, greedy, backends, pu, counters, targets, case, main_schemes: dict) -> dict:
     t0 = time.perf_counter()
     snb, ps, shard, f = case
     runs = {}
@@ -438,9 +522,18 @@ def phase_fused(T, greedy, backends, pu, counters, case, main_schemes: dict) -> 
         unit[pol] = {"replicas": k_st.replicas, "kernel_s": tt - tk,
                      "torch_s": time.perf_counter() - tt,
                      "kernel_stage_s": k_st.stage_s, "torch_stage_s": t_st.stage_s}
+
+    def rerun(pol, t):
+        scheme = T.replicate_workload(ps, shard, 6, t, f=f, policy=pol, fused=True)[0]
+        T.is_latency_feasible(ps, scheme, t, policy=pol)
+
+    rows = rows_per_launch(counters, targets,
+                           [lambda pol=pol, t=t: rerun(pol, t)
+                            for pol in ("nearest_copy", "nearest_copy_dp") for t in (1, 2)])
     out = {
         "phase": "fused", "seconds": time.perf_counter() - t0, "paths": ps.n_paths,
         "n_servers": 6, "runs": runs, "launches": launches,
+        "rows_per_launch": rows,
         "nearest_copy_same_as_separate": same_as_separate,
         "nearest_copy_divergence": divergence,
         "unit_f_t1_kernel_equals_torch": True, "unit_f_t1": unit,
@@ -522,8 +615,9 @@ def sweep_scored(rw, backends, objects, lengths, wd, sd, start, W: int, chunk: i
     return out
 
 
-def sweep_fused(pu, rw, backends, engine_mod, routing, combi, T, case, dev) -> dict:
-    """The fused UPDATE on the first 256 and 65,536 SNB scale 10 paths at
+def sweep_fused(pu, rw, backends, engine_mod, routing, combi, T, case, dev,
+                rows_list=(256, 65_536)) -> dict:
+    """The fused UPDATE on the first 256 and 65,536 (``rows_list``) SNB scale 10 paths at
     t = 1 against the sharding-only snapshot (the words are restored
     before each timed call), with the routed and the scored gate.  Bound:
     the larger of the bytes over the memory rate and the candidate loop's
@@ -535,7 +629,7 @@ def sweep_fused(pu, rw, backends, engine_mod, routing, combi, T, case, dev) -> d
     f_d = torch.from_numpy(f).to(dev)
     rank = backends._load_vector(None, w0)
     out = {}
-    for rows in (256, 65_536):
+    for rows in rows_list:
         o = torch.from_numpy(np.asarray(ps.objects[:rows], np.int32)).to(dev)
         ln = torch.from_numpy(np.asarray(ps.lengths[:rows], np.int32)).to(dev)
         B = o.shape[0]
@@ -582,6 +676,301 @@ def sweep_fused(pu, rw, backends, engine_mod, routing, combi, T, case, dev) -> d
                 "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / INT32_OPS_PER_S
                             else "operations",
             }
+    return out
+
+
+PRUNE_PREFIX = 2_000  # candidates of the main path's t = 1 prune held against the plain loop
+
+
+def csr_index(objects: torch.Tensor, n: int):
+    """(starts int32 [n + 1], rows int32 [nnz]) of the object -> path index
+    (``engine.incremental.PathIndex``'s layout), built on the device."""
+    P, L = objects.shape
+    valid = objects >= 0
+    flat_v = objects[valid].long()
+    flat_p = torch.arange(P, device=objects.device).repeat_interleave(L)[valid.flatten()]
+    order = torch.argsort(flat_v, stable=True)
+    starts = torch.searchsorted(flat_v[order], torch.arange(n + 1, device=objects.device))
+    return starts.int(), flat_p[order].int()
+
+
+def prune_bytes(cand_v: np.ndarray, cand_s: np.ndarray, starts: np.ndarray,
+                rows: np.ndarray, objects: np.ndarray, W: int) -> int:
+    """Bytes the sweep must move, each read once: the candidates and their
+    keep flags, their objects' CSR ranges and row entries, each touched
+    path's objects, length and budget, each object on those paths' home
+    and words, one word written per edited cell, and the rank vector."""
+    uv = np.unique(cand_v)
+    lo, hi = starts[uv].astype(np.int64), starts[uv + 1].astype(np.int64)
+    entries = int((hi - lo).sum())
+    idx = np.repeat(lo - np.concatenate([[0], np.cumsum(hi - lo)[:-1]]), hi - lo)
+    paths = np.unique(rows[idx + np.arange(entries)])
+    objs = objects[paths]
+    touched = np.unique(objs[objs >= 0]).size
+    cells = np.unique(cand_v.astype(np.int64) * W + cand_s // 32).size
+    return (9 * len(cand_v) + 8 * len(uv) + 4 * entries
+            + int((objs >= 0).sum()) * 4 + 8 * len(paths)
+            + (4 + 4 * W) * touched + 4 * cells + 4 * W * 32)
+
+
+def random_prune_case(backends, seed: int, n_obj: int, n_srv: int, P: int, L: int, C: int,
+                      dev):
+    """Seeded random prune_walk inputs on the device (C candidates)."""
+    objects, lengths, words, shard, _, load = random_case(seed, P, L, n_srv, n_obj, dev)
+    shard = shard.clamp_min(0)
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    starts, rows = csr_index(objects, n_obj)
+    bits = backends.unpack_bits(words[:-1])[:, :n_srv].clone()
+    bits[torch.arange(n_obj, device=dev), shard.long()] = False
+    vs, ss = torch.nonzero(bits, as_tuple=True)
+    pick = torch.randperm(len(vs), generator=g, device=dev)[:C]
+    # budgets of about half a path: some removals stay, some are restored
+    t_path = torch.randint(L // 2, L, (P,), generator=g, device=dev, dtype=torch.int32)
+    return (words, vs[pick].int(), ss[pick].int(), starts, rows, objects, lengths, t_path,
+            shard, load)
+
+
+def prune_inputs(T, engine_mod, case, t: int, dev) -> dict:
+    """The main path's serial prune inputs at budget t: the nearest_copy
+    greedy's scheme before its prune, its candidates in prune order (f
+    descending) and the CSR index, on the device."""
+    _, ps, shard, f = case
+    scheme, _ = T.replicate_workload(ps, shard, 6, t, f=f, policy="nearest_copy",
+                                     policy_prune=False)
+    n = scheme.n_objects
+    objects_np = np.asarray(ps.objects, np.int32)
+    index = engine_mod.PathIndex(objects_np, n)
+    repl = scheme.mask.copy()
+    repl[np.arange(n), scheme.shard] = False
+    vs, ss = np.nonzero(repl)
+    order = np.argsort(-f.astype(np.float64)[vs], kind="stable")
+    cand_v, cand_s = vs[order].astype(np.int32), ss[order].astype(np.int32)
+    packed = engine_mod.PackedScheme.from_mask(scheme.mask, scheme.shard, dev)
+    d = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    starts_np = index.starts.astype(np.int32)
+    rest = (d(starts_np), d(index.rows), d(objects_np),
+            d(np.asarray(ps.lengths, np.int32)),
+            torch.full((ps.n_paths,), t, dtype=torch.int32, device=dev), packed.shard)
+    return {"scheme": scheme, "index": index, "objects_np": objects_np,
+            "starts_np": starts_np, "cand_v": cand_v, "cand_s": cand_s, "cv": d(cand_v),
+            "cs": d(cand_s), "w0": packed.words.clone(), "rest": rest}
+
+
+def int_err(*pairs) -> int:
+    """max |a - b| over the pairs of integer or bool tensors (0 when equal)."""
+    return max(int((a.long() - b.long()).abs().max()) if a.numel() else 0 for a, b in pairs)
+
+
+def whole_sweep_check(T, pw, engine_mod, case, inp: dict, t: int, main_out: dict,
+                      rank, dev) -> dict:
+    """The whole serial prune at budget t through ``prune_walk``, against an
+    independent version: the batched prune (``fused=True``) on the torch
+    backend (plain torch walks, no kernel) from the same scheme, which makes
+    the serial sweep's decisions.  Keep flags, final words and mask equal;
+    the main phase's count and mask equal the reference's."""
+    _, ps, _, f = case
+    w = inp["w0"].clone()
+    keep = pw.prune_walk(w, inp["cv"], inp["cs"], *inp["rest"], rank, home_first=False,
+                         lookahead=True)
+    ref = inp["scheme"].copy()
+    tr = time.perf_counter()
+    n_ref, _ = T.prune_scheme_replicas(ref, ps, t, policy="nearest_copy", f=f,
+                                       backend="torch", fused=True, device=dev)
+    ref_s = time.perf_counter() - tr
+    keep_ref = torch.from_numpy(~ref.mask[inp["cand_v"], inp["cand_s"]]).to(dev)
+    w_ref = engine_mod.PackedScheme.from_mask(ref.mask, ref.shard, dev).words
+    check(w.shape == w_ref.shape, f"t={t}: words {tuple(w.shape)} vs {tuple(w_ref.shape)}")
+    err = int_err((keep, keep_ref), (w, w_ref))
+    check(err == 0, f"prune_walk whole t={t} sweep vs the torch batched prune: "
+                    f"max |diff| {err}")
+    check(int(keep.sum()) == n_ref,
+          f"prune_walk t={t} removed {int(keep.sum())}, the reference {n_ref}")
+    check(main_out["runs"][t]["pruned"] == n_ref,
+          f"main phase t={t} pruned {main_out['runs'][t]['pruned']}, the reference {n_ref}")
+    check(np.array_equal(main_out["schemes"][t].mask, ref.mask),
+          f"main phase t={t} mask vs the reference prune's")
+    return {"candidates": len(inp["cand_v"]), "removed": n_ref,
+            "kept": len(inp["cand_v"]) - n_ref, "max_abs_err": err, "reference_s": ref_s}
+
+
+def phase_prune(T, pw, rw, backends, engine_mod, case, main_out: dict, dev) -> dict:
+    """The serial prune's kernel on the main path's inputs (see
+    :func:`prune_inputs`).  The first PRUNE_PREFIX t = 1 candidates go
+    through ``prune_walk`` and ``prune_walk_plain`` under home_first,
+    nearest_copy and queue_aware (a seeded load with ties): keep flags and
+    words identical; seeded random cases do the same for the plain-loop
+    bucket (L 9, W 2).  The whole t = 1 and t = 2 sweeps are held against
+    an independent version (:func:`whole_sweep_check`).  The t = 1 sweep is
+    timed with its µs per candidate, and the routed walk is timed at the old
+    per-candidate prune's median row count (the launch this kernel
+    replaces)."""
+    t0 = time.perf_counter()
+    _, ps, _, _ = case
+    inp = prune_inputs(T, engine_mod, case, 1, dev)
+    n = inp["scheme"].n_objects
+    objects_np, index, starts_np = inp["objects_np"], inp["index"], inp["starts_np"]
+    cand_v, cand_s, cv, cs, w0, rest = (inp[k] for k in ("cand_v", "cand_s", "cv", "cs",
+                                                          "w0", "rest"))
+    W = w0.shape[1]
+    d = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    zero = backends._load_vector(None, w0)
+    qload = backends._load_vector(np.random.default_rng(5).integers(0, 3, 6), w0)
+    modes = {"home_first": (zero, True, False), "nearest_copy": (zero, False, True),
+             "queue_aware": (qload, False, True)}
+    pre_v, pre_s = cv[:PRUNE_PREFIX], cs[:PRUNE_PREFIX]
+    parity = {}
+    errs = []
+    for mode, (rank, hf, la) in modes.items():
+        wk, wp = w0.clone(), w0.clone()
+        keep_k = pw.prune_walk(wk, pre_v, pre_s, *rest, rank, home_first=hf, lookahead=la)
+        keep_p = pw.prune_walk_plain(wp, pre_v, pre_s, *rest, rank, home_first=hf,
+                                     lookahead=la)
+        errs.append(int_err((keep_k, keep_p), (wk, wp)))
+        check(errs[-1] == 0,
+              f"prune_walk {mode}: kernel vs plain on the main path's first "
+              f"{PRUNE_PREFIX} candidates")
+        parity[mode] = {"candidates": PRUNE_PREFIX, "kept_removed": int(keep_k.sum())}
+    for seed, (n_srv, L) in enumerate(((6, 9), (40, 6))):
+        for mode, (_, hf, la) in modes.items():
+            words, *args = random_prune_case(backends, 100 + seed, 20_000, n_srv, 30_000, L,
+                                             500, dev)
+            if mode != "queue_aware":
+                args[-1] = torch.zeros_like(args[-1])
+            wk, wp = words.clone(), words.clone()
+            keep_k = pw.prune_walk(wk, *args, home_first=hf, lookahead=la)
+            keep_p = pw.prune_walk_plain(wp, *args, home_first=hf, lookahead=la)
+            errs.append(int_err((keep_k, keep_p), (wk, wp)))
+            check(errs[-1] == 0, f"prune_walk {mode} random L={L} S={n_srv}: kernel vs plain")
+            parity[f"{mode}/random L={L} S={n_srv}"] = {"candidates": 500,
+                                                        "kept_removed": int(keep_k.sum())}
+    # the whole t = 1 and t = 2 sweeps against the independent batched prune
+    whole_check = {1: whole_sweep_check(T, pw, engine_mod, case, inp, 1, main_out, zero, dev)}
+    whole_check[2] = whole_sweep_check(T, pw, engine_mod, case,
+                                       prune_inputs(T, engine_mod, case, 2, dev), 2, main_out,
+                                       zero, dev)
+    errs += [c["max_abs_err"] for c in whole_check.values()]
+    w = w0.clone()
+    restore = lambda: w.copy_(w0)  # noqa: E731
+    C = len(cand_v)
+    whole = timed("kernel", lambda: pw.prune_walk(w, cv, cs, *rest, zero, lookahead=True),
+                  setup=restore)
+    prefix = {
+        **timed("kernel", lambda: pw.prune_walk(w, pre_v, pre_s, *rest, zero, lookahead=True),
+                setup=restore),
+        **timed("plain", lambda: pw.prune_walk_plain(w, pre_v, pre_s, *rest, zero,
+                                                     lookahead=True), reps=1, setup=restore),
+        "candidates": PRUNE_PREFIX, "max_abs_err": max(errs),
+    }
+    prefix["bytes"] = prune_bytes(cand_v[:PRUNE_PREFIX], cand_s[:PRUNE_PREFIX], starts_np,
+                                  index.rows, objects_np, W)
+    prefix.update(bound_ms=prefix["bytes"] / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    whole_bytes = prune_bytes(cand_v, cand_s, starts_np, index.rows, objects_np, W)
+    # where a decision's time goes: C candidates on objects that lie on no
+    # path (the loop alone: barriers, thread 0's stores, the next
+    # candidate's loads), and one candidate with one path, C times over
+    # (its data cached: the walk of one path without scattered reads)
+    rows_of = np.diff(index.starts)
+    no_path = np.nonzero(rows_of == 0)[0]
+    one = int(np.nonzero(rows_of[cand_v] == 1)[0][0])
+    probes = {"no_path": (d(np.resize(no_path, C).astype(np.int32)), torch.zeros_like(cv)),
+              "one_path_repeated": (torch.full_like(cv, int(cand_v[one])),
+                                    torch.full_like(cs, int(cand_s[one])))}
+    per_candidate = {
+        name: time_ms(lambda: pw.prune_walk(w, pv, ps_, *rest, zero, lookahead=True),
+                      setup=restore) * 1e3 / C
+        for name, (pv, ps_) in probes.items()}
+    # the old sweep launched the routed walk once per candidate on its
+    # object's distinct rows
+    v_of = np.repeat(np.arange(n), np.diff(index.starts))
+    new = np.ones(len(index.rows), bool)
+    new[1:] = (index.rows[1:] != index.rows[:-1]) | (v_of[1:] != v_of[:-1])
+    distinct = np.bincount(v_of[new], minlength=n)[cand_v]
+    med = int(statistics.median_low(distinct[distinct > 0].tolist()))
+    c_med = int(np.nonzero(distinct == med)[0][0])
+    prow = np.unique(index.rows[index.starts[cand_v[c_med]]:index.starts[cand_v[c_med] + 1]])
+    before = walk_timing(rw, backends, d(objects_np[prow]),
+                         d(np.asarray(ps.lengths, np.int32)[prow]), w0, rest[5])
+    out = {
+        "phase": "prune", "seconds": time.perf_counter() - t0, "candidates": C,
+        "parity": parity, "whole_sweep_vs_reference": whole_check,
+        "us_per_candidate_probes": per_candidate,
+        "whole": {**whole, "candidates": C, "us_per_candidate": whole["kernel_ms"] * 1e3 / C,
+                  "bytes": whole_bytes,
+                  "bound_ms": whole_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"},
+        "prefix": prefix,
+        "old_prune_rows_per_launch": {"min": int(distinct[distinct > 0].min()), "median": med,
+                                      "max": int(distinct.max()),
+                                      "launches": int((distinct > 0).sum())},
+        "routed_walk_at_old_prune_median": before,
+    }
+    emit(out)
+    return out
+
+
+def walk_timing(rw, backends, o, ln, wd, sd) -> dict:
+    """The nearest_copy routed walk on these rows: kernel vs plain (exact),
+    both timed, with the sweep's byte count."""
+    P, L = o.shape
+    W = wd.shape[1]
+    start = backends._root_home(o, sd)
+    zero = backends._load_vector(None, wd)
+    s, loc = rw.routed_walk(o, ln, wd, sd, start, zero)
+    ws, wl = rw.routed_walk_plain(o, ln, wd, sd, start, zero)
+    check(torch.equal(s, ws) and torch.equal(loc, wl), f"routed_walk P={P}: kernel vs plain")
+    valid = torch.arange(L, device=o.device)[None, :] < ln[:, None]
+    touched = int(torch.unique(o[valid]).numel())
+    nbytes = 8 * P + 4 * int(ln.long().sum()) + (4 * W + 4) * touched + 4 * W * 32 + 5 * P * L
+    return {**timed("kernel", lambda: rw.routed_walk(o, ln, wd, sd, start, zero)),
+            **timed("plain", lambda: rw.routed_walk_plain(o, ln, wd, sd, start, zero)),
+            "rows": P, "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+
+
+def phase_shapes(pl, rw, pu, backends, engine_mod, routing, combi, T, case, main_out: dict,
+                 fused_out: dict, dev) -> dict:
+    """Rows 1-4 timed once at the median rows per launch of the path that
+    launches them (main: path_latency, routed_walk; fused: scored_walk,
+    fused_update), on the first P paths of SNB scale 10 and the main t = 1
+    scheme's words: ms, device_ms, plain, and the byte bound at that shape."""
+    t0 = time.perf_counter()
+    _, ps, shard, f = case
+    med = {**{k: v["median"] for k, v in main_out["rows_per_launch"].items()
+              if k in ("path_latency", "routed_walk")},
+           **{k: v["median"] for k, v in fused_out["rows_per_launch"].items()
+              if k in ("scored_walk", "fused_update")}}
+    packed = engine_mod.PackedScheme.from_mask(main_out["schemes"][1].mask, shard, dev)
+    wd, sd = packed.words, packed.shard
+    W = wd.shape[1]
+    objects_np = np.asarray(ps.objects, np.int32)
+    lengths_np = np.asarray(ps.lengths, np.int32)
+    # P rows from the start of the workload (cycled: a launch's P may count
+    # padding rows past the workload's end)
+    rows = lambda P: (torch.from_numpy(objects_np[np.arange(P) % ps.n_paths]).to(dev),  # noqa: E731
+                      torch.from_numpy(lengths_np[np.arange(P) % ps.n_paths]).to(dev))
+    timings = {}
+    o, ln = rows(med["path_latency"])
+    got = pl.path_latency(o, ln, wd, sd)
+    check(torch.equal(got, pl.path_latency_plain(o, ln, wd, sd)), "path_latency: kernel vs plain")
+    valid = torch.arange(o.shape[1], device=dev)[None, :] < ln[:, None]
+    nbytes = (8 * o.shape[0] + 4 * int(ln.long().sum())
+              + 8 * int(torch.unique(o[valid]).numel()))
+    timings["path_latency"] = {
+        **timed("kernel", lambda: pl.path_latency(o, ln, wd, sd)),
+        **timed("plain", lambda: pl.path_latency_plain(o, ln, wd, sd)),
+        "rows": o.shape[0], "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes"}
+    timings["routed_walk"] = walk_timing(rw, backends, *rows(med["routed_walk"]), wd, sd)
+    o, ln = rows(med["scored_walk"])
+    sc = sweep_scored(rw, backends, o, ln, wd, sd, backends._root_home(o, sd), W,
+                      chunk=o.shape[0])
+    sc.update(rows=o.shape[0], bound_ms=sc["bytes"] / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    timings["scored_walk"] = sc
+    fu = sweep_fused(pu, rw, backends, engine_mod, routing, combi, T, case, dev,
+                     rows_list=(med["fused_update"],))
+    timings["fused_update"] = fu[f"routed/B={med['fused_update']}"]
+    out = {"phase": "shapes", "seconds": time.perf_counter() - t0, "median_rows": med,
+           "timings": timings}
+    emit(out)
     return out
 
 
@@ -977,17 +1366,26 @@ def phase_bag(eb, ops, F, counters, dev) -> dict:
     return out
 
 
-def kernel_entry(name: str, source: str, replaces: str, launches: int, err, timing) -> dict:
+def kernel_entry(name: str, source: str, replaces: str, launches: int, err, timing,
+                 main_shape: dict | None = None) -> dict:
     """One kernel of the kernels line: "ms", "plain_ms" and "library_ms" time
     each call from the host (:func:`time_ms`), the "*device_ms" keys the same
-    calls' device time (``busy_first``)."""
-    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": err, "ms": timing["kernel_ms"],
-            "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-            "bound_by": timing["bound_by"], "library_ms": timing.get("library_ms"),
-            "device_ms": timing["kernel_device_ms"],
-            "plain_device_ms": timing["plain_device_ms"],
-            "library_device_ms": timing.get("library_device_ms")}
+    calls' device time (``busy_first``).  ``main_shape``: the same kernel
+    timed at its path's median rows per launch (phase ``shapes``), under
+    "main_shape_*" keys beside the sweep-scale numbers."""
+    out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+           "launches": launches, "max_abs_err": err, "ms": timing["kernel_ms"],
+           "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+           "bound_by": timing["bound_by"], "library_ms": timing.get("library_ms"),
+           "device_ms": timing["kernel_device_ms"],
+           "plain_device_ms": timing["plain_device_ms"],
+           "library_device_ms": timing.get("library_device_ms")}
+    if main_shape is not None:
+        out.update(main_shape_rows=main_shape["rows"], main_shape_ms=main_shape["kernel_ms"],
+                   main_shape_device_ms=main_shape["kernel_device_ms"],
+                   main_shape_plain_ms=main_shape["plain_ms"],
+                   main_shape_bound_ms=main_shape["bound_ms"])
+    return out
 
 
 def main() -> int:
@@ -1012,12 +1410,15 @@ def main() -> int:
     from repro_torch.kernels import ops
     from repro_torch.kernels import path_latency as pl
     from repro_torch.kernels import provision_update as pu
+    from repro_torch.kernels import prune_walk as pw
     from repro_torch.kernels import routed_walk as rw
     from repro_torch.models import transformer as TM
 
     dev = torch.device("cuda")
     counters = [(pl, "LAUNCHES"), (rw, "LAUNCHES"), (rw, "SCORED_LAUNCHES"), (pu, "LAUNCHES"),
-                (fp, "LAUNCHES"), (fp, "TC_LAUNCHES"), (da, "LAUNCHES"), (eb, "LAUNCHES")]
+                (fp, "LAUNCHES"), (fp, "TC_LAUNCHES"), (da, "LAUNCHES"), (eb, "LAUNCHES"),
+                (pw, "LAUNCHES")]
+    targets = row_targets(backends, greedy)
     t_all = time.perf_counter()
     b = phase_build(build)
     par = phase_parity(pl, rw, pu, backends, routing, combi, dev, P=1_000_000)
@@ -1025,15 +1426,20 @@ def main() -> int:
     case = snb_case(graph_mod, workload_mod, scale=10, n_queries=20_000, n_srv=6)
     emit({"phase": "setup", "seconds": time.perf_counter() - ts, "scale": 10,
           "n_queries": 20_000})
-    main_out = phase_main(T, counters, case, engine_mod, scale=10, n_queries=20_000)
-    fused_out = phase_fused(T, greedy, backends, pu, counters, case, main_out["schemes"])
+    main_out = phase_main(T, counters, targets, case, engine_mod, scale=10, n_queries=20_000)
+    fused_out = phase_fused(T, greedy, backends, pu, counters, targets, case,
+                            main_out["schemes"])
     # each kernel's launches on the path that exercises it
     launches = {
         "path_latency": main_out["launches"]["path_latency"],
         "routed_walk": main_out["launches"]["routed_walk"],
+        "prune_walk": main_out["launches"]["prune_walk"],
         "scored_walk": fused_out["launches"]["scored_walk"],
         "fused_update": fused_out["launches"]["fused_update"],
     }
+    pr = phase_prune(T, pw, rw, backends, engine_mod, case, main_out, dev)
+    shapes = phase_shapes(pl, rw, pu, backends, engine_mod, routing, combi, T, case, main_out,
+                          fused_out, dev)
     sw = phase_sweep(pl, rw, pu, graph_mod, workload_mod, engine_mod, backends, routing,
                      combi, T, case, scale=100, n_queries=150_000, dev=dev,
                      launches=launches)
@@ -1047,29 +1453,40 @@ def main() -> int:
                     embedding_bag=bag["launches"]["embedding_bag"])
     emit({"phase": "total", "seconds": time.perf_counter() - t_all})
     print(b["nvidia_smi"], flush=True)
-    tm = sw["timings"]
+    tm, at = sw["timings"], shapes["timings"]
     err = par["max_abs_err"]
+    prune_entry = kernel_entry("prune_walk", "src/repro_torch/csrc/prune_walk.cu",
+                               "src/repro/kernels/routed_walk.py:147", launches["prune_walk"],
+                               pr["prefix"]["max_abs_err"], pr["prefix"])
+    prune_entry.update(candidates=pr["prefix"]["candidates"],
+                       whole_candidates=pr["whole"]["candidates"],
+                       whole_ms=pr["whole"]["kernel_ms"],
+                       whole_device_ms=pr["whole"]["kernel_device_ms"],
+                       whole_bound_ms=pr["whole"]["bound_ms"],
+                       us_per_candidate=pr["whole"]["us_per_candidate"])
     emit({"kernels": [
         kernel_entry("path_latency", "src/repro_torch/csrc/path_latency.cu",
-                     "src/repro/kernels/path_latency.py:68", launches["path_latency"],
-                     err["path_latency"], tm["path_latency"]),
+                     "src/repro/kernels/path_latency.py:93", launches["path_latency"],
+                     err["path_latency"], tm["path_latency"], at["path_latency"]),
         kernel_entry("routed_walk", "src/repro_torch/csrc/routed_walk.cu",
-                     "src/repro/kernels/routed_walk.py:121", launches["routed_walk"],
-                     err["routed_walk"], tm["routed_walk/nearest_copy"]),
+                     "src/repro/kernels/routed_walk.py:147", launches["routed_walk"],
+                     err["routed_walk"], tm["routed_walk/nearest_copy"], at["routed_walk"]),
+        prune_entry,
         kernel_entry("scored_walk", "src/repro_torch/csrc/scored_walk.cu",
-                     "src/repro/kernels/routed_walk.py:218", launches["scored_walk"],
-                     err["scored_walk"], tm["scored_walk"]),
+                     "src/repro/kernels/routed_walk.py:244", launches["scored_walk"],
+                     err["scored_walk"], tm["scored_walk"], at["scored_walk"]),
         kernel_entry("fused_update", "src/repro_torch/csrc/provision_update.cu",
-                     "src/repro/kernels/provision_update.py:218", launches["fused_update"],
-                     err["fused_update"], tm["fused_update/routed/B=256"]),
+                     "src/repro/kernels/provision_update.py:285", launches["fused_update"],
+                     err["fused_update"], tm["fused_update/routed/B=256"],
+                     at["fused_update"]),
         kernel_entry("embedding_bag", "src/repro_torch/csrc/embedding_bag.cu",
-                     "src/repro/kernels/embedding_bag.py:45", launches["embedding_bag"],
+                     "src/repro/kernels/embedding_bag.py:68", launches["embedding_bag"],
                      lm_par["max_abs_err"]["embedding_bag"], bag["timing"]),
         kernel_entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
-                     "src/repro/kernels/flash_prefill.py:69", launches["flash_prefill"],
+                     "src/repro/kernels/flash_prefill.py:85", launches["flash_prefill"],
                      lm_par["max_abs_err"]["flash_prefill"], lm["timings"]["flash_prefill"]),
         kernel_entry("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
-                     "src/repro/kernels/decode_attention.py:64", launches["decode_attention"],
+                     "src/repro/kernels/decode_attention.py:83", launches["decode_attention"],
                      lm_par["max_abs_err"]["decode_attention"],
                      lm["timings"]["decode_attention"]),
     ]})

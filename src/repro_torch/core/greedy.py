@@ -253,7 +253,8 @@ class GreedyStats:
     revalidate_rows_saved: int = 0
     # host seconds per stage (gate, update, revalidate, prune; the batched
     # prune also books its grouping as prune_plan and its group steps as
-    # prune_steps, both inside prune)
+    # prune_steps, the one-call serial prune its sweep as prune_walk, all
+    # inside prune)
     stage_s: dict = dataclasses.field(default_factory=dict)
 
 

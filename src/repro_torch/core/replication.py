@@ -327,7 +327,17 @@ def prune_scheme_replicas(
     restored in one :func:`_prune_group_step`, decision for decision the
     serial sweep's.  Under ``backend="reference"`` the sweep stays serial.
     ``stage_s`` (a ``GreedyStats.stage_s`` dict) receives the batched
-    sweep's host seconds as ``prune_plan`` (grouping) and ``prune_steps``.
+    sweep's host seconds as ``prune_plan`` (grouping) and ``prune_steps``,
+    and the one-call serial sweep's (uploads, kernel, readback) as
+    ``prune_walk``.
+
+    The serial sweep (``fused=False``) on the ``kernel`` and ``torch``
+    backends under ``home_first``, ``nearest_copy`` and ``queue_aware``
+    runs as one :func:`~repro_torch.engine.backends.prune_sweep` call over
+    the whole candidate sequence (one ``prune_walk`` launch on ``kernel``,
+    its plain per-candidate loop on ``torch``); ``nearest_copy_dp`` (whose
+    score tables are recomputed from the words as bits clear) and the
+    ``reference`` backend re-walk per candidate.
     """
     from repro_torch.core.slo import normalize_path_budgets  # local: no cycle
     from repro_torch.engine.incremental import PathIndex
@@ -348,7 +358,8 @@ def prune_scheme_replicas(
         if f is None
         else np.asarray(f, np.float64)
     )
-    affected = PathIndex(objects, scheme.n_objects).paths_of
+    index = PathIndex(objects, scheme.n_objects)
+    affected = index.paths_of
     packed = engine.packed
     rank = _backends._load_vector(load if pol.uses_load else None, packed.words)
 
@@ -406,6 +417,29 @@ def prune_scheme_replicas(
             stage_s["prune_plan"] = stage_s.get("prune_plan", 0.0) + t1 - t0
             stage_s["prune_steps"] = stage_s.get("prune_steps", 0.0) + t2 - t1
         return n_dropped, bytes_saved
+
+    if backend != "reference" and pol.name != "nearest_copy_dp" and len(order):
+        t0 = time.perf_counter()
+        keep = to_host(_backends.prune_sweep(
+            packed.words,
+            to_device(vs[order].astype(np.int32), device),
+            to_device(ss[order].astype(np.int32), device),
+            to_device(index.starts.astype(np.int32), device),
+            to_device(index.rows, device),
+            to_device(objects, device), to_device(lengths, device),
+            # h <= L - 1, so capping a budget at the int32 range keeps every verdict
+            to_device(np.minimum(t_path, np.iinfo(np.int32).max).astype(np.int32), device),
+            packed.shard, pol, rank, backend=backend,
+        ))
+        if stage_s is not None:
+            stage_s["prune_walk"] = stage_s.get("prune_walk", 0.0) + time.perf_counter() - t0
+        kept = order[keep]
+        scheme.mask[vs[kept], ss[kept]] = False
+        if len(kept):
+            # a running sum in candidate order (not numpy's pairwise sum):
+            # the per-candidate sweep's float, bit for bit
+            bytes_saved = float(np.add.accumulate(fv[vs[kept]])[-1])
+        return len(kept), bytes_saved
 
     for i in order:
         v, s = int(vs[i]), int(ss[i])

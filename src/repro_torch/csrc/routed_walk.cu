@@ -12,10 +12,15 @@
 //   are tried first.
 //
 // Design: one thread per path.  The per-server load vector is staged in
-// shared memory; a pick (`pick_holder`, walk_common.cuh) walks the set bits
+// shared memory; a pick (`pick_rows`, walk_common.cuh) walks the set bits
 // of the object's W words with __ffs instead of unpacking a [W*32] plane,
-// so a thread touches only the words of its own objects.  Like the home-first walk it is bound by the
-// bytes it reads and writes (the [P, L] trace dominates); no tensor cores.
+// so a thread touches only the words of its own objects.  The step
+// (`walk_path`, shared with prune_walk.cu) loads a position's words and
+// home before the server-dependent local test; for L <= 8 and W == 1 the
+// whole path's words are staged in registers first (a template bucket),
+// so a thread's loads are all in flight at once.  Like
+// the home-first walk it is bound by the bytes it reads and writes (the
+// [P, L] trace dominates); no tensor cores.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -24,7 +29,7 @@
 
 namespace {
 
-template <bool HOME_FIRST, bool LOOKAHEAD>
+template <bool HOME_FIRST, bool LOOKAHEAD, int LR>
 __global__ void routed_walk_kernel(const int32_t* __restrict__ objects,
                                    const int32_t* __restrict__ lengths,
                                    const uint32_t* __restrict__ words,
@@ -42,51 +47,47 @@ __global__ void routed_walk_kernel(const int32_t* __restrict__ objects,
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= P) return;
   const int64_t base = static_cast<int64_t>(p) * L;
-  const int32_t* obj = objects + base;
-  const int len = lengths[p];
-  int server = len > 0 ? start[p] : 0;
+  const int len = min(lengths[p], L);
+  const int server = len > 0 ? start[p] : 0;
   servers[base] = server;
   local[base] = len > 0 ? 1 : 0;
-  for (int i = 1; i < L; ++i) {
-    uint8_t loc = 0;
-    if (i < len) {
-      const int v = max(obj[i], 0);
-      const uint32_t* row = words + static_cast<int64_t>(v) * W;
-      if (server >= 0 && ((row[server >> 5] >> (server & 31)) & 1u)) {
-        loc = 1;
-      } else if (HOME_FIRST) {
-        server = home[v];
-      } else {
-        const int h = home[v];
-        int tgt = -1;
-        if (LOOKAHEAD && i + 1 < len) {
-          const uint32_t* nrow =
-              words + static_cast<int64_t>(max(obj[i + 1], 0)) * W;
-          tgt = pick_holder(row, nrow, W, h, s_load);
-        }
-        if (tgt < 0) tgt = pick_holder(row, nullptr, W, h, s_load);
-        server = tgt;
-      }
-    }
-    servers[base + i] = server;
-    local[base + i] = loc;
-  }
+  walk_path<HOME_FIRST, LOOKAHEAD, LR, false>(
+      objects + base, L, len, L, words, W, home, server, s_load,
+      [&](int i, int srv, bool loc) {
+        servers[base + i] = srv;
+        local[base + i] = loc ? 1 : 0;
+        return true;
+      });
 }
 
-template <bool HOME_FIRST, bool LOOKAHEAD>
+template <bool HOME_FIRST, bool LOOKAHEAD, int LR>
 void launch(const void* objects, const void* lengths, const void* words,
             const void* home, const void* start, const void* load, int P,
             int L, int W, void* servers, void* local, cudaStream_t stream) {
   const int threads = 256;
   const int blocks = (P + threads - 1) / threads;
   const size_t smem = HOME_FIRST ? 0 : sizeof(float) * (W << 5);
-  routed_walk_kernel<HOME_FIRST, LOOKAHEAD><<<blocks, threads, smem, stream>>>(
+  routed_walk_kernel<HOME_FIRST, LOOKAHEAD, LR><<<blocks, threads, smem, stream>>>(
       static_cast<const int32_t*>(objects),
       static_cast<const int32_t*>(lengths),
       static_cast<const uint32_t*>(words),
       static_cast<const int32_t*>(home),
       static_cast<const int32_t*>(start), static_cast<const float*>(load), P,
       L, W, static_cast<int32_t*>(servers), static_cast<uint8_t*>(local));
+}
+
+// The register bucket (L <= 8, W == 1), else the plain loop.
+template <bool HOME_FIRST, bool LOOKAHEAD>
+void launch_bucket(const void* objects, const void* lengths, const void* words,
+                   const void* home, const void* start, const void* load, int P,
+                   int L, int W, void* servers, void* local, cudaStream_t s) {
+  if (L <= 8 && W == 1) {
+    launch<HOME_FIRST, LOOKAHEAD, 8>(objects, lengths, words, home, start, load, P, L, W,
+                                     servers, local, s);
+  } else {
+    launch<HOME_FIRST, LOOKAHEAD, 0>(objects, lengths, words, home, start, load, P, L, W,
+                                     servers, local, s);
+  }
 }
 
 }  // namespace
@@ -98,14 +99,14 @@ extern "C" int routed_walk_launch(const void* objects, const void* lengths,
                                   void* servers, void* local, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (home_first) {
-    launch<true, false>(objects, lengths, words, home, start, load, P, L, W,
-                        servers, local, s);
+    launch_bucket<true, false>(objects, lengths, words, home, start, load, P, L, W,
+                               servers, local, s);
   } else if (lookahead) {
-    launch<false, true>(objects, lengths, words, home, start, load, P, L, W,
-                        servers, local, s);
+    launch_bucket<false, true>(objects, lengths, words, home, start, load, P, L, W,
+                               servers, local, s);
   } else {
-    launch<false, false>(objects, lengths, words, home, start, load, P, L, W,
-                         servers, local, s);
+    launch_bucket<false, false>(objects, lengths, words, home, start, load, P, L, W,
+                                servers, local, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

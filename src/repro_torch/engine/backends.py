@@ -26,6 +26,7 @@ from repro_torch.engine.packed import test_bits, unpack_bits
 from repro_torch.engine.routing import resolve_policy
 from repro_torch.engine.streaming import to_device
 from repro_torch.kernels.path_latency import path_latency, path_latency_plain
+from repro_torch.kernels import prune_walk as _prune_walk
 from repro_torch.kernels.routed_walk import (
     routed_walk,
     routed_walk_plain,
@@ -230,6 +231,18 @@ def gate_counts(objects, lengths, words, shard, pol, rank, backend: str = "torch
     ``queue_aware``, zeros otherwise)."""
     _, local = _trace(objects, lengths, words, shard, pol, rank, None, backend)
     return (_valid(objects, lengths) & ~local).sum(dim=1, dtype=torch.int32)
+
+
+def prune_sweep(words, cand_v, cand_s, starts, rows, objects, lengths, t_path, home,
+                pol, rank, backend: str = "torch"):
+    """The serial prune's whole candidate sequence for a resolved policy
+    (not ``nearest_copy_dp``): keep bool [C], ``words`` pruned in place.
+    The ``prune_walk`` kernel on ``kernel``, its plain loop on ``torch``."""
+    if backend not in ("torch", "kernel"):
+        raise ValueError(f"the prune sweep runs on torch | kernel, got {backend!r}")
+    sweep = _prune_walk.prune_walk if backend == "kernel" else _prune_walk.prune_walk_plain
+    return sweep(words, cand_v, cand_s, starts, rows, objects, lengths, t_path, home, rank,
+                 home_first=pol.name == "home_first", lookahead=pol.lookahead)
 
 
 def routed_counts(objects, lengths, words, shard, policy, load=None,

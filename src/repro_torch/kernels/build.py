@@ -31,6 +31,7 @@ SIGNATURES = {
     "path_latency_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     "routed_walk_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "scored_walk_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "prune_walk_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "fused_update_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _P, _P, _P, _P, _P, _P, _P],
     # the last int before the stream is a DTYPE_CODES value
