@@ -26,13 +26,32 @@ Phases (each prints one JSON line; any failed check exits non-zero):
           ``replicate_workload(fused=True)`` under ``nearest_copy`` and
           ``nearest_copy_dp`` for t = 1 and 2 on the kernel backend
           (counters zeroed just before, read just after), each feasible
-          under its policy with 0 failed paths and 0 routed violations;
-          with unit sizes at t = 1 the kernel and torch backends must give
-          the same mask.  Where a ``nearest_copy`` mask differs from the
+          under its policy with 0 failed paths and 0 routed violations,
+          each prune one sweep launch (``prune_walk``, or
+          ``prune_walk_scored`` under ``nearest_copy_dp``); each policy's
+          kernel-route prune is held against the torch backend's batched
+          prune from the same pre-prune scheme (masks and counts equal, the
+          ``bytes_saved`` difference printed); with unit
+          sizes at t = 1 the kernel and torch backends must give the same
+          mask.  Where a ``nearest_copy`` mask differs from the
           main phase's (sizes 1 + 0.1 * degree make near-tied candidate
           costs round by summation order), the first diverging UPDATE
           batch is found and printed with the path and both costs.  An
           untimed re-run records the rows per launch, as in main.
+  dp_prune  ``replicate_workload(policy="nearest_copy_dp")`` (fused=False,
+          kernel backend) at t = 1 and 2 on the main workload, counters
+          zeroed just before and read just after: feasible, 0 failed paths,
+          0 routed violations, one ``prune_walk_scored`` launch per t.
+          Each prune is then replayed untimed from the greedy's pre-prune
+          scheme: the drive's mask and count, and no ``scored_walk`` launch
+          inside it beyond its h0 feasibility walk.  The old per-candidate loop (a gate walk and a
+          host round trip per candidate) is timed on the first 2,000 t = 1
+          candidates; the scored kernel is held
+          against ``prune_walk_scored_plain`` on those candidates (depths
+          None and 2) and on seeded random cases with objects that have no
+          holder; the whole t = 1 and t = 2 sweeps against the torch
+          backend's batched prune from the same pre-prune schemes (keep
+          flags, words and masks); the t = 1 sweep timed.
   prune   the serial prune's kernel on the main path's inputs: the first
           2,000 t = 1 candidates through ``prune_walk`` and its plain loop
           under home_first, nearest_copy and queue_aware (keep flags and
@@ -273,7 +292,7 @@ def snb_case(graph_mod, workload_mod, scale: int, n_queries: int, n_srv: int):
 # counts the flash launches that went to the tensor-core kernel
 KERNELS = ("path_latency", "routed_walk", "scored_walk", "fused_update",
            "flash_prefill", "flash_prefill_tc", "decode_attention", "embedding_bag",
-           "prune_walk")
+           "prune_walk", "prune_walk_scored")
 
 
 def zero_counts(mods) -> None:
@@ -466,7 +485,40 @@ def first_update_divergence(T, greedy, backends, pu, case, t: int, pol: str) -> 
     return {"fused_batches": seen["batches"], "first_divergence": seen["first"]}
 
 
-def phase_fused(T, greedy, backends, pu, counters, targets, case, main_schemes: dict) -> dict:
+def fused_prune_check(T, case, pol: str, t: int, drive_scheme, dev) -> dict:
+    """The ``fused=True`` prune's kernel route (one ``prune_walk`` sweep,
+    ``prune_walk_scored`` under ``nearest_copy_dp``) against an independent
+    version: the torch backend's batched prune (independent groups, plain
+    torch walks) from the same pre-prune scheme of the fused greedy under
+    ``pol``.  Masks and counts must be equal, and the drive's mask equal to
+    the kernel route's; ``bytes_saved`` is the same sizes summed in another
+    order (candidate order vs group by group), so its difference is
+    printed, not checked."""
+    _, ps, shard, f = case
+    pre, _ = T.replicate_workload(ps, shard, 6, t, f=f, policy=pol, fused=True,
+                                  policy_prune=False)
+    ker, ref = pre.copy(), pre.copy()
+    tk = time.perf_counter()
+    n_k, b_k = T.prune_scheme_replicas(ker, ps, t, policy=pol, f=f, fused=True, device=dev)
+    tr = time.perf_counter()
+    n_r, b_r = T.prune_scheme_replicas(ref, ps, t, policy=pol, f=f, fused=True,
+                                       backend="torch", device=dev)
+    ref_s = time.perf_counter() - tr
+    cells = int((ker.mask != ref.mask).sum())
+    check(cells == 0 and n_k == n_r,
+          f"fused {pol} t={t}: the kernel-route prune differs from the torch batched prune "
+          f"in {cells} cells ({n_k} vs {n_r} removed)")
+    check(np.array_equal(drive_scheme.mask, ker.mask),
+          f"fused {pol} t={t}: the drive's mask vs its prune's kernel route")
+    print(f"fused {pol} t={t}: bytes_saved kernel route {b_k!r}, torch batched {b_r!r}, "
+          f"difference {b_k - b_r!r}", flush=True)
+    return {"removed": n_k, "mask_cells_differ": cells, "bytes_saved_kernel": b_k,
+            "bytes_saved_reference": b_r, "bytes_saved_diff": b_k - b_r,
+            "kernel_s": tr - tk, "reference_s": ref_s}
+
+
+def phase_fused(T, greedy, backends, pu, counters, targets, case, main_schemes: dict,
+                dev) -> dict:
     t0 = time.perf_counter()
     snb, ps, shard, f = case
     runs = {}
@@ -494,6 +546,11 @@ def phase_fused(T, greedy, backends, pu, counters, targets, case, main_schemes: 
     launches = read_counts(counters)
     check(launches["fused_update"] > 0, "fused_update kernel not launched on the fused path")
     check(launches["scored_walk"] > 0, "scored_walk kernel not launched on the fused path")
+    for name in ("prune_walk", "prune_walk_scored"):
+        check(launches[name] == 2, f"{name} launched {launches[name]} times on the fused path, "
+                                   "expected 2 (one prune per t)")
+    prune_check = {f"{pol}/t={t}": fused_prune_check(T, case, pol, t, schemes[pol, t], dev)
+                   for pol in ("nearest_copy", "nearest_copy_dp") for t in (1, 2)}
     # fused=True vs the main phase's fused=False (f = object_sizes): the
     # kernel sums each cost in its own order, so near-ties may resolve
     # differently (ROADMAP trap c); printed, not checked
@@ -534,6 +591,7 @@ def phase_fused(T, greedy, backends, pu, counters, targets, case, main_schemes: 
         "phase": "fused", "seconds": time.perf_counter() - t0, "paths": ps.n_paths,
         "n_servers": 6, "runs": runs, "launches": launches,
         "rows_per_launch": rows,
+        "prune_vs_torch_batched": prune_check,
         "nearest_copy_same_as_separate": same_as_separate,
         "nearest_copy_divergence": divergence,
         "unit_f_t1_kernel_equals_torch": True, "unit_f_t1": unit,
@@ -695,11 +753,12 @@ def csr_index(objects: torch.Tensor, n: int):
 
 
 def prune_bytes(cand_v: np.ndarray, cand_s: np.ndarray, starts: np.ndarray,
-                rows: np.ndarray, objects: np.ndarray, W: int) -> int:
+                rows: np.ndarray, objects: np.ndarray, W: int, rank: bool = True) -> int:
     """Bytes the sweep must move, each read once: the candidates and their
     keep flags, their objects' CSR ranges and row entries, each touched
     path's objects, length and budget, each object on those paths' home
-    and words, one word written per edited cell, and the rank vector."""
+    and words, one word written per edited cell, and the rank vector (not
+    read by the scored sweep, ``rank=False``)."""
     uv = np.unique(cand_v)
     lo, hi = starts[uv].astype(np.int64), starts[uv + 1].astype(np.int64)
     entries = int((hi - lo).sum())
@@ -710,7 +769,7 @@ def prune_bytes(cand_v: np.ndarray, cand_s: np.ndarray, starts: np.ndarray,
     cells = np.unique(cand_v.astype(np.int64) * W + cand_s // 32).size
     return (9 * len(cand_v) + 8 * len(uv) + 4 * entries
             + int((objs >= 0).sum()) * 4 + 8 * len(paths)
-            + (4 + 4 * W) * touched + 4 * cells + 4 * W * 32)
+            + (4 + 4 * W) * touched + 4 * cells + (4 * W * 32 if rank else 0))
 
 
 def random_prune_case(backends, seed: int, n_obj: int, n_srv: int, P: int, L: int, C: int,
@@ -737,6 +796,13 @@ def prune_inputs(T, engine_mod, case, t: int, dev) -> dict:
     _, ps, shard, f = case
     scheme, _ = T.replicate_workload(ps, shard, 6, t, f=f, policy="nearest_copy",
                                      policy_prune=False)
+    return sweep_inputs(engine_mod, case, scheme, t, dev)
+
+
+def sweep_inputs(engine_mod, case, scheme, t: int, dev) -> dict:
+    """A pre-prune scheme's serial prune inputs at budget t (see
+    :func:`prune_inputs`)."""
+    _, ps, _, f = case
     n = scheme.n_objects
     objects_np = np.asarray(ps.objects, np.int32)
     index = engine_mod.PathIndex(objects_np, n)
@@ -752,7 +818,8 @@ def prune_inputs(T, engine_mod, case, t: int, dev) -> dict:
             d(np.asarray(ps.lengths, np.int32)),
             torch.full((ps.n_paths,), t, dtype=torch.int32, device=dev), packed.shard)
     return {"scheme": scheme, "index": index, "objects_np": objects_np,
-            "starts_np": starts_np, "cand_v": cand_v, "cand_s": cand_s, "cv": d(cand_v),
+            "lengths_np": np.asarray(ps.lengths, np.int32), "starts_np": starts_np,
+            "cand_v": cand_v, "cand_s": cand_s, "cv": d(cand_v),
             "cs": d(cand_s), "w0": packed.words.clone(), "rest": rest}
 
 
@@ -762,33 +829,38 @@ def int_err(*pairs) -> int:
 
 
 def whole_sweep_check(T, pw, engine_mod, case, inp: dict, t: int, main_out: dict,
-                      rank, dev) -> dict:
-    """The whole serial prune at budget t through ``prune_walk``, against an
-    independent version: the batched prune (``fused=True``) on the torch
-    backend (plain torch walks, no kernel) from the same scheme, which makes
-    the serial sweep's decisions.  Keep flags, final words and mask equal;
-    the main phase's count and mask equal the reference's."""
+                      rank, dev, policy: str = "nearest_copy") -> dict:
+    """The whole serial prune at budget t through ``prune_walk`` (under
+    ``nearest_copy``; ``prune_walk_scored`` under ``nearest_copy_dp``),
+    against an independent version: the batched prune (``fused=True``) on
+    the torch backend (plain torch walks, no kernel) from the same scheme,
+    which makes the serial sweep's decisions.  Keep flags, final words and
+    mask equal; the drive's (``main_out``) count and mask equal the
+    reference's."""
     _, ps, _, f = case
     w = inp["w0"].clone()
-    keep = pw.prune_walk(w, inp["cv"], inp["cs"], *inp["rest"], rank, home_first=False,
-                         lookahead=True)
+    if policy == "nearest_copy_dp":
+        keep = pw.prune_walk_scored(w, inp["cv"], inp["cs"], *inp["rest"])
+    else:
+        keep = pw.prune_walk(w, inp["cv"], inp["cs"], *inp["rest"], rank, home_first=False,
+                             lookahead=True)
     ref = inp["scheme"].copy()
     tr = time.perf_counter()
-    n_ref, _ = T.prune_scheme_replicas(ref, ps, t, policy="nearest_copy", f=f,
+    n_ref, _ = T.prune_scheme_replicas(ref, ps, t, policy=policy, f=f,
                                        backend="torch", fused=True, device=dev)
     ref_s = time.perf_counter() - tr
     keep_ref = torch.from_numpy(~ref.mask[inp["cand_v"], inp["cand_s"]]).to(dev)
     w_ref = engine_mod.PackedScheme.from_mask(ref.mask, ref.shard, dev).words
     check(w.shape == w_ref.shape, f"t={t}: words {tuple(w.shape)} vs {tuple(w_ref.shape)}")
     err = int_err((keep, keep_ref), (w, w_ref))
-    check(err == 0, f"prune_walk whole t={t} sweep vs the torch batched prune: "
+    check(err == 0, f"{policy} whole t={t} sweep vs the torch batched prune: "
                     f"max |diff| {err}")
     check(int(keep.sum()) == n_ref,
-          f"prune_walk t={t} removed {int(keep.sum())}, the reference {n_ref}")
+          f"{policy} sweep t={t} removed {int(keep.sum())}, the reference {n_ref}")
     check(main_out["runs"][t]["pruned"] == n_ref,
-          f"main phase t={t} pruned {main_out['runs'][t]['pruned']}, the reference {n_ref}")
+          f"{policy} drive t={t} pruned {main_out['runs'][t]['pruned']}, the reference {n_ref}")
     check(np.array_equal(main_out["schemes"][t].mask, ref.mask),
-          f"main phase t={t} mask vs the reference prune's")
+          f"{policy} drive t={t} mask vs the reference prune's")
     return {"candidates": len(inp["cand_v"]), "removed": n_ref,
             "kept": len(inp["cand_v"]) - n_ref, "max_abs_err": err, "reference_s": ref_s}
 
@@ -902,6 +974,175 @@ def phase_prune(T, pw, rw, backends, engine_mod, case, main_out: dict, dev) -> d
                                       "max": int(distinct.max()),
                                       "launches": int((distinct > 0).sum())},
         "routed_walk_at_old_prune_median": before,
+    }
+    emit(out)
+    return out
+
+
+def old_dp_loop(backends, engine_mod, streaming, inp: dict, t: int, n: int, pol, dev):
+    """The per-candidate ``nearest_copy_dp`` prune that ``prune_walk_scored``
+    replaces (``prune_scheme_replicas``' loop before the scored sweep), on
+    the first ``n`` candidates: per candidate a bit clear, the affected
+    rows' upload, the DP gate walk (the score tables in torch ops and one
+    ``scored_walk`` launch), a blocking readback and a restore on a
+    violation.  Returns (keep bool [n], final words, host seconds)."""
+    scheme, index = inp["scheme"], inp["index"]
+    packed = engine_mod.PackedScheme.from_mask(scheme.mask, scheme.shard, dev)
+    rank = backends._load_vector(None, packed.words)
+    keep = np.ones(n, bool)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in range(n):
+        v, s = int(inp["cand_v"][c]), int(inp["cand_s"][c])
+        packed.set_bit(v, s, False)
+        idx = index.paths_of(v)
+        if len(idx):
+            h = backends.gate_counts(streaming.to_device(inp["objects_np"][idx], dev),
+                                     streaming.to_device(inp["lengths_np"][idx], dev),
+                                     packed.words, packed.shard, pol, rank, backend="kernel")
+            if not np.all(streaming.to_host(h) <= t):
+                packed.set_bit(v, s, True)
+                keep[c] = False
+    torch.cuda.synchronize()
+    return keep, packed.words, time.perf_counter() - t0
+
+
+def phase_dp_prune(T, pw, rw, backends, engine_mod, streaming, routing, counters, case,
+                   dev) -> dict:
+    """``nearest_copy_dp``'s separate drive and its serial prune (see the
+    module docstring).  The drive runs as shipped, timed; each prune is
+    then replayed, untimed, from the greedy's pre-prune scheme
+    (``policy_prune=False``), with the scored launches counted inside it,
+    and the replay must give the drive's mask and count."""
+    t0 = time.perf_counter()
+    _, ps, shard, f = case
+    pol = "nearest_copy_dp"
+    runs, schemes = {}, {}
+    # the drive: counters zeroed just before, read just after
+    zero_counts(counters)
+    for t in (1, 2):
+        ts = time.perf_counter()
+        scheme, st = T.replicate_workload(ps, shard, 6, t, f=f, policy=pol)
+        greedy_s = time.perf_counter() - ts
+        tf = time.perf_counter()
+        feasible = T.is_latency_feasible(ps, scheme, t, policy=pol)
+        feas_s = time.perf_counter() - tf
+        check(feasible, f"{pol} t={t}: scheme not feasible under {pol}")
+        check(st.failed_paths == 0, f"{pol} t={t}: {st.failed_paths} failed paths")
+        check(st.routed_violations == 0,
+              f"{pol} t={t}: {st.routed_violations} routed violations")
+        schemes[t] = scheme
+        runs[t] = {
+            "replicas": st.replicas, "pruned": st.pruned_replicas,
+            "overhead": scheme.replication_overhead(f.astype(np.float64)),
+            "failed_paths": st.failed_paths, "routed_violations": st.routed_violations,
+            "routed_skips": st.routed_skips, "fallback_paths": st.fallback_paths,
+            "feasible": feasible, "greedy_s": greedy_s,
+            "stage_s": dict(st.stage_s, feasibility=feas_s),
+        }
+    launches = read_counts(counters)
+    check(launches["prune_walk_scored"] == 2,
+          f"prune_walk_scored launched {launches['prune_walk_scored']} times in the "
+          f"{pol} drive, expected 2 (one serial prune per t)")
+    # the replay: the prune's only scored_walk launches are its h0
+    # feasibility walk over all paths (one per engine chunk), none per
+    # candidate
+    keys = ("prune_walk_scored", "scored_walk", "h0_walk_scored_walk")
+    inside, pre = [], {}
+    for t in (1, 2):
+        pre[t], _ = T.replicate_workload(ps, shard, 6, t, f=f, policy=pol, policy_prune=False)
+        replay = pre[t].copy()
+        sw, sc = rw.SCORED_LAUNCHES, pw.SCORED_LAUNCHES
+        n = T.prune_scheme_replicas(replay, ps, t, policy=pol, f=f, device=dev)[0]
+        r = {"scored_walk": rw.SCORED_LAUNCHES - sw, "prune_walk_scored": pw.SCORED_LAUNCHES - sc}
+        check(n == runs[t]["pruned"] and np.array_equal(replay.mask, schemes[t].mask),
+              f"{pol} t={t}: the replayed prune ({n} removed) differs from the drive's "
+              f"({runs[t]['pruned']})")
+        before = rw.SCORED_LAUNCHES
+        engine_mod.LatencyEngine(pre[t]).path_latencies(ps, policy=pol)
+        r["h0_walk_scored_walk"] = rw.SCORED_LAUNCHES - before
+        inside.append(r)
+    check(all(r["prune_walk_scored"] == 1 and r["scored_walk"] == r["h0_walk_scored_walk"]
+              for r in inside),
+          f"{pol} prunes: {[tuple(r[k] for k in keys) for r in inside]} ({', '.join(keys)}) "
+          "launches, expected (1, n, n) each")
+    inp = {t: sweep_inputs(engine_mod, case, pre[t], t, dev) for t in (1, 2)}
+    i1 = inp[1]
+    cv, cs, w0, rest = i1["cv"], i1["cs"], i1["w0"], i1["rest"]
+    pre_v, pre_s = cv[:PRUNE_PREFIX], cs[:PRUNE_PREFIX]
+    errs, parity = [], {}
+    # the "before": the old per-candidate loop on the first PRUNE_PREFIX candidates
+    keep_old, w_old, old_s = old_dp_loop(backends, engine_mod, streaming, i1, 1, PRUNE_PREFIX,
+                                         routing.resolve_policy(pol), dev)
+    plain = {}
+    for depth in (-1, 2):
+        wk, wp = w0.clone(), w0.clone()
+        keep_k = pw.prune_walk_scored(wk, pre_v, pre_s, *rest, depth=depth)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        keep_p = pw.prune_walk_scored_plain(wp, pre_v, pre_s, *rest, depth=depth)
+        b.record()
+        torch.cuda.synchronize()
+        plain[depth] = a.elapsed_time(b)
+        errs.append(int_err((keep_k, keep_p), (wk, wp)))
+        check(errs[-1] == 0, f"prune_walk_scored depth={depth}: kernel vs plain on the "
+                             f"{pol} drive's first {PRUNE_PREFIX} t = 1 candidates")
+        if depth < 0:
+            errs.append(int_err((keep_k, torch.from_numpy(keep_old).to(dev)), (wk, w_old)))
+            check(errs[-1] == 0, f"prune_walk_scored vs the old per-candidate loop on the "
+                                 f"first {PRUNE_PREFIX} t = 1 candidates")
+        parity[f"depth={depth}"] = {"candidates": PRUNE_PREFIX,
+                                    "kept_removed": int(keep_k.sum())}
+    for seed, (n_srv, L) in enumerate(((6, 6), (6, 9), (40, 6))):
+        words, *args = random_prune_case(backends, 200 + seed, 20_000, n_srv, 30_000, L, 300,
+                                         dev)
+        # about 3% of the objects without any holder: the DP's dead state
+        g = torch.Generator(device=dev).manual_seed(300 + seed)
+        words[:-1][torch.rand(words.shape[0] - 1, generator=g, device=dev) < 0.03] = 0
+        for depth in (-1, 2):
+            wk, wp = words.clone(), words.clone()
+            keep_k = pw.prune_walk_scored(wk, *args[:-1], depth=depth)
+            keep_p = pw.prune_walk_scored_plain(wp, *args[:-1], depth=depth)
+            errs.append(int_err((keep_k, keep_p), (wk, wp)))
+            check(errs[-1] == 0,
+                  f"prune_walk_scored depth={depth} random L={L} S={n_srv}: kernel vs plain")
+            parity[f"depth={depth}/random L={L} S={n_srv}"] = {
+                "candidates": len(keep_k), "kept_removed": int(keep_k.sum())}
+    drive = {"runs": runs, "schemes": schemes}
+    whole_check = {t: whole_sweep_check(T, pw, engine_mod, case, inp[t], t, drive, None, dev,
+                                        policy=pol) for t in (1, 2)}
+    errs += [c["max_abs_err"] for c in whole_check.values()]
+    w = w0.clone()
+    restore = lambda: w.copy_(w0)  # noqa: E731
+    C = len(i1["cand_v"])
+    W = w0.shape[1]
+    whole = timed("kernel", lambda: pw.prune_walk_scored(w, cv, cs, *rest), setup=restore)
+    whole_bytes = prune_bytes(i1["cand_v"], i1["cand_s"], i1["starts_np"], i1["index"].rows,
+                              i1["objects_np"], W, rank=False)
+    prefix = {
+        **timed("kernel", lambda: pw.prune_walk_scored(w, pre_v, pre_s, *rest), setup=restore),
+        "plain_ms": plain[-1], "plain_device_ms": None,
+        "candidates": PRUNE_PREFIX, "max_abs_err": max(errs),
+        "bytes": prune_bytes(i1["cand_v"][:PRUNE_PREFIX], i1["cand_s"][:PRUNE_PREFIX],
+                             i1["starts_np"], i1["index"].rows, i1["objects_np"], W,
+                             rank=False),
+    }
+    prefix.update(bound_ms=prefix["bytes"] / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    out = {
+        "phase": "dp_prune", "seconds": time.perf_counter() - t0, "policy": pol,
+        "paths": ps.n_paths, "n_servers": 6, "runs": runs, "launches": launches,
+        "prunes": inside,
+        "candidates": {t: len(inp[t]["cand_v"]) for t in (1, 2)},
+        "parity": parity, "whole_sweep_vs_reference": whole_check,
+        "old_loop": {"candidates": PRUNE_PREFIX, "seconds": old_s,
+                     "ms_per_candidate": old_s * 1e3 / PRUNE_PREFIX,
+                     "kept_removed": int(keep_old.sum())},
+        "plain_ms_depth2": plain[2],
+        "whole": {**whole, "candidates": C, "us_per_candidate": whole["kernel_ms"] * 1e3 / C,
+                  "bytes": whole_bytes, "bound_ms": whole_bytes / HBM_BYTES_PER_S * 1e3,
+                  "bound_by": "bytes"},
+        "prefix": prefix,
     }
     emit(out)
     return out
@@ -1399,7 +1640,7 @@ def main() -> int:
     from repro_torch import workload as workload_mod
     from repro_torch.core import combi
     from repro_torch.core import greedy
-    from repro_torch.engine import backends, routing
+    from repro_torch.engine import backends, routing, streaming
     import torch.nn.functional as F
 
     from repro_torch.configs import qwen2_7b
@@ -1417,7 +1658,7 @@ def main() -> int:
     dev = torch.device("cuda")
     counters = [(pl, "LAUNCHES"), (rw, "LAUNCHES"), (rw, "SCORED_LAUNCHES"), (pu, "LAUNCHES"),
                 (fp, "LAUNCHES"), (fp, "TC_LAUNCHES"), (da, "LAUNCHES"), (eb, "LAUNCHES"),
-                (pw, "LAUNCHES")]
+                (pw, "LAUNCHES"), (pw, "SCORED_LAUNCHES")]
     targets = row_targets(backends, greedy)
     t_all = time.perf_counter()
     b = phase_build(build)
@@ -1428,7 +1669,7 @@ def main() -> int:
           "n_queries": 20_000})
     main_out = phase_main(T, counters, targets, case, engine_mod, scale=10, n_queries=20_000)
     fused_out = phase_fused(T, greedy, backends, pu, counters, targets, case,
-                            main_out["schemes"])
+                            main_out["schemes"], dev)
     # each kernel's launches on the path that exercises it
     launches = {
         "path_latency": main_out["launches"]["path_latency"],
@@ -1438,6 +1679,9 @@ def main() -> int:
         "fused_update": fused_out["launches"]["fused_update"],
     }
     pr = phase_prune(T, pw, rw, backends, engine_mod, case, main_out, dev)
+    dp = phase_dp_prune(T, pw, rw, backends, engine_mod, streaming, routing, counters, case,
+                        dev)
+    launches["prune_walk_scored"] = dp["launches"]["prune_walk_scored"]
     shapes = phase_shapes(pl, rw, pu, backends, engine_mod, routing, combi, T, case, main_out,
                           fused_out, dev)
     sw = phase_sweep(pl, rw, pu, graph_mod, workload_mod, engine_mod, backends, routing,
@@ -1464,6 +1708,17 @@ def main() -> int:
                        whole_device_ms=pr["whole"]["kernel_device_ms"],
                        whole_bound_ms=pr["whole"]["bound_ms"],
                        us_per_candidate=pr["whole"]["us_per_candidate"])
+    dp_entry = kernel_entry("prune_walk_scored", "src/repro_torch/csrc/prune_walk.cu",
+                            "src/repro/kernels/routed_walk.py:244",
+                            launches["prune_walk_scored"], dp["prefix"]["max_abs_err"],
+                            dp["prefix"])
+    dp_entry.update(candidates=dp["prefix"]["candidates"],
+                    whole_candidates=dp["whole"]["candidates"],
+                    whole_ms=dp["whole"]["kernel_ms"],
+                    whole_device_ms=dp["whole"]["kernel_device_ms"],
+                    whole_bound_ms=dp["whole"]["bound_ms"],
+                    us_per_candidate=dp["whole"]["us_per_candidate"],
+                    old_loop_ms_per_candidate=dp["old_loop"]["ms_per_candidate"])
     emit({"kernels": [
         kernel_entry("path_latency", "src/repro_torch/csrc/path_latency.cu",
                      "src/repro/kernels/path_latency.py:93", launches["path_latency"],
@@ -1475,6 +1730,7 @@ def main() -> int:
         kernel_entry("scored_walk", "src/repro_torch/csrc/scored_walk.cu",
                      "src/repro/kernels/routed_walk.py:244", launches["scored_walk"],
                      err["scored_walk"], tm["scored_walk"], at["scored_walk"]),
+        dp_entry,
         kernel_entry("fused_update", "src/repro_torch/csrc/provision_update.cu",
                      "src/repro/kernels/provision_update.py:285", launches["fused_update"],
                      err["fused_update"], tm["fused_update/routed/B=256"],

@@ -251,10 +251,10 @@ class GreedyStats:
     table_total_rows: int = 0
     # path rows the revalidation rounds did NOT re-walk
     revalidate_rows_saved: int = 0
-    # host seconds per stage (gate, update, revalidate, prune; the batched
-    # prune also books its grouping as prune_plan and its group steps as
-    # prune_steps, the one-call serial prune its sweep as prune_walk, all
-    # inside prune)
+    # host seconds per stage (gate, update, revalidate, prune; the one-call
+    # prune sweep also books its call as prune_walk, the batched prune its
+    # grouping as prune_plan and its group steps as prune_steps, all inside
+    # prune)
     stage_s: dict = dataclasses.field(default_factory=dict)
 
 
@@ -628,7 +628,9 @@ def replicate_workload(
     ``fused`` runs every batch as one fused step (gate + candidate
     scoring + bit-test + scatter-OR, statistics reduced on the device; on
     the ``kernel`` backend the ``fused_update`` CUDA kernel) and the final
-    prune as the batched independent-group sweep.  Under
+    prune with ``fused=True``: one sweep launch on the ``kernel`` backend,
+    the batched independent-group sweep on ``torch`` (see
+    :func:`~repro_torch.core.replication.prune_scheme_replicas`).  Under
     ``policy_backend="reference"`` it runs the separate pipeline, as the
     JAX package does.
 

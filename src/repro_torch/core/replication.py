@@ -320,24 +320,26 @@ def prune_scheme_replicas(
     candidate clears one bit on the device and re-walks just those paths.
     Mutates ``scheme`` in place; returns ``(n_dropped, bytes_saved)``.
 
-    One greedy sweep, not an optimal set cover.  ``fused=True`` batches
-    it: candidates whose objects never share a path are independent, so
-    each independent group (at most ``group_max``, see
-    :func:`_independent_groups`) is cleared, re-walked and selectively
-    restored in one :func:`_prune_group_step`, decision for decision the
-    serial sweep's.  Under ``backend="reference"`` the sweep stays serial.
+    One greedy sweep, not an optimal set cover.  The routes, all making
+    the same decisions:
+
+    * one :func:`~repro_torch.engine.backends.prune_sweep` call over the
+      whole candidate sequence: on ``kernel`` one ``prune_walk`` launch
+      (``prune_walk_scored`` under ``nearest_copy_dp``, its DP scores
+      rebuilt from the words inside the walk), with ``fused`` or not; on
+      ``torch`` with ``fused=False``, the plain per-candidate loop;
+    * ``fused=True`` on ``torch``: the batched sweep.  Candidates whose
+      objects never share a path are independent, so each independent
+      group (at most ``group_max``, see :func:`_independent_groups`) is
+      cleared, re-walked and selectively restored in one
+      :func:`_prune_group_step`, decision for decision the serial sweep's;
+    * on ``reference``, a re-walk per candidate.
+
     ``stage_s`` (a ``GreedyStats.stage_s`` dict) receives the batched
     sweep's host seconds as ``prune_plan`` (grouping) and ``prune_steps``,
-    and the one-call serial sweep's (uploads, kernel, readback) as
-    ``prune_walk``.
-
-    The serial sweep (``fused=False``) on the ``kernel`` and ``torch``
-    backends under ``home_first``, ``nearest_copy`` and ``queue_aware``
-    runs as one :func:`~repro_torch.engine.backends.prune_sweep` call over
-    the whole candidate sequence (one ``prune_walk`` launch on ``kernel``,
-    its plain per-candidate loop on ``torch``); ``nearest_copy_dp`` (whose
-    score tables are recomputed from the words as bits clear) and the
-    ``reference`` backend re-walk per candidate.
+    and the one-call sweep's (uploads, kernel, readback) as
+    ``prune_walk``.  ``bytes_saved`` is summed in candidate order, except
+    by the batched sweep, which sums group by group.
     """
     from repro_torch.core.slo import normalize_path_budgets  # local: no cycle
     from repro_torch.engine.incremental import PathIndex
@@ -364,22 +366,16 @@ def prune_scheme_replicas(
     rank = _backends._load_vector(load if pol.uses_load else None, packed.words)
 
     def subset_ok(idx: np.ndarray) -> bool:
-        """h under the policy for the affected rows, vs their budgets."""
+        """h under the policy for the affected rows, vs their budgets (the
+        ``reference`` walk)."""
         if not len(idx):
             return True
-        if backend == "reference":
-            from repro_torch.core.reference import routed_path_latencies_reference
+        from repro_torch.core.reference import routed_path_latencies_reference
 
-            h = routed_path_latencies_reference(
-                objects[idx], lengths[idx], scheme.mask, scheme.shard,
-                policy=pol, load=load,
-            )
-            return bool(np.all(h <= t_path[idx]))
-        h = _backends.gate_counts(
-            to_device(objects[idx], device), to_device(lengths[idx], device),
-            packed.words, packed.shard, pol, rank, backend=backend,
+        h = routed_path_latencies_reference(
+            objects[idx], lengths[idx], scheme.mask, scheme.shard, policy=pol, load=load,
         )
-        return bool(np.all(to_host(h) <= t_path[idx]))
+        return bool(np.all(h <= t_path[idx]))
 
     repl = scheme.mask.copy()
     repl[np.arange(scheme.n_objects), scheme.shard] = False
@@ -388,7 +384,7 @@ def prune_scheme_replicas(
     n_dropped = 0
     bytes_saved = 0.0
 
-    if fused and backend != "reference" and len(order):
+    if fused and backend == "torch" and len(order):
         t0 = time.perf_counter()
         groups = _independent_groups(order, vs, affected, pathset.n_paths, group_max)
         t1 = time.perf_counter()
@@ -418,7 +414,7 @@ def prune_scheme_replicas(
             stage_s["prune_steps"] = stage_s.get("prune_steps", 0.0) + t2 - t1
         return n_dropped, bytes_saved
 
-    if backend != "reference" and pol.name != "nearest_copy_dp" and len(order):
+    if backend != "reference" and len(order):
         t0 = time.perf_counter()
         keep = to_host(_backends.prune_sweep(
             packed.words,

@@ -12,14 +12,15 @@
 //   are tried first.
 //
 // Design: one thread per path.  The per-server load vector is staged in
-// shared memory; a pick (`pick_rows`, walk_common.cuh) walks the set bits
-// of the object's W words with __ffs instead of unpacking a [W*32] plane,
-// so a thread touches only the words of its own objects.  The step
-// (`walk_path`, shared with prune_walk.cu) loads a position's words and
-// home before the server-dependent local test; for L <= 8 and W == 1 the
-// whole path's words are staged in registers first (a template bucket),
-// so a thread's loads are all in flight at once.  Like
-// the home-first walk it is bound by the bytes it reads and writes (the
+// shared memory (read from device memory instead when its W*32 floats
+// exceed kMaxStagedRank, walk_common.cuh); a pick (`pick_rows`) walks the
+// set bits of the object's W words with __ffs instead of unpacking a
+// [W*32] plane, so a thread touches only the words of its own objects.
+// The step (`walk_path`, shared with prune_walk.cu) loads a position's
+// words and home before the server-dependent local test; for L <= 8 and
+// W == 1 the whole path's words are staged in registers first (a template
+// bucket), so a thread's loads are all in flight at once.  Like the
+// home-first walk it is bound by the bytes it reads and writes (the
 // [P, L] trace dominates); no tensor cores.
 
 #include <cstdint>
@@ -40,10 +41,12 @@ __global__ void routed_walk_kernel(const int32_t* __restrict__ objects,
                                    int32_t* __restrict__ servers,
                                    uint8_t* __restrict__ local) {
   extern __shared__ float s_load[];
-  if (!HOME_FIRST) {
+  const bool staged = !HOME_FIRST && (W << 5) <= kMaxStagedRank;
+  if (staged) {
     for (int s = threadIdx.x; s < (W << 5); s += blockDim.x) s_load[s] = load[s];
     __syncthreads();
   }
+  const float* rank = staged ? s_load : load;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= P) return;
   const int64_t base = static_cast<int64_t>(p) * L;
@@ -52,7 +55,7 @@ __global__ void routed_walk_kernel(const int32_t* __restrict__ objects,
   servers[base] = server;
   local[base] = len > 0 ? 1 : 0;
   walk_path<HOME_FIRST, LOOKAHEAD, LR, false>(
-      objects + base, L, len, L, words, W, home, server, s_load,
+      objects + base, L, len, L, words, W, home, server, rank,
       [&](int i, int srv, bool loc) {
         servers[base + i] = srv;
         local[base + i] = loc ? 1 : 0;
@@ -66,7 +69,8 @@ void launch(const void* objects, const void* lengths, const void* words,
             int L, int W, void* servers, void* local, cudaStream_t stream) {
   const int threads = 256;
   const int blocks = (P + threads - 1) / threads;
-  const size_t smem = HOME_FIRST ? 0 : sizeof(float) * (W << 5);
+  const size_t smem =
+      HOME_FIRST || (W << 5) > kMaxStagedRank ? 0 : sizeof(float) * (W << 5);
   routed_walk_kernel<HOME_FIRST, LOOKAHEAD, LR><<<blocks, threads, smem, stream>>>(
       static_cast<const int32_t*>(objects),
       static_cast<const int32_t*>(lengths),

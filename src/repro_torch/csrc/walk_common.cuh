@@ -1,10 +1,15 @@
-// The remote-hop holder pick and the routed-walk step shared by the walk
-// kernels (routed_walk.cu, prune_walk.cu, scored_walk.cu,
-// provision_update.cu).
+// The remote-hop holder pick, the routed-walk step and the nearest_copy_dp
+// gate walk shared by the walk kernels (routed_walk.cu, prune_walk.cu,
+// scored_walk.cu, provision_update.cu).
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+// The longest rank vector (floats, one per server) a walk kernel stages in
+// shared memory: 48 KiB, what a launch gets without opting in.  Past it
+// the kernels read the rank from device memory.
+constexpr int kMaxStagedRank = 12288;
 
 // One object's W holder words in device memory.  CG loads them with
 // __ldcg (L2 only, coherent with stores made earlier in the same kernel);
@@ -27,14 +32,15 @@ struct RegRow {
 };
 
 // Lowest-rank holder among the set bits of row[w] (& mask[w] when MASKED);
-// home wins a tie with the minimum, then the lowest id.  `rank` is indexed
-// by server id: a shared load vector or one path's score row.  -1 when no
-// bit is set.  The set bits are walked in ascending order with __ffs and
-// only a strictly lower rank replaces the best, so the lowest id among the
-// minima is kept, as the TPU kernel's argmax over `lv <= min` is.
-template <bool MASKED, class Row>
+// home wins a tie with the minimum, then the lowest id.  `rank[s]` is
+// indexed by server id: a shared load vector, one path's score row, or a
+// functor that computes the score (DpScore).  -1 when no bit is set.  The
+// set bits are walked in ascending order with __ffs and only a strictly
+// lower rank replaces the best, so the lowest id among the minima is kept,
+// as the TPU kernel's argmax over `lv <= min` is.
+template <bool MASKED, class Row, class Rank>
 __device__ __forceinline__ int pick_rows(const Row& row, const Row& mask, int home,
-                                         const float* rank) {
+                                         const Rank& rank) {
   const int W = row.width();
   int best_id = -1;
   float best = 0.0f;
@@ -141,4 +147,122 @@ __device__ __forceinline__ void walk_path(const int32_t* obj, int L, int len, in
       if (!visit(i, server, loc)) return;
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The nearest_copy_dp gate walk, its scores rebuilt from the words.
+//
+// E[p, i, s] (backends._dp_score_tables) depends only on the words of path
+// p's own objects, so no [L, W*32] score plane is needed.  With the window
+// (i, e] of walk position i (e = len - 1 for the full suffix, min(i + k,
+// len - 1) at depth k), a server's score at i is the hop value G[j] at the
+// first position j in (i, e] whose object it does not hold, or 0 when it
+// holds them all; G[j] is 1 + the least score at j among the holders of
+// object j (their first miss in (j, e]), or 1 + G[j + 1] (0 past e) when
+// object j has no holder: the dead state of the DP's D plane.  G depends
+// only on e, so a walk rebuilds it only when e moves (once for the full
+// suffix).  The AND-chains of the holder words give each holder's first
+// miss a word at a time.
+// ---------------------------------------------------------------------------
+
+// The words of one path's objects by position: rows(j, w) is word w of
+// object obj[j] (CG: read with __ldcg, see PtrRow).
+template <bool CG>
+struct PathWords {
+  const int32_t* obj;
+  const uint32_t* words;
+  int W;
+  __device__ __forceinline__ uint32_t operator()(int j, int w) const {
+    const uint32_t* p = words + static_cast<int64_t>(max(obj[j], 0)) * W + w;
+    return CG ? __ldcg(p) : *p;
+  }
+  __device__ __forceinline__ int width() const { return W; }
+};
+
+// W == 1: the single word of each of the first N positions, staged per
+// thread (positions at or past len hold 0 and are never read).
+template <int N>
+struct StagedWords {
+  uint32_t r[N];
+  template <bool CG>
+  __device__ __forceinline__ void stage(const int32_t* obj, const uint32_t* words, int L,
+                                        int len) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const uint32_t* p = words + (j < L ? max(obj[j], 0) : 0);
+      r[j] = j < len ? (CG ? __ldcg(p) : *p) : 0u;
+    }
+  }
+  __device__ __forceinline__ uint32_t operator()(int j, int) const { return r[j]; }
+  __device__ __forceinline__ int width() const { return 1; }
+};
+
+// Position i of a PathWords / StagedWords as a Row for pick_rows.
+template <class Rows>
+struct PosRow {
+  const Rows& rows;
+  int i;
+  __device__ __forceinline__ uint32_t operator[](int w) const { return rows(i, w); }
+  __device__ __forceinline__ int width() const { return rows.width(); }
+};
+
+// G[j] for j = e down to lo + 1 (see above).
+template <class Rows>
+__device__ __forceinline__ void dp_hops(const Rows& rows, int lo, int e, int* G) {
+  const int W = rows.width();
+  for (int j = e; j > lo; --j) {
+    int best = -1;  // the least score among the holders of object j
+    for (int w = 0; w < W && best != 0; ++w) {
+      uint32_t a = rows(j, w);
+      if (!a) continue;
+      for (int k = j + 1; k <= e && a; ++k) {
+        const uint32_t r = rows(k, w);
+        if ((a & ~r) && (best < 0 || G[k] < best)) best = G[k];
+        a &= r;
+      }
+      if (a) best = 0;  // a holder of every later object in the window
+    }
+    G[j] = 1 + (best >= 0 ? best : (j < e ? G[j + 1] : 0));
+  }
+}
+
+// The score of server s at walk position i over the window (i, e].
+template <class Rows>
+struct DpScore {
+  const Rows& rows;
+  const int* G;
+  int i, e;
+  __device__ __forceinline__ float operator[](int s) const {
+    const int w = s >> 5;
+    const uint32_t b = 1u << (s & 31);
+    for (int k = i + 1; k <= e; ++k)
+      if (!(rows(k, w) & b)) return static_cast<float>(G[k]);
+    return 0.0f;
+  }
+};
+
+// The gate count of one path under nearest_copy_dp (depth < 0: the full
+// suffix): the non-local positions 1 .. len - 1 of the scored walk from
+// `server` (home[objects[p, 0]]), stopping once the count passes t.  A hop
+// picks the holder with the lowest score, home (`home[obj[i]]`) winning
+// ties, then the lowest id, -1 with no holder; a -1 server is never local.
+// G holds at least len ints.
+template <class Rows>
+__device__ __forceinline__ int dp_gate(const Rows& rows, const int32_t* obj, int len,
+                                       int depth, const int32_t* __restrict__ home,
+                                       int server, int t, int* G) {
+  int h = 0;
+  int have = -1;  // the window end G was built for
+  for (int i = 1; i < len; ++i) {
+    const PosRow<Rows> row{rows, i};
+    if (server >= 0 && ((row[server >> 5] >> (server & 31)) & 1u)) continue;
+    const int e = depth < 0 ? len - 1 : min(i + depth, len - 1);
+    if (e != have) {
+      dp_hops(rows, i, e, G);
+      have = e;
+    }
+    server = pick_rows<false>(row, row, home[max(obj[i], 0)], DpScore<Rows>{rows, G, i, e});
+    if (++h > t) break;
+  }
+  return h;
 }

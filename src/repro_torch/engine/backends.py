@@ -235,14 +235,21 @@ def gate_counts(objects, lengths, words, shard, pol, rank, backend: str = "torch
 
 def prune_sweep(words, cand_v, cand_s, starts, rows, objects, lengths, t_path, home,
                 pol, rank, backend: str = "torch"):
-    """The serial prune's whole candidate sequence for a resolved policy
-    (not ``nearest_copy_dp``): keep bool [C], ``words`` pruned in place.
-    The ``prune_walk`` kernel on ``kernel``, its plain loop on ``torch``."""
+    """The serial prune's whole candidate sequence for a resolved policy:
+    keep bool [C], ``words`` pruned in place.  On ``kernel`` one launch of
+    ``prune_walk`` (``prune_walk_scored`` under ``nearest_copy_dp``, at the
+    policy's depth); on ``torch`` their plain per-candidate loops.  ``rank``
+    is unused by ``nearest_copy_dp``."""
     if backend not in ("torch", "kernel"):
         raise ValueError(f"the prune sweep runs on torch | kernel, got {backend!r}")
-    sweep = _prune_walk.prune_walk if backend == "kernel" else _prune_walk.prune_walk_plain
-    return sweep(words, cand_v, cand_s, starts, rows, objects, lengths, t_path, home, rank,
-                 home_first=pol.name == "home_first", lookahead=pol.lookahead)
+    args = (words, cand_v, cand_s, starts, rows, objects, lengths, t_path, home)
+    kernel = backend == "kernel"
+    if pol.name == "nearest_copy_dp":
+        sweep = (_prune_walk.prune_walk_scored if kernel
+                 else _prune_walk.prune_walk_scored_plain)
+        return sweep(*args, depth=_dp_depth(pol))
+    sweep = _prune_walk.prune_walk if kernel else _prune_walk.prune_walk_plain
+    return sweep(*args, rank, home_first=pol.name == "home_first", lookahead=pol.lookahead)
 
 
 def routed_counts(objects, lengths, words, shard, policy, load=None,

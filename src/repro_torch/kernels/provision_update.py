@@ -11,11 +11,13 @@ The CUDA source is ``repro_torch/csrc/provision_update.cu``: one warp per
 path, lanes striding over the candidates, a shuffle reduction for the
 argmin (ties -> lowest index), and a second tiny launch on the same stream
 that applies the chosen additions with ``atomicOr`` once every path has
-been priced.  Gate modes: ``none`` (``pol=None``), ``routed`` (with or
-without lookahead; ``rank`` is the ``[W*32]`` holder rank) and ``scored``
-(``nearest_copy_dp``: the DP tables of the batch are computed with torch
-ops before the launch, as the JAX package computes them before its
-kernel).
+been priced.  It takes any L and W: a path of at most ``SHARED_L``
+positions keeps its state in shared memory, a longer one in a device
+scratch this wrapper allocates.  Gate modes: ``none`` (``pol=None``),
+``routed`` (with or without lookahead; ``rank`` is the ``[W*32]`` holder
+rank) and ``scored`` (``nearest_copy_dp``: the DP tables of the batch are
+computed with torch ops before the launch, as the JAX package computes
+them before its kernel).
 
 Bound on the card: bytes (objects, touched words, homes and sizes, the
 ``[B, L, Hp1]`` chosen plane); the candidate loop's sum_b n_cand(h_b) * L
@@ -40,11 +42,9 @@ from repro_torch.kernels.routed_walk import routed_walk_plain, scored_walk_plain
 LAUNCHES = 0
 
 _INF = 1e30
-# the kernel's per-path limits: one 64-bit mask per position over the
-# subpaths (Hp1 <= L after the table cut in `fused_update`), and the rank
-# vector in shared memory
-MAX_L = 64
-MAX_W = 64
+# the kernel's shared-memory tier (csrc kSmallL): L and Hp1 up to 64, one
+# 64-bit mask per position over the subpaths; longer paths use the scratch
+SHARED_L = 64
 
 _GATE = {"none": 0, "routed": 1, "scored": 2}
 
@@ -187,8 +187,7 @@ def fused_update(words, objects, lengths, shard, f, tables, counts, t, rank,
     A path has h <= L - 1 subpath boundaries, so table rows and subpath
     columns past L are never read: tables wider than L (a budget t >= L)
     are cut to L columns before the round and ``chosen`` / ``srv`` padded
-    back (False / -1).  The kernel takes L <= ``MAX_L`` and W <=
-    ``MAX_W`` (64 each) and raises ``ValueError`` beyond them.
+    back (False / -1).
     """
     _check(words, objects, lengths, shard, f, tables, counts, t, rank)
     B, L = objects.shape
@@ -216,9 +215,6 @@ def _fused_update(words, objects, lengths, shard, f, tables, counts, t, rank, po
     B, L = objects.shape
     W = words.shape[1]
     Hc, C, Hp1 = tables.shape
-    for name, v, lim in (("L", L, MAX_L), ("W", W, MAX_W)):
-        if v > lim:
-            raise ValueError(f"fused_update: {name} = {v} exceeds the kernel's limit {lim}")
     dev = objects.device
     mode = _gate_mode(pol)
     if mode == "scored":
@@ -228,6 +224,12 @@ def _fused_update(words, objects, lengths, shard, f, tables, counts, t, rank, po
     cost = torch.empty((B,), dtype=torch.float32, device=dev)
     no_sol = torch.empty((B,), dtype=torch.uint8, device=dev)
     skipped = torch.empty((B,), dtype=torch.uint8, device=dev)
+    need_g = state_g = None
+    if max(L, Hp1) > SHARED_L:
+        # each path's needed masks and its int32 state (objects, homes,
+        # subpaths, sizes, subpath servers) in device memory
+        need_g = torch.empty((B, L, -(-Hp1 // 64)), dtype=torch.int64, device=dev)
+        state_g = torch.empty((B, 4 * L + Hp1), dtype=torch.int32, device=dev)
     if B:
         lib = load_library()
         with torch.cuda.device(dev):
@@ -237,8 +239,10 @@ def _fused_update(words, objects, lengths, shard, f, tables, counts, t, rank, po
                 tables.view(torch.uint8).data_ptr(), counts.data_ptr(), t.data_ptr(),
                 rank.data_ptr(), B, L, W, Hc, C, Hp1, _GATE[mode],
                 int(mode == "routed" and pol.lookahead), words.data_ptr(),
-                chosen.data_ptr(), srv.data_ptr(), cost.data_ptr(), no_sol.data_ptr(),
-                skipped.data_ptr(), stream,
+                None if need_g is None else need_g.data_ptr(),
+                None if state_g is None else state_g.data_ptr(), chosen.data_ptr(),
+                srv.data_ptr(), cost.data_ptr(), no_sol.data_ptr(), skipped.data_ptr(),
+                stream,
             )
         check_launch("fused_update", err)
         LAUNCHES += 1

@@ -143,9 +143,15 @@ def _fused_inputs(seed, B, L, n_srv, device, t_budget):
 
 
 @pytest.mark.parametrize("gate", list(FUSED_GATES))
-@pytest.mark.parametrize("L,n_srv", [(1, 6), (6, 40), (9, 128)])
-def test_fused_update_kernel_matches_plain(cuda, gate, L, n_srv):
-    x = _fused_inputs(L * 13, 20_000, L, n_srv, cuda, 2 if L > 6 else 1)
+@pytest.mark.parametrize("L,n_srv,B,t_budget", [
+    (1, 6, 20_000, 1), (6, 40, 20_000, 1), (9, 128, 20_000, 2),
+    # the device-memory tiers: paths past the 64 positions kept in shared
+    # memory (subpath masks of two words), rank vectors past the 8,192
+    # servers staged there (W 257)
+    (70, 6, 160, 1), (9, 65 * 32, 160, 2), (9, 257 * 32, 160, 2),
+])
+def test_fused_update_kernel_matches_plain(cuda, gate, L, n_srv, B, t_budget):
+    x = _fused_inputs(L * 13, B, L, n_srv, cuda, t_budget)
     pol = FUSED_GATES[gate]
     rank = x["load"] if gate == "queue_aware" else torch.zeros_like(x["load"])
     args = (x["objects"], x["lengths"], x["shard"], x["f"], x["tables"],
@@ -180,10 +186,19 @@ def test_fused_update_kernel_wide_tables(cuda):
 
 
 def test_fused_update_rejects_beyond_limits(cuda):
+    """The kernel has no shape limit left (L 65 once raised): it takes a
+    65-position batch and equals the plain version, and it still rejects
+    malformed input."""
     x = _fused_inputs(3, 64, 65, 6, cuda, 1)
-    with pytest.raises(ValueError, match="limit 64"):
-        pu_mod.fused_update(x["words"], x["objects"], x["lengths"], x["shard"], x["f"],
-                            x["tables"], x["counts"], x["t"], x["load"])
+    args = (x["objects"], x["lengths"], x["shard"], x["f"], x["tables"], x["counts"],
+            x["t"], x["load"])
+    with pytest.raises(ValueError, match="rank must be"):
+        pu_mod.fused_update(x["words"], *args[:-1], x["load"][:-1])
+    got = pu_mod.fused_update(x["words"].clone(), *args)
+    want = pu_mod.fused_update_plain(x["words"].clone(), *args)
+    assert torch.equal(got[0][:-1], want[0][:-1])
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("policy", [None, "nearest_copy", "nearest_copy_dp"])
