@@ -5,8 +5,8 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (each prints one JSON line; any failed check exits non-zero):
   build   compile the CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
           sm_90a) and print the card, its power limit, the TF32 flag and
-          ptxas's registers, shared memory and spills of the attention
-          and walk kernels.
+          ptxas's registers, shared memory and spills of the attention,
+          walk and fused UPDATE kernels.
   parity  each kernel against its plain torch version, exactly, on 1 M
           seeded random paths (L in {1, 6, 9}, 6 / 40 / 128 servers, bit 31
           set, -1 padding and empty rows; the routed walk under
@@ -14,7 +14,8 @@ Phases (each prints one JSON line; any failed check exits non-zero):
           scored walk over the nearest_copy_dp tables of depth None and 2);
           the fused UPDATE on seeded random 256-row batches in every gate
           mode (none, routed with and without lookahead, queue-ranked,
-          scored with depth None and 2).
+          scored with depth None and 2), and as a class launch of 700 rows
+          in 256-row batches (the statistics too).
   main    the paper's pipeline on SNB scale 10: greedy replication under
           ``nearest_copy`` for t = 1 and 2, the feasibility check and the
           home-first latencies, on the kernel backend; the kernels' launch
@@ -28,7 +29,10 @@ Phases (each prints one JSON line; any failed check exits non-zero):
           (counters zeroed just before, read just after), each feasible
           under its policy with 0 failed paths and 0 routed violations,
           each prune one sweep launch (``prune_walk``, or
-          ``prune_walk_scored`` under ``nearest_copy_dp``); each policy's
+          ``prune_walk_scored`` under ``nearest_copy_dp``), ``fused_update``
+          launched once per budget class call (not per batch), and no
+          ``_dp_score_tables`` call inside the ``nearest_copy_dp`` drives'
+          UPDATE (the kernel computes the scored gate); each policy's
           kernel-route prune is held against the torch backend's batched
           prune from the same pre-prune scheme (masks and counts equal, the
           ``bytes_saved`` difference printed); with unit
@@ -36,7 +40,8 @@ Phases (each prints one JSON line; any failed check exits non-zero):
           mask.  Where a ``nearest_copy`` mask differs from the
           main phase's (sizes 1 + 0.1 * degree make near-tied candidate
           costs round by summation order), the first diverging UPDATE
-          batch is found and printed with the path and both costs.  An
+          batch is found by replaying each class batch by batch and printed
+          with the path and both costs.  An
           untimed re-run records the rows per launch, as in main.
   dp_prune  ``replicate_workload(policy="nearest_copy_dp")`` (fused=False,
           kernel backend) at t = 1 and 2 on the main workload, counters
@@ -62,12 +67,16 @@ Phases (each prints one JSON line; any failed check exits non-zero):
           the t = 1 sweep timed with its µs per candidate, and the routed
           walk at the old per-candidate prune's median row count.
   shapes  kernels 1-4 timed once each at the median rows per launch of the
-          path that launches them (main or fused), with their byte bounds.
+          path that launches them (main or fused; ``fused_update``: a class
+          launch of the median class size), with their byte bounds.
   sweep   the engine's hot primitives at deployment scale (SNB scale 100,
           150,000 queries, ~1.4 M paths, 128 servers): kernel vs plain,
           exact, then each timed as the median of 5 runs after a warm-up;
           the scored walk over row chunks of those paths; the fused UPDATE
-          on 256- and 65,536-row batches of the SNB scale 10 paths.
+          on 256- and 65,536-row batches of the SNB scale 10 paths, and the
+          whole scale 10 workload as one t = 1 class: one launch against
+          the sequence of per-batch calls it replaced (equal results), with
+          the plain time and the sum of the batches' bounds.
   lm_parity  the attention and embedding-bag kernels against their plain
           versions on seeded inputs: flash prefill (bf16 on the wgmma
           kernel, f32 on the CUDA-core kernel) on the JAX package's sweep
@@ -96,7 +105,8 @@ Phases (each prints one JSON line; any failed check exits non-zero):
           against the plain version, timed beside ``F.embedding_bag``.
 The last two lines are the kernels' JSON summary (kernels 1-4 timed at
 the sweep's shapes, and under "main_shape_*" at their paths' median
-rows per launch) and
+rows per launch; ``fused_update`` also under "class_*", the whole-class
+launch) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1.
 Each timed call is timed twice: "ms" with the card idle at the start
 event, so a call shorter than its host enqueue is timed from the host,
@@ -167,7 +177,8 @@ def phase_build(build) -> dict:
         "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
         "torch": torch.__version__, "cuda": torch.version.cuda, "numpy": np.__version__,
         "ptxas": {src: ptxas_lines(build, src)
-                  for src in ("flash_prefill", "decode_attention", "routed_walk", "prune_walk")},
+                  for src in ("flash_prefill", "decode_attention", "routed_walk", "prune_walk",
+                              "provision_update")},
     }
     emit(out)
     return out
@@ -272,6 +283,19 @@ def phase_parity(pl, rw, pu, backends, routing, combi, dev, P: int) -> dict:
                                 "additions": int(got[3].sum()),
                                 "skipped": int(got[5].sum()),
                                 "no_solution": int(got[2].sum())})
+            # the class launch: 700 rows in batches of 256 (the last partial)
+            words, *args = fused_args(L * 100 + n_srv + 7, 700, L, n_srv, dev, combi)
+            if not ranked:
+                args[-1] = torch.zeros_like(args[-1])
+            acc_k = torch.zeros(3, device=dev)
+            acc_p = torch.zeros(3, device=dev)
+            got = pu.fused_update_class(words.clone(), *args, acc_k, pol=pol)
+            want = pu.fused_update_class_plain(words.clone(), *args, acc_p, pol=pol)
+            err = float((got[1] - want[1]).abs().max()) + float((acc_k - acc_p).abs().max())
+            err += sum(int((g != w).sum()) for g, w in zip(got[2:], want[2:]))
+            err += int((got[0][:-1] != want[0][:-1]).sum())
+            max_err["fused_update"] = max(max_err["fused_update"], err)
+            check(err == 0, f"fused_update_class {gate} L={L} S={n_srv}")
     torch.cuda.synchronize()
     out = {"phase": "parity", "seconds": time.perf_counter() - t0, "paths": P,
            "cases": cases, "fused_batches": fused_cases, "max_abs_err": max_err,
@@ -310,7 +334,7 @@ def row_targets(backends, greedy) -> dict:
     return {"path_latency": (backends, "path_latency", 0),
             "routed_walk": (backends, "routed_walk", 0),
             "scored_walk": (backends, "scored_walk", 0),
-            "fused_update": (greedy, "fused_update", 1)}
+            "fused_update": (greedy, "fused_update_class", 1)}
 
 
 @contextlib.contextmanager
@@ -438,51 +462,149 @@ def first_update_divergence(T, greedy, backends, pu, case, t: int, pol: str) -> 
     """Where ``fused=True`` first parts from the separate pipeline.
 
     Reruns ``replicate_workload(fused=True)`` on the kernel backend and
-    prices every batch twice more on copies of its snapshot: with the
-    ``fused_update`` kernel (costs summed x-major over [L, Hp1]) and with
-    the separate pipeline's gate + ``_update_batch_core`` (einsum costs).
-    The first batch whose choices differ is reported with the path, both
-    float32 costs and each choice's cost summed in float64.  Later batches
-    price different snapshots, so only the first divergence is compared.
+    replays each of its ``fused_update_class`` calls batch by batch on a
+    copy of the class's words: each batch is priced twice on the same
+    snapshot, with the ``fused_update`` kernel (costs summed x-major over
+    [L, Hp1]) and with the separate pipeline's gate + ``_update_batch_core``
+    (einsum costs), and the snapshot then takes the kernel's additions, as
+    the class launch does.  The first batch whose choices differ is
+    reported with the path, both float32 costs and each choice's cost
+    summed in float64.  Later batches price different snapshots, so only the
+    first divergence is compared.
     """
     _, ps, shard, f = case
-    orig = greedy._fused_update_batch
-    seen = {"batches": 0, "first": None}
+    orig = greedy.fused_update_class
+    seen = {"batches": 0, "classes": 0, "first": None}
 
-    def probe(words, acc, objects, lengths, shard_d, f_d, tables, counts, t_d, rank,
-              load, cap, eps, check_cap, pol_, backend):
-        if seen["first"] is None:
-            k = pu.fused_update(words.clone(), objects, lengths, shard_d, f_d, tables,
-                                counts, t_d, rank, pol=pol_)
-            h_rt = (torch.zeros_like(t_d) if pol_ is None else
-                    backends.gate_counts(objects, lengths, words, shard_d, pol_, rank,
-                                         backend=backend))
-            e = greedy._update_batch_core(words.clone(), objects, lengths, shard_d, f_d,
-                                          tables, counts, t_d, h_rt, load, cap, eps,
-                                          check_cap, pol_ is not None)
+    def probe(words, objects, lengths, shard_d, f_d, tables, counts, t_d, rank, acc,
+              batch_size=256, pol=None):
+        dev = objects.device
+        none = torch.zeros(1, device=dev)
+        w = words.clone()
+        for i in range(0, objects.shape[0], batch_size):
+            if seen["first"] is not None:
+                break
+            o, ln, tb = (x[i : i + batch_size] for x in (objects, lengths, t_d))
+            k = pu.fused_update(w.clone(), o, ln, shard_d, f_d, tables, counts, tb, rank,
+                                pol=pol)
+            h_rt = (torch.zeros_like(tb) if pol is None else
+                    backends.gate_counts(o, ln, w, shard_d, pol, rank, backend="kernel"))
+            e = greedy._update_batch_core(w.clone(), o, ln, shard_d, f_d, tables, counts, tb,
+                                          h_rt, none, none, none, False, pol is not None)
             rows = torch.nonzero((k[3] != e[3]).flatten(1).any(dim=1)).flatten()
             if len(rows):
                 r = int(rows[0])
-                fx = f_d[objects[r].clamp_min(0).long()].double()
+                fx = f_d[o[r].clamp_min(0).long()].double()
                 exact = lambda ch: float((ch[r].double().sum(dim=1) * fx).sum())  # noqa: E731
                 seen["first"] = {
-                    "batch": seen["batches"], "rows": int(objects.shape[0]),
-                    "paths_differing": len(rows), "row": r,
-                    "objects": objects[r, : int(lengths[r])].tolist(), "t": int(t_d[r]),
+                    "class": seen["classes"], "batch": seen["batches"] + i // batch_size,
+                    "rows": int(o.shape[0]), "paths_differing": len(rows), "row": r,
+                    "objects": o[r, : int(ln[r])].tolist(), "t": int(tb[r]),
                     "kernel_cost": float(k[1][r]), "einsum_cost": float(e[1][r]),
                     "kernel_choice_cost_f64": exact(k[3]),
                     "einsum_choice_cost_f64": exact(e[3]),
                 }
-        seen["batches"] += 1
-        return orig(words, acc, objects, lengths, shard_d, f_d, tables, counts, t_d,
-                    rank, load, cap, eps, check_cap, pol_, backend)
+            w = k[0]
+        seen["batches"] += -(-objects.shape[0] // batch_size)
+        seen["classes"] += 1
+        return orig(words, objects, lengths, shard_d, f_d, tables, counts, t_d, rank, acc,
+                    batch_size=batch_size, pol=pol)
 
-    greedy._fused_update_batch = probe
+    greedy.fused_update_class = probe
     try:
         T.replicate_workload(ps, shard, 6, t, f=f, policy=pol, fused=True)
     finally:
-        greedy._fused_update_batch = orig
-    return {"fused_batches": seen["batches"], "first_divergence": seen["first"]}
+        greedy.fused_update_class = orig
+    return {"fused_classes": seen["classes"], "fused_batches": seen["batches"],
+            "first_divergence": seen["first"]}
+
+
+@contextlib.contextmanager
+def watch_update_class(greedy, backends, pu):
+    """While the block runs, count greedy's ``fused_update_class`` calls
+    that launch (rows > 0), their snapshot batches, and the
+    ``_dp_score_tables`` calls made inside them or elsewhere (through the
+    names both modules look it up by)."""
+    seen = {"class_calls": 0, "batches": 0, "dp_tables_in_update": 0,
+            "dp_tables_elsewhere": 0}
+    inside = [False]
+    orig = (greedy.fused_update_class, backends._dp_score_tables, pu._dp_score_tables)
+
+    def cls(words, objects, *args, batch_size=256, **kwargs):
+        if objects.shape[0]:
+            seen["class_calls"] += 1
+            seen["batches"] += -(-objects.shape[0] // batch_size)
+        inside[0] = True
+        try:
+            return orig[0](words, objects, *args, batch_size=batch_size, **kwargs)
+        finally:
+            inside[0] = False
+
+    def counted(fn):
+        def wrapped(*args, **kwargs):
+            seen["dp_tables_in_update" if inside[0] else "dp_tables_elsewhere"] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    greedy.fused_update_class = cls
+    backends._dp_score_tables = counted(orig[1])
+    pu._dp_score_tables = counted(orig[2])
+    try:
+        yield seen
+    finally:
+        greedy.fused_update_class, backends._dp_score_tables, pu._dp_score_tables = orig
+
+
+@contextlib.contextmanager
+def update_parts(greedy):
+    """While the block runs, time the kernel route's UPDATE of each budget
+    class (``greedy._run_update_class``) and its pieces on the host, each
+    synchronised before and after: its uploads (``to_device``), its class
+    call (``fused_update_class``; also between CUDA events, the card's
+    time) and its statistics readback (``DeviceStatsAcc.drain``).  The
+    syncs add their own cost: this is a breakdown, not the stage's time."""
+    parts = {"run_update_class_s": 0.0, "upload_s": 0.0, "class_call_s": 0.0,
+             "class_device_ms": 0.0, "drain_s": 0.0, "uploads": 0, "class_calls": 0,
+             "upload_bytes_s": []}
+    inside = [False]
+    orig = (greedy._run_update_class, greedy.to_device, greedy.fused_update_class,
+            greedy.DeviceStatsAcc.drain)
+
+    def clocked(key, fn, count=None, events=False, outer=False):
+        def wrapped(*args, **kwargs):
+            if not (outer or inside[0]):
+                return fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            inside[0] = True
+            try:
+                res = fn(*args, **kwargs)
+            finally:
+                inside[0] = not outer
+            b.record()
+            torch.cuda.synchronize()
+            parts[key] += time.perf_counter() - t0
+            if key == "upload_s":
+                parts["upload_bytes_s"].append((int(res.nbytes), time.perf_counter() - t0))
+            if events:
+                parts["class_device_ms"] += a.elapsed_time(b)
+            if count:
+                parts[count] += 1
+            return res
+        return wrapped
+
+    greedy._run_update_class = clocked("run_update_class_s", orig[0], outer=True)
+    greedy.to_device = clocked("upload_s", orig[1], "uploads")
+    greedy.fused_update_class = clocked("class_call_s", orig[2], "class_calls", events=True)
+    greedy.DeviceStatsAcc.drain = clocked("drain_s", orig[3])
+    try:
+        yield parts
+    finally:
+        (greedy._run_update_class, greedy.to_device, greedy.fused_update_class,
+         greedy.DeviceStatsAcc.drain) = orig
 
 
 def fused_prune_check(T, case, pol: str, t: int, drive_scheme, dev) -> dict:
@@ -523,12 +645,15 @@ def phase_fused(T, greedy, backends, pu, counters, targets, case, main_schemes: 
     snb, ps, shard, f = case
     runs = {}
     schemes = {}
+    watched = {}
     # the fused path: counters zeroed just before, read just after
     zero_counts(counters)
     for pol in ("nearest_copy", "nearest_copy_dp"):
         for t in (1, 2):
             ts = time.perf_counter()
-            scheme, st = T.replicate_workload(ps, shard, 6, t, f=f, policy=pol, fused=True)
+            with watch_update_class(greedy, backends, pu) as watched[f"{pol}/t={t}"]:
+                scheme, st = T.replicate_workload(ps, shard, 6, t, f=f, policy=pol,
+                                                  fused=True)
             greedy_s = time.perf_counter() - ts
             feasible = T.is_latency_feasible(ps, scheme, t, policy=pol)
             check(feasible, f"fused {pol} t={t}: scheme not feasible under {pol}")
@@ -545,12 +670,34 @@ def phase_fused(T, greedy, backends, pu, counters, targets, case, main_schemes: 
             }
     launches = read_counts(counters)
     check(launches["fused_update"] > 0, "fused_update kernel not launched on the fused path")
+    # one launch per budget class, not one per batch
+    class_calls = sum(w["class_calls"] for w in watched.values())
+    batches = sum(w["batches"] for w in watched.values())
+    print(f"fused: fused_update launched {launches['fused_update']} times for {class_calls} "
+          f"class calls of {batches} batches", flush=True)
+    check(launches["fused_update"] == class_calls,
+          f"fused_update launched {launches['fused_update']} times for {class_calls} class "
+          f"calls ({batches} batches), expected one launch per class call")
+    for key, w in watched.items():
+        if key.startswith("nearest_copy_dp"):
+            check(w["dp_tables_in_update"] == 0,
+                  f"fused {key}: _dp_score_tables called {w['dp_tables_in_update']} times "
+                  "in the UPDATE, expected 0 (the kernel computes the scored gate)")
     check(launches["scored_walk"] > 0, "scored_walk kernel not launched on the fused path")
     for name in ("prune_walk", "prune_walk_scored"):
         check(launches[name] == 2, f"{name} launched {launches[name]} times on the fused path, "
                                    "expected 2 (one prune per t)")
     prune_check = {f"{pol}/t={t}": fused_prune_check(T, case, pol, t, schemes[pol, t], dev)
                    for pol in ("nearest_copy", "nearest_copy_dp") for t in (1, 2)}
+    # where the kernel route's UPDATE stage goes: one more t = 1 drive per
+    # policy with its pieces clocked (uploads include the gate's, which run
+    # through the same name)
+    breakdown = {}
+    for pol in ("nearest_copy", "nearest_copy_dp"):
+        with update_parts(greedy) as parts:
+            _, st = T.replicate_workload(ps, shard, 6, 1, f=f, policy=pol, fused=True)
+        breakdown[pol] = dict(parts, update_stage_s=st.stage_s["update"])
+        print(f"fused {pol} t=1 UPDATE breakdown: {breakdown[pol]}", flush=True)
     # fused=True vs the main phase's fused=False (f = object_sizes): the
     # kernel sums each cost in its own order, so near-ties may resolve
     # differently (ROADMAP trap c); printed, not checked
@@ -590,7 +737,7 @@ def phase_fused(T, greedy, backends, pu, counters, targets, case, main_schemes: 
     out = {
         "phase": "fused", "seconds": time.perf_counter() - t0, "paths": ps.n_paths,
         "n_servers": 6, "runs": runs, "launches": launches,
-        "rows_per_launch": rows,
+        "update_classes": watched, "update_breakdown_t1": breakdown, "rows_per_launch": rows,
         "prune_vs_torch_batched": prune_check,
         "nearest_copy_same_as_separate": same_as_separate,
         "nearest_copy_divergence": divergence,
@@ -673,10 +820,10 @@ def sweep_scored(rw, backends, objects, lengths, wd, sd, start, W: int, chunk: i
     return out
 
 
-def sweep_fused(pu, rw, backends, engine_mod, routing, combi, T, case, dev,
+def sweep_fused(pu, backends, engine_mod, routing, combi, T, case, dev,
                 rows_list=(256, 65_536)) -> dict:
-    """The fused UPDATE on the first 256 and 65,536 (``rows_list``) SNB scale 10 paths at
-    t = 1 against the sharding-only snapshot (the words are restored
+    """One fused UPDATE round (every row on one snapshot) on the first 256
+    and 65,536 (``rows_list``) SNB scale 10 paths at t = 1 against the sharding-only snapshot (the words are restored
     before each timed call), with the routed and the scored gate.  Bound:
     the larger of the bytes over the memory rate and the candidate loop's
     sum_b n_cand(h_b) * L * Hp1 mask operations over the 32-bit rate."""
@@ -697,11 +844,8 @@ def sweep_fused(pu, rw, backends, engine_mod, routing, combi, T, case, dev,
         tables = torch.from_numpy(tab_np).to(dev)
         counts = torch.from_numpy(cnt_np).to(dev)
         t = torch.ones(B, dtype=torch.int32, device=dev)
-        Hc, C, Hp1 = tables.shape
-        L = o.shape[1]
-        valid = torch.arange(L, device=dev)[None, :] < ln[:, None]
-        touched = int(torch.unique(o[valid]).numel())
-        ops = int(counts[h.clamp(0, Hp1 - 1).long()].sum()) * L * Hp1
+        _, C, Hp1 = tables.shape
+        ops = int(counts[h.clamp(0, Hp1 - 1).long()].sum()) * o.shape[1] * Hp1
         for gate, pol in (("routed", routing.resolve_policy("nearest_copy")),
                           ("scored", routing.nearest_copy_dp())):
             w = w0.clone()
@@ -712,16 +856,7 @@ def sweep_fused(pu, rw, backends, engine_mod, routing, combi, T, case, dev,
                   and torch.equal(got[0][:-1], want[0][:-1]),
                   f"sweep fused_update {gate} B={rows}: kernel vs plain")
             additions = int(got[3].sum())
-            reads = 0
-            if gate == "scored":
-                scores = backends._dp_score_tables(o, ln, w0, -1)
-                start = backends._root_home(o, packed.shard)
-                _, loc = rw.scored_walk(o, ln, w0, packed.shard, start, scores)
-                holders = backends.unpack_bits(w0[o.clamp_min(0).long()]).sum(dim=-1)
-                reads = int(holders[valid & ~loc].sum())
-            nbytes = (4 * B * L + 8 * B + (8 + 4 * W) * touched + tables.numel()
-                      + 4 * Hc + (4 * W * 32 if gate == "routed" else 4 * reads)
-                      + B * L * Hp1 + 4 * B * Hp1 + 6 * B + 4 * additions)
+            nbytes = fused_batch_bytes(o, ln, W, tables, additions, gate)
             restore = lambda: w.copy_(w0)  # noqa: E731
             out[f"{gate}/B={rows}"] = {
                 **timed("kernel", lambda: pu.fused_update(w, *args, pol=pol), setup=restore),
@@ -729,12 +864,110 @@ def sweep_fused(pu, rw, backends, engine_mod, routing, combi, T, case, dev,
                         setup=restore),
                 "rows": B, "bytes": nbytes, "int_ops": ops, "additions": additions,
                 "candidates": int(counts[h.clamp(0, Hp1 - 1).long()].sum()),
-                "C": C, "Hp1": Hp1, "score_reads": reads,
+                "C": C, "Hp1": Hp1,
                 "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3,
                 "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / INT32_OPS_PER_S
                             else "operations",
             }
     return out
+
+
+def fused_batch_bytes(o, ln, W: int, tables, additions: int, gate: str) -> int:
+    """Bytes one fused UPDATE round over rows ``o`` must move, each read
+    once: the objects, lengths and budgets, each touched object's home,
+    size and words, the tables, the rank vector (routed gate; the scored
+    gate's scores follow from the words), the chosen plane, the subpath
+    servers, the per-row outputs and one word per addition."""
+    B, L = o.shape
+    Hc, _, Hp1 = tables.shape
+    valid = torch.arange(L, device=o.device)[None, :] < ln[:, None]
+    touched = int(torch.unique(o[valid]).numel())
+    return (4 * B * L + 8 * B + (8 + 4 * W) * touched + tables.numel() + 4 * Hc
+            + (4 * W * 32 if gate == "routed" else 0)
+            + B * L * Hp1 + 4 * B * Hp1 + 6 * B + 4 * additions)
+
+
+def class_timing(pu, engine_mod, streaming, routing, combi, T, case, dev, rows=None,
+                 batch: int = 256) -> dict:
+    """The fused UPDATE of a t = 1 ``nearest_copy`` class of SNB scale 10
+    paths (all of them, or the first ``rows``, cycled) against the
+    sharding-only words, in ``batch``-row snapshot batches: one
+    ``fused_update_class`` launch, and the sequence of per-batch calls it
+    replaced (per batch three uploads from the host, one ``fused_update``
+    call, the statistics added on the device), from the same starting
+    words.  Both
+    must give the same words and rows, and the class kernel its plain
+    version's (``fused_update_class_plain``, timed once).  The bound sums
+    each batch's bytes (:func:`fused_batch_bytes`) and mask operations."""
+    _, ps, shard, f = case
+    packed = engine_mod.PackedScheme.from_sharding(shard, 6, dev)
+    w0 = packed.words
+    W = w0.shape[1]
+    sd = packed.shard
+    f_d = torch.from_numpy(f).to(dev)
+    rank = torch.zeros(W * 32, dtype=torch.float32, device=dev)
+    N = ps.n_paths if rows is None else rows
+    idx = np.arange(N) % ps.n_paths
+    o_np = np.ascontiguousarray(np.asarray(ps.objects, np.int32)[idx])
+    l_np = np.ascontiguousarray(np.asarray(ps.lengths, np.int32)[idx])
+    t_np = np.ones(N, np.int32)
+    o, ln, t = (torch.from_numpy(a).to(dev) for a in (o_np, l_np, t_np))
+    _, _, h = T.subpath_structure(o, ln, sd)
+    H = combi.max_h_within_budget(1, 2048, int(h.max()))
+    tab_np, cnt_np = combi.stacked_tables(max(H, 1), 1)
+    tables, counts = torch.from_numpy(tab_np).to(dev), torch.from_numpy(cnt_np).to(dev)
+    Hp1 = tables.shape[2]
+    pol = routing.resolve_policy("nearest_copy")
+    w = w0.clone()
+    acc = torch.zeros(3, dtype=torch.float32, device=dev)
+
+    def restore():
+        w.copy_(w0)
+        acc.zero_()
+
+    def one_launch():
+        return pu.fused_update_class(w, o, ln, sd, f_d, tables, counts, t, rank, acc,
+                                     batch_size=batch, pol=pol)
+
+    def per_batch():
+        outs = []
+        for i in range(0, N, batch):
+            o_d, l_d, t_d = (streaming.to_device(a[i : i + batch], dev)
+                             for a in (o_np, l_np, t_np))
+            res = pu.fused_update(w, o_d, l_d, sd, f_d, tables, counts, t_d, rank, pol=pol)
+            acc.add_(torch.stack([res[1].sum(), res[2].sum(dtype=torch.float32),
+                                  res[5].sum(dtype=torch.float32)]))
+            outs.append(res[1:])
+        return [torch.cat(x) for x in zip(*outs)]
+
+    restore()
+    got = one_launch()[1:]
+    w_cls, acc_cls = w.clone(), acc.clone()
+    restore()
+    seq = per_batch()
+    check(torch.equal(w[:-1], w_cls[:-1]) and all(torch.equal(a, b) for a, b in zip(got, seq)),
+          f"fused_update_class N={N}: one launch differs from the per-batch sequence")
+    restore()
+    (plain, plain_s) = synced(lambda: pu.fused_update_class_plain(
+        w, o, ln, sd, f_d, tables, counts, t, rank, acc, batch_size=batch, pol=pol))
+    check(torch.equal(w[:-1], w_cls[:-1]) and torch.equal(acc, acc_cls)
+          and all(torch.equal(a, b) for a, b in zip(got, plain[1:])),
+          f"fused_update_class N={N}: kernel vs plain")
+    adds = got[2].flatten(1).sum(dim=1)
+    nbytes = ops = 0
+    for i in range(0, N, batch):
+        sl = slice(i, i + batch)
+        nbytes += fused_batch_bytes(o[sl], ln[sl], W, tables, int(adds[sl].sum()), "routed")
+        ops += int(counts[h[sl].clamp(0, Hp1 - 1).long()].sum()) * o.shape[1] * Hp1
+    return {**timed("kernel", one_launch, setup=restore),
+            **timed("per_batch", per_batch, setup=restore),
+            "plain_ms": plain_s * 1e3, "plain_device_ms": None,
+            "rows": N, "batch": batch, "batches": -(-N // batch), "C": tables.shape[1],
+            "Hp1": Hp1, "additions": int(adds.sum()), "bytes": nbytes, "int_ops": ops,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / INT32_OPS_PER_S
+                        else "operations",
+            "acc": acc_cls.tolist()}
 
 
 PRUNE_PREFIX = 2_000  # candidates of the main path's t = 1 prune held against the plain loop
@@ -1167,12 +1400,14 @@ def walk_timing(rw, backends, o, ln, wd, sd) -> dict:
             "bound_by": "bytes"}
 
 
-def phase_shapes(pl, rw, pu, backends, engine_mod, routing, combi, T, case, main_out: dict,
-                 fused_out: dict, dev) -> dict:
+def phase_shapes(pl, rw, pu, backends, engine_mod, streaming, routing, combi, T, case,
+                 main_out: dict, fused_out: dict, dev) -> dict:
     """Rows 1-4 timed once at the median rows per launch of the path that
     launches them (main: path_latency, routed_walk; fused: scored_walk,
     fused_update), on the first P paths of SNB scale 10 and the main t = 1
-    scheme's words: ms, device_ms, plain, and the byte bound at that shape."""
+    scheme's words (fused_update: a class launch of P rows on the
+    sharding-only words, :func:`class_timing`): ms, device_ms, plain, and
+    the byte bound at that shape."""
     t0 = time.perf_counter()
     _, ps, shard, f = case
     med = {**{k: v["median"] for k, v in main_out["rows_per_launch"].items()
@@ -1206,17 +1441,17 @@ def phase_shapes(pl, rw, pu, backends, engine_mod, routing, combi, T, case, main
                       chunk=o.shape[0])
     sc.update(rows=o.shape[0], bound_ms=sc["bytes"] / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
     timings["scored_walk"] = sc
-    fu = sweep_fused(pu, rw, backends, engine_mod, routing, combi, T, case, dev,
-                     rows_list=(med["fused_update"],))
-    timings["fused_update"] = fu[f"routed/B={med['fused_update']}"]
+    # fused_update: one class launch at the median class size
+    timings["fused_update"] = class_timing(pu, engine_mod, streaming, routing, combi, T, case,
+                                           dev, rows=med["fused_update"])
     out = {"phase": "shapes", "seconds": time.perf_counter() - t0, "median_rows": med,
            "timings": timings}
     emit(out)
     return out
 
 
-def phase_sweep(pl, rw, pu, graph_mod, workload_mod, engine_mod, backends, routing, combi,
-                T, main_case, scale: int, n_queries: int, dev, launches: dict) -> dict:
+def phase_sweep(pl, rw, pu, graph_mod, workload_mod, engine_mod, backends, streaming, routing,
+                combi, T, main_case, scale: int, n_queries: int, dev, launches: dict) -> dict:
     t0 = time.perf_counter()
     snb = graph_mod.snb_like(scale=scale, seed=0)
     ps = workload_mod.snb_workload_materialized(snb, n_queries=n_queries, seed=0)
@@ -1276,9 +1511,12 @@ def phase_sweep(pl, rw, pu, graph_mod, workload_mod, engine_mod, backends, routi
         }
     timings["scored_walk"] = sweep_scored(rw, backends, objects, lengths, wd, sd, start,
                                           W, chunk=262_144)
-    for name, v in sweep_fused(pu, rw, backends, engine_mod, routing, combi, T,
+    for name, v in sweep_fused(pu, backends, engine_mod, routing, combi, T,
                                main_case, dev).items():
         timings[f"fused_update/{name}"] = v
+    # the whole scale 10 workload as one t = 1 class
+    timings["fused_update/class"] = class_timing(pu, engine_mod, streaming, routing, combi,
+                                                 T, main_case, dev)
     for name, v in timings.items():
         v.setdefault("bound_ms", v["bytes"] / HBM_BYTES_PER_S * 1e3)
         v.setdefault("bound_by", "bytes")
@@ -1682,10 +1920,10 @@ def main() -> int:
     dp = phase_dp_prune(T, pw, rw, backends, engine_mod, streaming, routing, counters, case,
                         dev)
     launches["prune_walk_scored"] = dp["launches"]["prune_walk_scored"]
-    shapes = phase_shapes(pl, rw, pu, backends, engine_mod, routing, combi, T, case, main_out,
-                          fused_out, dev)
-    sw = phase_sweep(pl, rw, pu, graph_mod, workload_mod, engine_mod, backends, routing,
-                     combi, T, case, scale=100, n_queries=150_000, dev=dev,
+    shapes = phase_shapes(pl, rw, pu, backends, engine_mod, streaming, routing, combi, T, case,
+                          main_out, fused_out, dev)
+    sw = phase_sweep(pl, rw, pu, graph_mod, workload_mod, engine_mod, backends, streaming,
+                     routing, combi, T, case, scale=100, n_queries=150_000, dev=dev,
                      launches=launches)
     del case, main_out, fused_out
     torch.cuda.empty_cache()
@@ -1719,6 +1957,18 @@ def main() -> int:
                     whole_bound_ms=dp["whole"]["bound_ms"],
                     us_per_candidate=dp["whole"]["us_per_candidate"],
                     old_loop_ms_per_candidate=dp["old_loop"]["ms_per_candidate"])
+    cls = tm["fused_update/class"]
+    fused_entry = kernel_entry("fused_update", "src/repro_torch/csrc/provision_update.cu",
+                               "src/repro/kernels/provision_update.py:285",
+                               launches["fused_update"], err["fused_update"],
+                               tm["fused_update/routed/B=256"], at["fused_update"])
+    # the class launch (the whole t = 1 class, 256-row batches) beside the
+    # 256-row round, and the per-batch sequence it replaced
+    fused_entry.update(class_rows=cls["rows"], class_batches=cls["batches"],
+                       class_ms=cls["kernel_ms"], class_device_ms=cls["kernel_device_ms"],
+                       class_plain_ms=cls["plain_ms"], class_bound_ms=cls["bound_ms"],
+                       class_per_batch_ms=cls["per_batch_ms"],
+                       class_per_batch_device_ms=cls["per_batch_device_ms"])
     emit({"kernels": [
         kernel_entry("path_latency", "src/repro_torch/csrc/path_latency.cu",
                      "src/repro/kernels/path_latency.py:93", launches["path_latency"],
@@ -1731,10 +1981,7 @@ def main() -> int:
                      "src/repro/kernels/routed_walk.py:244", launches["scored_walk"],
                      err["scored_walk"], tm["scored_walk"], at["scored_walk"]),
         dp_entry,
-        kernel_entry("fused_update", "src/repro_torch/csrc/provision_update.cu",
-                     "src/repro/kernels/provision_update.py:285", launches["fused_update"],
-                     err["fused_update"], tm["fused_update/routed/B=256"],
-                     at["fused_update"]),
+        fused_entry,
         kernel_entry("embedding_bag", "src/repro_torch/csrc/embedding_bag.cu",
                      "src/repro/kernels/embedding_bag.py:68", launches["embedding_bag"],
                      lm_par["max_abs_err"]["embedding_bag"], bag["timing"]),

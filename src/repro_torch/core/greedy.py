@@ -28,10 +28,12 @@ TF32 product would round them and flip strict argmins, so
 ``replicate_workload`` refuses to run while
 ``torch.backends.cuda.matmul.allow_tf32`` is set.
 
-``fused=True`` runs each batch as one fused step (:func:`_fused_update_batch`):
-on the ``kernel`` backend the ``fused_update`` CUDA kernel does the gate,
-the candidate scoring and the scatter-OR; elsewhere the gate walk and
-:func:`_update_batch_core` run back to back.  Batch statistics stay on the
+``fused=True`` runs the gate, the candidate scoring and the scatter-OR as
+one fused step: on the ``kernel`` backend (without capacity checking) a
+whole budget class is one ``fused_update_class`` CUDA launch that loops
+over the batches itself (:func:`_run_update_class`); elsewhere each batch
+is one :func:`_fused_update_batch`, the gate walk and
+:func:`_update_batch_core` back to back.  Batch statistics stay on the
 device and are read once per budget class.  The kernel sums each
 candidate's cost in its own fixed order, not the einsum's, so with
 non-integer sizes a near-tie can resolve differently from ``fused=False``
@@ -53,7 +55,7 @@ from repro_torch.engine import LatencyEngine, PackedScheme
 from repro_torch.engine import backends as _backends
 from repro_torch.engine.packed import scatter_or_pairs, storage_per_server, test_bits
 from repro_torch.engine.streaming import resolve_device, to_device, to_host
-from repro_torch.kernels.provision_update import fused_update
+from repro_torch.kernels.provision_update import fused_update_class
 
 _INF = 1e30
 
@@ -196,32 +198,25 @@ def _fused_update_batch(
     words, acc, objects, lengths, shard, f, tables, counts, t, rank, load,
     capacity, epsilon, check_capacity: bool, pol, backend: str,
 ):
-    """One *fused* UPDATE round: gate + candidate scoring + bit-test +
-    scatter-OR, with the batch statistics added into ``acc`` (float32 [3]:
-    cost, failed, skipped) on the device instead of read back per batch.
-
-    On the ``kernel`` backend without capacity checking the whole round is
-    the ``fused_update`` CUDA kernel; otherwise the routed gate
-    (``backends.gate_counts`` against the same words snapshot) feeds
-    :func:`_update_batch_core`, whose capacity check needs the full
-    ``[B, C, S]`` marginal-load plane the kernel never builds.  Returns
+    """One *fused* UPDATE round off the class kernel's route (the
+    ``torch`` backend, or capacity checking): the routed gate
+    (``backends.gate_counts`` against the words snapshot) feeds
+    :func:`_update_batch_core` (whose capacity check needs the full
+    ``[B, C, S]`` marginal-load plane the kernel never builds), with the
+    batch statistics added into ``acc`` (float32 [3]: cost, failed,
+    skipped) on the device instead of read back per batch.  Returns
     ``(words, chosen, srv)``; ``words`` and ``acc`` are updated in place.
     """
-    if backend == "kernel" and not check_capacity:
-        words, costs, failed, chosen, srv, skipped = fused_update(
-            words, objects, lengths, shard, f, tables, counts, t, rank, pol=pol
-        )
+    if pol is None:
+        h_routed = torch.zeros_like(t)
     else:
-        if pol is None:
-            h_routed = torch.zeros_like(t)
-        else:
-            h_routed = _backends.gate_counts(
-                objects, lengths, words, shard, pol, rank, backend=backend
-            )
-        words, costs, failed, chosen, srv, skipped = _update_batch_core(
-            words, objects, lengths, shard, f, tables, counts, t, h_routed,
-            load, capacity, epsilon, check_capacity, pol is not None,
+        h_routed = _backends.gate_counts(
+            objects, lengths, words, shard, pol, rank, backend=backend
         )
+    words, costs, failed, chosen, srv, skipped = _update_batch_core(
+        words, objects, lengths, shard, f, tables, counts, t, h_routed,
+        load, capacity, epsilon, check_capacity, pol is not None,
+    )
     acc += torch.stack(
         [costs.sum(), failed.sum(dtype=torch.float32), skipped.sum(dtype=torch.float32)]
     )
@@ -262,9 +257,9 @@ class DeviceStatsAcc:
     """Device-side accumulation of the fused UPDATE's batch statistics.
 
     The fused driver adds (cost, failed, skipped) into the device float32
-    [3] ``acc`` per batch; :meth:`drain` does the one blocking readback,
-    once per budget class, folds the totals into a :class:`GreedyStats`
-    and zeroes ``acc``.
+    [3] ``acc`` per batch (the class kernel once per class); :meth:`drain`
+    does the one blocking readback, once per budget class, folds the
+    totals into a :class:`GreedyStats` and zeroes ``acc``.
     """
 
     def __init__(self, device):
@@ -326,9 +321,15 @@ def _run_update_batches(
     instead: the gate under ``pol`` (``rank`` the padded holder rank) runs
     against the same snapshot inside the step, on ``backend``, and the
     statistics are read back (and the stage clock synchronised) once at
-    the end of the class.  Mutates ``packed`` and ``stats``; returns the
-    load.
+    the end of the class.  On the ``kernel`` backend without capacity
+    checking the whole class is one launch instead
+    (:func:`_run_update_class`).  Mutates ``packed`` and ``stats``;
+    returns the load.
     """
+    if fused and backend == "kernel" and not check_capacity:
+        _run_update_class(packed, vec_objects, vec_lengths, shard_d, f_d, tables, counts,
+                          t_vec, batch_size, stats, track_rm, pol, rank)
+        return load
     device = packed.device
     acc = DeviceStatsAcc(device) if fused else None
     t_class = time.perf_counter()
@@ -364,11 +365,7 @@ def _run_update_batches(
             # over-count duplicate additions within a batch)
             load = _device_load(packed, f_d)
         if track_rm:
-            ch = to_host(chosen)
-            sv = to_host(srv)
-            fo = to_host(_first_obj_of_subpaths(o_d, l_d, shard_d, tables.shape[2]))
-            for b, x, kk in zip(*np.nonzero(ch)):
-                stats.rm.append((int(fo[b, kk]), int(o[b, x]), int(sv[b, kk])))
+            _append_rm(stats, o, o_d, l_d, shard_d, chosen, srv)
         if not fused:
             _tick(stats, "update", t0, device)
     if fused:
@@ -376,6 +373,46 @@ def _run_update_batches(
         acc.drain(stats)
         _tick(stats, "update", t_class, device)
     return load
+
+
+def _append_rm(stats: GreedyStats, o: np.ndarray, o_d, l_d, shard_d, chosen, srv) -> None:
+    """Append the resharding-map entries (u, v, s) of the chosen additions
+    of rows ``o`` (host) / ``o_d``, ``l_d`` (device), in row order."""
+    ch = to_host(chosen)
+    sv = to_host(srv)
+    fo = to_host(_first_obj_of_subpaths(o_d, l_d, shard_d, chosen.shape[2]))
+    for b, x, kk in zip(*np.nonzero(ch)):
+        stats.rm.append((int(fo[b, kk]), int(o[b, x]), int(sv[b, kk])))
+
+
+def _run_update_class(packed: PackedScheme, vec_objects: np.ndarray,
+                      vec_lengths: np.ndarray, shard_d, f_d, tables, counts,
+                      t_vec: np.ndarray, batch_size: int, stats: GreedyStats,
+                      track_rm: bool, pol, rank) -> None:
+    """The fused UPDATE of one budget class on the ``kernel`` backend: the
+    class uploaded once and one ``fused_update_class`` launch, which prices
+    it in ``batch_size``-row snapshot batches on the device, as the batch
+    loop does; the resharding map built afterwards (rows are independent,
+    so its entries come in the loop's order) and the statistics read once.
+    Mutates ``packed`` and ``stats``."""
+    device = packed.device
+    acc = DeviceStatsAcc(device)
+    t0 = time.perf_counter()
+    N = len(vec_objects)
+    if N:
+        # one upload: objects, lengths and budgets side by side
+        L = vec_objects.shape[1]
+        buf = to_device(np.concatenate(
+            [np.ravel(vec_objects), vec_lengths, t_vec]).astype(np.int32, copy=False), device)
+        o_d, l_d, t_d = buf[: N * L].view(N, L), buf[N * L : N * L + N], buf[N * L + N :]
+        packed.words, _, _, chosen, srv, _ = fused_update_class(
+            packed.words, o_d, l_d, shard_d, f_d, tables, counts, t_d, rank, acc.acc,
+            batch_size=batch_size, pol=pol,
+        )
+        if track_rm:
+            _append_rm(stats, vec_objects, o_d, l_d, shard_d, chosen, srv)
+    acc.drain(stats)
+    _tick(stats, "update", t0, device)
 
 
 # host-residency bound on candidate-table construction: a budget class
@@ -627,9 +664,10 @@ def replicate_workload(
 
     ``fused`` runs every batch as one fused step (gate + candidate
     scoring + bit-test + scatter-OR, statistics reduced on the device; on
-    the ``kernel`` backend the ``fused_update`` CUDA kernel) and the final
-    prune with ``fused=True``: one sweep launch on the ``kernel`` backend,
-    the batched independent-group sweep on ``torch`` (see
+    the ``kernel`` backend one ``fused_update_class`` launch per budget
+    class) and the final prune with ``fused=True``: one sweep launch on
+    the ``kernel`` backend, the batched independent-group sweep on
+    ``torch`` (see
     :func:`~repro_torch.core.replication.prune_scheme_replicas`).  Under
     ``policy_backend="reference"`` it runs the separate pipeline, as the
     JAX package does.

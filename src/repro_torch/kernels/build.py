@@ -34,8 +34,8 @@ SIGNATURES = {
     "prune_walk_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "prune_walk_scored_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                                  _P],
-    "fused_update_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "fused_update_class_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # the last int before the stream is a DTYPE_CODES value
     "flash_prefill_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "flash_prefill_wgmma_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -1,23 +1,28 @@
-"""One fused greedy UPDATE round (paper Alg 2 hot loop) over a path batch.
+"""The fused greedy UPDATE (paper Alg 2 hot loop): one round over a path
+batch, or a whole budget class in snapshot batches.
 
 Replaces the TPU kernel ``fused_update_pallas`` in
-``src/repro/kernels/provision_update.py`` (``_make_kernel``).  Per path,
-against one snapshot of the packed words: the policy-routed gate walk,
-the server-local subpaths under d (Def 5.1), the needed bit-tests, and
-the strict argmin over the C(h, t) candidates' float32 costs; the
-winner's additions are then OR-ed into the words.
+``src/repro/kernels/provision_update.py`` (``_make_kernel``) and the
+greedy's per-batch loop around it.  Per path, against one snapshot of
+the packed words: the policy-routed gate walk, the server-local subpaths
+under d (Def 5.1), the needed bit-tests, and the strict argmin over the
+C(h, t) candidates' float32 costs; the winner's additions are then
+OR-ed into the words before the next batch prices.
 
-The CUDA source is ``repro_torch/csrc/provision_update.cu``: one warp per
-path, lanes striding over the candidates, a shuffle reduction for the
-argmin (ties -> lowest index), and a second tiny launch on the same stream
-that applies the chosen additions with ``atomicOr`` once every path has
-been priced.  It takes any L and W: a path of at most ``SHARED_L``
+The CUDA source is ``repro_torch/csrc/provision_update.cu``: one
+cooperative launch per class (:func:`fused_update_class`; one per round
+for :func:`fused_update`, the one-batch case) that loops over the
+batches with a grid-wide barrier after pricing a batch and another after
+OR-ing its additions in with ``atomicOr``.  One warp per path, lanes
+striding over the candidates, a shuffle reduction for the argmin (ties
+-> lowest index).  It takes any L and W: a path of at most ``SHARED_L``
 positions keeps its state in shared memory, a longer one in a device
-scratch this wrapper allocates.  Gate modes: ``none`` (``pol=None``),
-``routed`` (with or without lookahead; ``rank`` is the ``[W*32]`` holder
-rank) and ``scored`` (``nearest_copy_dp``: the DP tables of the batch are
-computed with torch ops before the launch, as the JAX package computes
-them before its kernel).
+scratch for one batch that this wrapper allocates.  Gate modes: ``none``
+(``pol=None``), ``routed`` (with or without lookahead; ``rank`` is the
+``[W*32]`` holder rank) and ``scored`` (``nearest_copy_dp``: the kernel
+rebuilds each path's DP hop values from its words, so no score plane is
+built; the plain version computes the DP tables with torch ops, as the
+JAX package does before its kernel).
 
 Bound on the card: bytes (objects, touched words, homes and sizes, the
 ``[B, L, Hp1]`` chosen plane); the candidate loop's sum_b n_cand(h_b) * L
@@ -32,6 +37,7 @@ multiples of 1/8, for instance) and to float32 rounding otherwise.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.engine.backends import _dp_depth, _dp_score_tables
@@ -178,74 +184,134 @@ def _check(words, objects, lengths, shard, f, tables, counts, t, rank):
         raise ValueError(f"rank must be [W*32] = [{words.shape[1] * 32}]")
 
 
-def fused_update(words, objects, lengths, shard, f, tables, counts, t, rank,
-                 pol=None):
-    """One fused UPDATE round: the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors.  Same contract as :func:`fused_update_plain`;
-    ``words`` is updated in place and returned.
+def fused_update_class_plain(words, objects, lengths, shard, f, tables, counts, t, rank,
+                             acc, batch_size=256, pol=None):
+    """Plain torch version of :func:`fused_update_class`: a loop of
+    :func:`fused_update_plain` over the ``batch_size``-row snapshot
+    batches, each priced against the words after the batches before it.
+    Returns the class's ``(words, applied_cost, no_solution, chosen, srv,
+    skipped)``, rows in order, and adds the class's (cost, failed,
+    skipped) into ``acc`` (float32 [3], or None), each summed in row order
+    in float32 steps, as the kernel does."""
+    B, L = objects.shape
+    Hp1 = tables.shape[2]
+    dev = objects.device
+    outs = []
+    for i in range(0, B, batch_size):
+        sl = slice(i, i + batch_size)
+        words, *rest = fused_update_plain(words, objects[sl], lengths[sl], shard, f, tables,
+                                          counts, t[sl], rank, pol=pol)
+        outs.append(rest)
+    if outs:
+        cost, no_sol, chosen, srv, skipped = (torch.cat(x) for x in zip(*outs))
+    else:
+        cost = torch.zeros((0,), dtype=torch.float32, device=dev)
+        no_sol = skipped = torch.zeros((0,), dtype=torch.bool, device=dev)
+        chosen = torch.zeros((0, L, Hp1), dtype=torch.bool, device=dev)
+        srv = torch.zeros((0, Hp1), dtype=torch.int32, device=dev)
+    if acc is not None and B:
+        cols = torch.stack([cost, no_sol.float(), skipped.float()], dim=1).cpu().numpy()
+        # np.cumsum adds in row order, rounding each step to float32
+        acc += torch.from_numpy(np.cumsum(cols, axis=0, dtype=np.float32)[-1]).to(acc.device)
+    return words, cost, no_sol, chosen, srv, skipped
 
-    A path has h <= L - 1 subpath boundaries, so table rows and subpath
+
+def _cut_wide_tables(run, words, objects, lengths, shard, f, tables, counts, t, *rest):
+    """A path has h <= L - 1 subpath boundaries, so table rows and subpath
     columns past L are never read: tables wider than L (a budget t >= L)
-    are cut to L columns before the round and ``chosen`` / ``srv`` padded
-    back (False / -1).
-    """
-    _check(words, objects, lengths, shard, f, tables, counts, t, rank)
+    are cut to L columns for ``run`` and ``chosen`` / ``srv`` padded back
+    (False / -1)."""
     B, L = objects.shape
     Hp1 = tables.shape[2]
     if Hp1 <= L:
-        return _fused_update(words, objects, lengths, shard, f, tables, counts, t,
-                             rank, pol)
+        return run(words, objects, lengths, shard, f, tables, counts, t, *rest)
     rows = min(tables.shape[0], L)
-    words, cost, no_sol, chosen, srv, skipped = _fused_update(
+    words, cost, no_sol, chosen, srv, skipped = run(
         words, objects, lengths, shard, f, tables[:rows, :, :L].contiguous(),
-        counts[:rows].contiguous(), t, rank, pol,
+        counts[:rows].contiguous(), t, *rest,
     )
     chosen = torch.cat([chosen, chosen.new_zeros((B, L, Hp1 - L))], dim=2)
     srv = torch.cat([srv, srv.new_full((B, Hp1 - L), -1)], dim=1)
     return words, cost, no_sol, chosen, srv, skipped
 
 
-def _fused_update(words, objects, lengths, shard, f, tables, counts, t, rank, pol):
+def fused_update_class(words, objects, lengths, shard, f, tables, counts, t, rank, acc,
+                       batch_size=256, pol=None):
+    """The fused UPDATE of a whole budget class: the CUDA kernel on CUDA
+    tensors (one cooperative launch), the plain version
+    (:func:`fused_update_class_plain`) on CPU tensors.
+
+    ``objects`` [N, L] are priced in snapshot batches of ``batch_size``
+    rows: every row of a batch against the same words, each batch against
+    the words after the batches before it.  ``words`` is updated in place
+    and returned with the class's per-row ``(applied_cost, no_solution,
+    chosen, srv, skipped)``; the class's (cost, failed, skipped), each
+    summed in row order, are added into ``acc`` (float32 [3]).  Tables
+    wider than L are cut as in :func:`fused_update`.
+    """
+    _check(words, objects, lengths, shard, f, tables, counts, t, rank)
+    if acc.device != objects.device or acc.dtype != torch.float32 or acc.shape != (3,):
+        raise ValueError("acc must be float32 [3] on the objects' device")
+    if batch_size < 1:
+        raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+    return _cut_wide_tables(_fused_update_class, words, objects, lengths, shard, f, tables,
+                            counts, t, rank, acc, batch_size, pol)
+
+
+def fused_update(words, objects, lengths, shard, f, tables, counts, t, rank,
+                 pol=None):
+    """One fused UPDATE round: every row against one snapshot.  The class
+    kernel with one batch on CUDA tensors, the plain version on CPU
+    tensors.  Same contract as :func:`fused_update_plain`; ``words`` is
+    updated in place and returned.  Tables wider than L are cut to L
+    columns before the round and ``chosen`` / ``srv`` padded back.
+    """
+    _check(words, objects, lengths, shard, f, tables, counts, t, rank)
+    return _cut_wide_tables(_fused_update_class, words, objects, lengths, shard, f, tables,
+                            counts, t, rank, None, max(objects.shape[0], 1), pol)
+
+
+def _fused_update_class(words, objects, lengths, shard, f, tables, counts, t, rank, acc,
+                        batch_size, pol):
     global LAUNCHES
     if objects.device.type == "cpu":
-        return fused_update_plain(words, objects, lengths, shard, f, tables, counts,
-                                  t, rank, pol=pol)
+        return fused_update_class_plain(words, objects, lengths, shard, f, tables, counts,
+                                        t, rank, acc, batch_size=batch_size, pol=pol)
     if objects.device.type != "cuda":
         raise ValueError(f"unsupported device {objects.device}")
-    B, L = objects.shape
+    N, L = objects.shape
     W = words.shape[1]
     Hc, C, Hp1 = tables.shape
     dev = objects.device
     mode = _gate_mode(pol)
-    if mode == "scored":
-        rank = _dp_score_tables(objects, lengths, words, _dp_depth(pol)).contiguous()
-    chosen = torch.empty((B, L, Hp1), dtype=torch.uint8, device=dev)
-    srv = torch.empty((B, Hp1), dtype=torch.int32, device=dev)
-    cost = torch.empty((B,), dtype=torch.float32, device=dev)
-    no_sol = torch.empty((B,), dtype=torch.uint8, device=dev)
-    skipped = torch.empty((B,), dtype=torch.uint8, device=dev)
+    chosen = torch.empty((N, L, Hp1), dtype=torch.uint8, device=dev)
+    srv = torch.empty((N, Hp1), dtype=torch.int32, device=dev)
+    cost = torch.empty((N,), dtype=torch.float32, device=dev)
+    no_sol = torch.empty((N,), dtype=torch.uint8, device=dev)
+    skipped = torch.empty((N,), dtype=torch.uint8, device=dev)
     need_g = state_g = None
     if max(L, Hp1) > SHARED_L:
-        # each path's needed masks and its int32 state (objects, homes,
-        # subpaths, sizes, subpath servers) in device memory
-        need_g = torch.empty((B, L, -(-Hp1 // 64)), dtype=torch.int64, device=dev)
-        state_g = torch.empty((B, 4 * L + Hp1), dtype=torch.int32, device=dev)
-    if B:
+        # each row of a batch: its needed masks and its int32 state
+        # (objects, homes, subpaths, sizes, hop values, subpath servers)
+        rows = min(N, batch_size)
+        need_g = torch.empty((rows, L, -(-Hp1 // 64)), dtype=torch.int64, device=dev)
+        state_g = torch.empty((rows, 5 * L + Hp1), dtype=torch.int32, device=dev)
+    if N:
         lib = load_library()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
-            err = lib.fused_update_launch(
+            err = lib.fused_update_class_launch(
                 objects.data_ptr(), lengths.data_ptr(), shard.data_ptr(), f.data_ptr(),
                 tables.view(torch.uint8).data_ptr(), counts.data_ptr(), t.data_ptr(),
-                rank.data_ptr(), B, L, W, Hc, C, Hp1, _GATE[mode],
-                int(mode == "routed" and pol.lookahead), words.data_ptr(),
+                rank.data_ptr(), N, L, W, Hc, C, Hp1, batch_size, _GATE[mode],
+                int(mode == "routed" and pol.lookahead),
+                _dp_depth(pol) if mode == "scored" else -1, words.data_ptr(),
                 None if need_g is None else need_g.data_ptr(),
                 None if state_g is None else state_g.data_ptr(), chosen.data_ptr(),
                 srv.data_ptr(), cost.data_ptr(), no_sol.data_ptr(), skipped.data_ptr(),
-                stream,
+                None if acc is None else acc.data_ptr(), stream,
             )
         check_launch("fused_update", err)
         LAUNCHES += 1
-    no_sol = no_sol.view(torch.bool)
-    applied = torch.where(no_sol, 0.0, cost)
-    return words, applied, no_sol, chosen.view(torch.bool), srv, skipped.view(torch.bool)
+    return (words, cost, no_sol.view(torch.bool), chosen.view(torch.bool), srv,
+            skipped.view(torch.bool))

@@ -364,7 +364,7 @@ def _wide_case(shape, seed=21, n_obj=16):
 @pytest.mark.parametrize("policy", ["nearest_copy", "nearest_copy_dp"])
 def test_kernel_backend_routes_wide_shapes(monkeypatch, shape, policy):
     """On ``kernel`` every shape takes the kernels' routes: the fused
-    UPDATE (``fused_update``, never the torch-op ``_update_batch_core``)
+    UPDATE (``fused_update_class``, never the torch-op ``_update_batch_core``)
     and one prune sweep (``prune_sweep``, never a batched group step),
     with the torch backend's masks and counts (which the tests above and
     ``test_torch_fused.py`` hold against ``repro``)."""
@@ -380,12 +380,12 @@ def test_kernel_backend_routes_wide_shapes(monkeypatch, shape, policy):
     want = T.prune_scheme_replicas(ts_t, tps, 1, policy=policy, f=f, device=CPU)
     _kernel_on_cpu(monkeypatch)
     seen = []
-    for mod, name in ((greedy, "fused_update"), (greedy, "_update_batch_core"),
+    for mod, name in ((greedy, "fused_update_class"), (greedy, "_update_batch_core"),
                       (backends, "prune_sweep"), (replication, "_prune_group_step")):
         _spy(monkeypatch, mod, name, seen)
     fus, fs = T.replicate_workload(tps, shard, n_srv, 1, f=f, policy=policy, fused=True,
                                    device=CPU)
-    assert {"fused_update", "prune_sweep"} <= set(seen)
+    assert {"fused_update_class", "prune_sweep"} <= set(seen)
     assert "_update_batch_core" not in seen and "_prune_group_step" not in seen
     assert np.array_equal(fus.mask, fus_t.mask) and fs.pruned_replicas > 0
     assert (fs.replicas, fs.pruned_replicas, fs.failed_paths) == \
