@@ -6,12 +6,15 @@ Phases (each prints one JSON line; any failed check exits non-zero):
   build   compile the CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
           sm_90a) and print the card, its power limit, the TF32 flag and
           ptxas's registers, shared memory and spills of the attention,
-          walk and fused UPDATE kernels.
+          walk, path-latency and fused UPDATE kernels.
   parity  each kernel against its plain torch version, exactly, on 1 M
           seeded random paths (L in {1, 6, 9}, 6 / 40 / 128 servers, bit 31
           set, -1 padding and empty rows; the routed walk under
           home_first, nearest_copy and queue_aware with tied loads; the
           scored walk over the nearest_copy_dp tables of depth None and 2);
+          the path-latency kernel also at its route boundaries (L 8 / 9 /
+          17 / 65 / 200, 80 / 160 / 400 servers) and on row slices from an
+          odd row;
           the fused UPDATE on seeded random 256-row batches in every gate
           mode (none, routed with and without lookahead, queue-ranked,
           scored with depth None and 2), and as a class launch of 700 rows
@@ -21,7 +24,10 @@ Phases (each prints one JSON line; any failed check exits non-zero):
           home-first latencies, on the kernel backend; the kernels' launch
           counters are zeroed just before and read just after; the serial
           prune must launch ``prune_walk`` once per t.  The t = 1 run is
-          repeated with the torch gate and must give the same mask.  An
+          repeated with the torch gate and must give the same mask.  One
+          more t = 1 home-first walk is broken into the transient engine's
+          packed upload, the chunks' uploads, the launches and the readback,
+          each synchronised.  An
           untimed re-run records the rows of every launch of kernels 1-4.
   fused   the fused provisioning path on the same workload:
           ``replicate_workload(fused=True)`` under ``nearest_copy`` and
@@ -68,7 +74,9 @@ Phases (each prints one JSON line; any failed check exits non-zero):
           walk at the old per-candidate prune's median row count.
   shapes  kernels 1-4 timed once each at the median rows per launch of the
           path that launches them (main or fused; ``fused_update``: a class
-          launch of the median class size), with their byte bounds.
+          launch of the median class size), with their byte bounds;
+          ``path_latency`` also with its launch plan and the bytes of the
+          32-byte sectors its gathers touch.
   sweep   the engine's hot primitives at deployment scale (SNB scale 100,
           150,000 queries, ~1.4 M paths, 128 servers): kernel vs plain,
           exact, then each timed as the median of 5 runs after a warm-up;
@@ -177,8 +185,8 @@ def phase_build(build) -> dict:
         "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
         "torch": torch.__version__, "cuda": torch.version.cuda, "numpy": np.__version__,
         "ptxas": {src: ptxas_lines(build, src)
-                  for src in ("flash_prefill", "decode_attention", "routed_walk", "prune_walk",
-                              "provision_update")},
+                  for src in ("flash_prefill", "decode_attention", "path_latency", "routed_walk",
+                              "prune_walk", "provision_update")},
     }
     emit(out)
     return out
@@ -266,6 +274,20 @@ def phase_parity(pl, rw, pu, backends, routing, combi, dev, P: int) -> dict:
                       f"scored_walk depth={depth} L={L} S={n_srv}")
                 del scores
             cases.append({"L": L, "n_servers": n_srv, "mean_h": float(got.float().mean())})
+    # path_latency at its route boundaries (the ring of pl.GROUP positions,
+    # staged / in place, whole word rows for W <= 4 / one word past) and on
+    # row slices from an odd row (an unaligned staged span)
+    for L in (8, 9, 17, 65, 200):
+        for n_srv in (80, 160, 400):
+            objects, lengths, words, shard, _, _ = random_case(
+                L * 1000 + n_srv + 1, 200_000, L, n_srv, 100_000, dev)
+            for o, ln in ((objects, lengths), (objects[1:], lengths[1:])):
+                got = pl.path_latency(o, ln, words, shard)
+                want = pl.path_latency_plain(o, ln, words, shard)
+                max_err["path_latency"] = max(max_err["path_latency"],
+                                              int((got - want).abs().max()))
+                check(torch.equal(got, want),
+                      f"path_latency L={L} S={n_srv} offset={o.data_ptr() % 16}")
     fused_cases = []
     for gate, (pol, ranked) in fused_gates(routing).items():
         for L, n_srv in ((1, 6), (6, 40), (9, 128)):
@@ -383,12 +405,62 @@ def rows_per_launch(counters, targets: dict, calls) -> dict:
     return out
 
 
-def phase_main(T, counters, targets, case, engine_mod, scale: int, n_queries: int) -> dict:
+@contextlib.contextmanager
+def home_first_parts(engine_core, streaming, backends):
+    """While the block runs, time the pieces of the home-first walk
+    (``path_latencies``) on the host, each synchronised before and after:
+    the transient engine's packed upload (``PackedScheme.from_mask``, the
+    host packing with it), the chunks' uploads (``stream_chunks``'
+    ``to_device``, two per chunk), the launches (``backends.kernel_eval``;
+    also between CUDA events, the card's time) and the readback
+    (``to_host``).  The syncs add their own cost: this is a breakdown, not
+    the stage's time."""
+    parts = {"packed_upload_s": 0.0, "chunk_uploads_s": 0.0, "launches_s": 0.0,
+             "launches_device_ms": 0.0, "readback_s": 0.0, "chunk_uploads": 0,
+             "chunk_upload_bytes": 0, "launches": 0}
+    packed_cls = engine_core.PackedScheme
+    orig = (packed_cls.__dict__["from_mask"], streaming.to_device, backends.kernel_eval,
+            engine_core.to_host)
+
+    def clocked(key, fn, count=None, events=False):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            res = fn(*args, **kwargs)
+            b.record()
+            torch.cuda.synchronize()
+            parts[key] += time.perf_counter() - t0
+            if events:
+                parts["launches_device_ms"] += a.elapsed_time(b)
+            if count:
+                parts[count] += 1
+            if key == "chunk_uploads_s":
+                parts["chunk_upload_bytes"] += int(res.nbytes)
+            return res
+        return wrapped
+
+    packed_cls.from_mask = staticmethod(clocked("packed_upload_s", packed_cls.from_mask))
+    streaming.to_device = clocked("chunk_uploads_s", orig[1], "chunk_uploads")
+    backends.kernel_eval = clocked("launches_s", orig[2], "launches", events=True)
+    engine_core.to_host = clocked("readback_s", orig[3])
+    try:
+        yield parts
+    finally:
+        packed_cls.from_mask = orig[0]
+        streaming.to_device, backends.kernel_eval, engine_core.to_host = orig[1:]
+
+
+def phase_main(T, counters, targets, case, engine_mod, engine_core, streaming, backends,
+               scale: int, n_queries: int) -> dict:
     t0 = time.perf_counter()
     snb, ps, shard, f = case
     n = snb.graph.n_nodes
     runs = {}
     schemes = {}
+    hs = {}
     # the main path: counters zeroed just before, read just after
     zero_counts(counters)
     engine_mod.TRANSFER.reset()
@@ -402,6 +474,7 @@ def phase_main(T, counters, targets, case, engine_mod, scale: int, n_queries: in
         th = time.perf_counter()
         h = T.path_latencies(ps, scheme)
         h_s = time.perf_counter() - th
+        hs[t] = h
         check(feasible, f"t={t}: scheme not feasible under nearest_copy")
         check(st.failed_paths == 0, f"t={t}: {st.failed_paths} failed paths")
         check(st.routed_violations == 0, f"t={t}: {st.routed_violations} routed violations")
@@ -425,6 +498,14 @@ def phase_main(T, counters, targets, case, engine_mod, scale: int, n_queries: in
     check(launches["prune_walk"] == 2,
           f"prune_walk launched {launches['prune_walk']} times on the main path, "
           "expected 2 (one serial prune per t)")
+    # where the home-first stage goes: one more t = 1 walk, its pieces clocked
+    with home_first_parts(engine_core, streaming, backends) as home_first:
+        th = time.perf_counter()
+        h = T.path_latencies(ps, schemes[1])
+        home_first["total_s"] = time.perf_counter() - th
+    check(home_first["launches"] > 0 and np.array_equal(h, hs[1]),
+          "home-first breakdown drive")
+    print(f"main t=1 home-first breakdown: {home_first}", flush=True)
     # the t = 1 run with the plain torch gate must give the same mask
     tt = time.perf_counter()
     scheme_t, st_t = T.replicate_workload(ps, shard, 6, 1, f=f, policy="nearest_copy",
@@ -449,7 +530,7 @@ def phase_main(T, counters, targets, case, engine_mod, scale: int, n_queries: in
         "scale": scale, "n_queries": n_queries, "objects": int(n),
         "edges": int(snb.graph.n_edges), "paths": ps.n_paths, "max_len": ps.max_len,
         "n_servers": 6, "policy": "nearest_copy", "runs": runs, "launches": launches,
-        "rows_per_launch": rows, "transfer": transfer,
+        "rows_per_launch": rows, "transfer": transfer, "home_first_breakdown_t1": home_first,
         "torch_gate_t1_identical": True, "torch_gate_t1_s": torch_gate_s,
         "torch_gate_t1_stage_s": st_t.stage_s,
     }
@@ -1400,6 +1481,32 @@ def walk_timing(rw, backends, o, ln, wd, sd) -> dict:
             "bound_by": "bytes"}
 
 
+def path_latency_launch_facts(pl, objects, lengths, W: int) -> dict:
+    """The launch plan ``path_latency`` takes for these rows, and
+    ``sector_bytes``: 32 bytes for each distinct 32-byte sector of the word
+    rows (positions 1 .. len - 1, the whole row) and of the home entries
+    (positions 0 .. len - 1) the walk reads, plus the objects span, the
+    lengths and the output, and ``sector_bound_ms``, those bytes over the
+    card's memory rate (a bound, not a time taken).  Beside the byte bound,
+    which counts 4 bytes per table entry, it says what random gathers must
+    move."""
+    P, L = objects.shape
+    plan = pl.launch_plan(P, L, W)
+    pos = torch.arange(L, device=objects.device)[None, :]
+    valid = pos < lengths[:, None]
+    v = objects.clamp_min(0).long()
+    home_sectors = torch.unique(v[valid] // 8).numel()
+    first = v[valid & (pos >= 1)] * (4 * W)
+    starts = first // 32
+    ends = (first + 4 * W - 1) // 32
+    span = int((ends - starts).max()) + 1 if starts.numel() else 0
+    ids = starts[:, None] + torch.arange(span, device=objects.device)[None, :]
+    row_sectors = torch.unique(ids[ids <= ends[:, None]]).numel()
+    sector_bytes = 32 * (home_sectors + row_sectors) + 4 * P * L + 8 * P
+    return {"plan": dataclasses.asdict(plan), "sector_bytes": sector_bytes,
+            "sector_bound_ms": sector_bytes / HBM_BYTES_PER_S * 1e3}
+
+
 def phase_shapes(pl, rw, pu, backends, engine_mod, streaming, routing, combi, T, case,
                  main_out: dict, fused_out: dict, dev) -> dict:
     """Rows 1-4 timed once at the median rows per launch of the path that
@@ -1434,7 +1541,7 @@ def phase_shapes(pl, rw, pu, backends, engine_mod, streaming, routing, combi, T,
         **timed("kernel", lambda: pl.path_latency(o, ln, wd, sd)),
         **timed("plain", lambda: pl.path_latency_plain(o, ln, wd, sd)),
         "rows": o.shape[0], "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes"}
+        "bound_by": "bytes", **path_latency_launch_facts(pl, o, ln, W)}
     timings["routed_walk"] = walk_timing(rw, backends, *rows(med["routed_walk"]), wd, sd)
     o, ln = rows(med["scored_walk"])
     sc = sweep_scored(rw, backends, o, ln, wd, sd, backends._root_home(o, sd), W,
@@ -1497,7 +1604,7 @@ def phase_sweep(pl, rw, pu, graph_mod, workload_mod, engine_mod, backends, strea
         "path_latency": {
             **timed("kernel", lambda: pl.path_latency(objects, lengths, wd, sd)),
             **timed("plain", lambda: pl.path_latency_plain(objects, lengths, wd, sd)),
-            "bytes": bytes_pl,
+            "bytes": bytes_pl, **path_latency_launch_facts(pl, objects, lengths, W),
         }
     }
     for pol, lv, kw in (("home_first", zero, dict(home_first=True, lookahead=False)),
@@ -1879,6 +1986,7 @@ def main() -> int:
     from repro_torch.core import combi
     from repro_torch.core import greedy
     from repro_torch.engine import backends, routing, streaming
+    from repro_torch.engine import engine as engine_core
     import torch.nn.functional as F
 
     from repro_torch.configs import qwen2_7b
@@ -1905,7 +2013,8 @@ def main() -> int:
     case = snb_case(graph_mod, workload_mod, scale=10, n_queries=20_000, n_srv=6)
     emit({"phase": "setup", "seconds": time.perf_counter() - ts, "scale": 10,
           "n_queries": 20_000})
-    main_out = phase_main(T, counters, targets, case, engine_mod, scale=10, n_queries=20_000)
+    main_out = phase_main(T, counters, targets, case, engine_mod, engine_core, streaming,
+                          backends, scale=10, n_queries=20_000)
     fused_out = phase_fused(T, greedy, backends, pu, counters, targets, case,
                             main_out["schemes"], dev)
     # each kernel's launches on the path that exercises it

@@ -28,7 +28,7 @@ CFLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argtypes (pointers and the stream as c_void_p)
 SIGNATURES = {
-    "path_latency_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "path_latency_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "routed_walk_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "scored_walk_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "prune_walk_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],

@@ -250,7 +250,7 @@ def _gathered(seed, P, L, n_srv):
     return t, (home, masks, lengths, start, load)
 
 
-@pytest.mark.parametrize("L,n_srv", [(1, 6), (6, 32), (9, 40), (6, 128)])
+@pytest.mark.parametrize("L,n_srv", [(1, 6), (6, 32), (9, 40), (6, 128), (17, 6), (9, 160)])
 def test_path_latency_plain_matches_pallas_kernel(L, n_srv):
     t, (home, masks, lengths, _, _) = _gathered(L + n_srv, 384, L, n_srv)
     want = np.asarray(path_latency_pallas(home, masks, lengths, interpret=True))

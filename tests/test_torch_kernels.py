@@ -63,6 +63,56 @@ def test_path_latency_kernel_matches_plain(cuda, L, n_srv):
     assert torch.equal(got, want)
 
 
+def _path_latency_exact(x, objects=None, lengths=None, words=None):
+    """One launch of the kernel against the plain version, exact."""
+    args = (x["objects"] if objects is None else objects,
+            x["lengths"] if lengths is None else lengths,
+            x["words"] if words is None else words, x["shard"])
+    before = pl_mod.LAUNCHES
+    got = pl_mod.path_latency(*args)
+    torch.cuda.synchronize()
+    assert pl_mod.LAUNCHES == before + 1
+    assert torch.equal(got, pl_mod.path_latency_plain(*args))
+
+
+@pytest.mark.parametrize("n_srv", [6, 40, 80, 128, 160, 400])
+@pytest.mark.parametrize("L", [1, 8, 9, 16, 17, 65, 200])
+def test_path_latency_kernel_route_boundaries(cuda, L, n_srv):
+    """The ring's edges (L = GROUP, GROUP + 1, 2 GROUP, 2 GROUP + 1), long
+    paths (65; 200 is past the staging budget, read in place) and word
+    rows W = 1, 2, 3, 4 (loaded whole ahead), 5 and 13 (one word at walk
+    time)."""
+    W = (n_srv + 31) // 32
+    plan = pl_mod.launch_plan(20_000, L, W)
+    assert plan.prefetch_row == (W <= 4) and plan.staged == (L < 192)
+    _path_latency_exact(_inputs(L * 1000 + n_srv, 20_000, L, n_srv, cuda))
+
+
+@pytest.mark.parametrize("L,n_srv", [(6, 6), (9, 128)])
+@pytest.mark.parametrize("P", [1, 255, 8_192, 20_000])
+def test_path_latency_kernel_row_counts(cuda, P, L, n_srv):
+    """A last block of one row, a block size not dividing P, the main
+    path's 8,192-row chunk and a last block of 32 rows (20,000)."""
+    _path_latency_exact(_inputs(P + L, P, L, n_srv, cuda))
+
+
+@pytest.mark.parametrize("L", [5, 6, 17])
+@pytest.mark.parametrize("n_srv", [6, 40, 128])
+def test_path_latency_kernel_unaligned_inputs(cuda, L, n_srv):
+    """``objects`` and ``lengths`` as row slices from an odd row (the staged
+    span starts off a 16-byte boundary: plain loads for its head and
+    tail), and the words at a 4-byte offset (no vector row loads)."""
+    x = _inputs(L + n_srv, 20_001, L, n_srv, cuda)
+    objects, lengths = x["objects"][1:], x["lengths"][1:]
+    assert objects.is_contiguous() and objects.data_ptr() % 16 != 0
+    _path_latency_exact(x, objects=objects, lengths=lengths)
+    n, W = x["words"].shape
+    flat = torch.zeros(n * W + 1, dtype=torch.int32, device=cuda)
+    words = flat[1:].view(n, W)
+    words.copy_(x["words"])
+    _path_latency_exact(x, objects=objects, lengths=lengths, words=words)
+
+
 @pytest.mark.parametrize("mode", ["home_first", "nearest_copy", "no_lookahead"])
 @pytest.mark.parametrize("L,n_srv", [(1, 6), (6, 40), (9, 128)])
 def test_routed_walk_kernel_matches_plain(cuda, mode, L, n_srv):
