@@ -63,6 +63,19 @@ Phases (each prints one JSON line; any failed check exits non-zero):
           holder; the whole t = 1 and t = 2 sweeps against the torch
           backend's batched prune from the same pre-prune schemes (keep
           flags, words and masks); the t = 1 sweep timed.
+  executor  ``execute_workload`` on the main phase's t = 1 and t = 2 schemes
+          under home_first, nearest_copy and nearest_copy_dp, with the home
+          router, ``replica_lb`` and ``hedged`` (with ``hedge_replicas``),
+          all servers alive and again after ``Event("fail", 0, 0)`` (the
+          drain, with the greedy's resharding map, then ``repair_paths`` in
+          rounds until the home-first bound holds; checked feasible): each
+          case once on the kernel backend (counters zeroed just before,
+          read just after: ``routed_walk`` or ``scored_walk`` must launch)
+          and once on the torch backend, reports, server counters and
+          failed queries equal; the launches per call, ``summary()`` per
+          t, and one call's time by part (host fail-over and packing,
+          uploads, the walk's enqueue and device time, readback, numpy
+          accounting).
   prune   the serial prune's kernel on the main path's inputs: the first
           2,000 t = 1 candidates through ``prune_walk`` and its plain loop
           under home_first, nearest_copy and queue_aware (keep flags and
@@ -85,6 +98,14 @@ Phases (each prints one JSON line; any failed check exits non-zero):
           whole scale 10 workload as one t = 1 class: one launch against
           the sequence of per-batch calls it replaced (equal results), with
           the plain time and the sum of the batches' bounds.
+  quickstart  ``examples/torch_quickstart.py``'s table (SNB scale 1, 1,500
+          queries, 6 servers, t = 0-3) on the kernel backend (counters
+          zeroed just before, read just after) and on the torch backend:
+          every t feasible, masks, replicas and executor summaries equal.
+  tenants  ``benchmarks/torch_tenant_frontier.py``'s frontier (GNN t_Q 3 ->
+          0, SNB at 1) on both backends: overhead monotone, 0 failed paths,
+          masks and home-first latencies equal; a printed flag says
+          whether the replica counts equal ``BENCH_tenants.json``'s.
   lm_parity  the attention and embedding-bag kernels against their plain
           versions on seeded inputs: flash prefill (bf16 on the wgmma
           kernel, f32 on the CUDA-core kernel) on the JAX package's sweep
@@ -824,6 +845,289 @@ def phase_fused(T, greedy, backends, pu, counters, targets, case, main_schemes: 
         "nearest_copy_divergence": divergence,
         "unit_f_t1_kernel_equals_torch": True, "unit_f_t1": unit,
     }
+    emit(out)
+    return out
+
+
+EXEC_POLICIES = ("home_first", "nearest_copy", "nearest_copy_dp")
+# (router, hedge_replicas): the coordinator pick and the per-hop hedge
+EXEC_ROUTES = ((None, False), ("replica_lb", False), ("hedged", True))
+REPORT_FIELDS = ("query_latency_us", "query_traversals", "per_server_local", "per_server_rpcs",
+                 "query_failed")
+
+
+def execute_once(TD, scheme, ps, dead, policy, router, hedge, backend):
+    """One ``execute_workload`` on a fresh cluster over ``scheme`` with the
+    ``dead`` servers failed: (report, the servers' counters, seconds)."""
+    cluster = TD.Cluster(scheme)
+    for s in dead:
+        cluster.fail_server(s)
+    rt = None if router is None else TD.Router(scheme, router)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = TD.execute_workload(cluster, ps, TD.LatencyModel(), seed=0, hedge_replicas=hedge,
+                              router=rt, policy=policy, backend=backend)
+    seconds = time.perf_counter() - t0
+    counters = [(s.local_accesses, s.remote_rpcs_in, s.queries_coordinated)
+                for s in cluster.servers]
+    return rep, counters, seconds
+
+
+def reports_equal(a, b) -> bool:
+    return (all(np.array_equal(getattr(a, k), getattr(b, k)) for k in REPORT_FIELDS)
+            and a.throughput_qps == b.throughput_qps)
+
+
+def executor_parts(TD, executor, backends, streaming, scheme, ps, policy, dev) -> dict:
+    """One ``execute_workload`` call's time by part (home router, all
+    alive): the host's fail-over map and packing (``walk_inputs``), the four
+    uploads, the walk (its host enqueue, and its device time behind a
+    sleep kernel), the two readbacks, each synchronised; and the numpy
+    accounting, the call's time less its walk (``trace_paths``, clocked in
+    a second call)."""
+    alive = np.ones(scheme.n_servers, bool)
+    parts = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    objects, lengths, words, home, _ = executor.walk_inputs(ps, scheme, alive)
+    parts["host_failover_pack_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    up = [streaming.to_device(a, dev) for a in (objects, lengths, words, home)]
+    torch.cuda.synchronize()
+    parts["uploads_s"] = time.perf_counter() - t0
+    parts["upload_bytes"] = int(sum(a.nbytes for a in (objects, lengths, words, home)))
+
+    def walk():
+        return backends.access_trace(*up, policy=policy, backend="kernel")
+
+    walk()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    servers, local = walk()
+    parts["walk_enqueue_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    parts["walk_s"] = time.perf_counter() - t0
+    parts["walk_device_ms"] = time_ms(walk, reps=5, busy_first=True)
+    t0 = time.perf_counter()
+    streaming.to_host(servers), streaming.to_host(local)
+    parts["readback_s"] = time.perf_counter() - t0
+    # the whole call, and its walk clocked inside it
+    orig = executor.trace_paths
+    walk_s = []
+
+    def clocked(*args, **kwargs):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = orig(*args, **kwargs)
+        walk_s.append(time.perf_counter() - t1)
+        return res
+
+    executor.trace_paths = clocked
+    try:
+        _, _, total = execute_once(TD, scheme, ps, (), policy, None, False, "kernel")
+    finally:
+        executor.trace_paths = orig
+    parts.update(call_s=total, trace_paths_s=sum(walk_s),
+                 accounting_s=total - sum(walk_s))
+    return parts
+
+
+REPAIR_ROUNDS = 8
+
+
+def fail_and_repair(T, TD, faults, base, rm, ps, t: int, fsz):
+    """Server 0 fails (``Event("fail", 0, 0)``: its partition drains onto
+    the least-loaded survivor, the replicas its originals' resharding-map
+    entries name follow them) and ``repair_paths`` restores the home-first
+    bound, on a copy of ``base``.  A repair adds copies for one violating
+    path after another, and a copy added for a later path can move an
+    earlier repaired path's home-first walk (a walk stays where a copy is),
+    so the repair runs in rounds until no path violates, at most
+    ``REPAIR_ROUNDS``.  Returns (scheme, report)."""
+    failed = T.ReplicationScheme(base.mask.copy(), base.shard.copy())
+    cluster = TD.Cluster(failed, f=fsz)
+    rmap = T.ReshardingMap.from_entries(rm, failed.shard)
+    t0 = time.perf_counter()
+    event = faults.apply_event(cluster, rmap, TD.Event("fail", 0, 0), fsz)
+    drain_s = time.perf_counter() - t0
+    rounds = []
+    feasible = False
+    for _ in range(REPAIR_ROUNDS):
+        res = T.repair_paths(failed, rmap, ps, t, fsz)
+        rounds.append(res)
+        feasible = T.is_latency_feasible(ps, failed, t)
+        if feasible or res["failed_paths"]:
+            break
+    return failed, {"moved": event["moved"], "transferred": event["transferred"],
+                    "deleted": event["deleted"], "drain_s": drain_s, "rounds": rounds,
+                    "seconds": time.perf_counter() - t0, "feasible_home_first": feasible,
+                    "overhead": failed.replication_overhead(fsz)}
+
+
+def phase_executor(T, TD, executor, faults, backends, streaming, rw, counters, case,
+                   main_schemes: dict, dev) -> dict:
+    """The executor on the main drive's schemes: every (policy, router)
+    case on the kernel and the torch backend, all servers alive and after
+    server 0 fails (drain, then ``repair_paths``); reports, counters and
+    failed queries must be equal."""
+    t0 = time.perf_counter()
+    snb, ps, shard, f = case
+    fsz = f.astype(np.float64)
+    cases = {}
+    per_call = {}
+    summaries = {}
+    repairs = {}
+    parts = {}
+    launches = {"routed_walk": 0, "scored_walk": 0}
+    for t in (1, 2):
+        base = main_schemes[t]
+        # the main drive again, keeping its resharding map (the same scheme)
+        tg = time.perf_counter()
+        tracked, st = T.replicate_workload(ps, shard, 6, t, f=f, policy="nearest_copy",
+                                           track_rm=True)
+        greedy_s = time.perf_counter() - tg
+        check(np.array_equal(tracked.mask, base.mask),
+              f"executor t={t}: the greedy with track_rm=True gave another scheme")
+        failed, repair = fail_and_repair(T, TD, faults, base, st.rm, ps, t, fsz)
+        check(repair["feasible_home_first"] and not any(r["failed_paths"]
+                                                        for r in repair["rounds"]),
+              f"executor t={t}: scheme not feasible after the fail event and repair_paths "
+              f"({repair})")
+        check(np.array_equal(T.path_latencies(ps, failed, backend="kernel"),
+                             T.path_latencies(ps, failed, backend="torch")),
+              f"executor t={t}: home-first latencies of the repaired scheme differ")
+        repair.update(rm_entries=len(st.rm), greedy_track_rm_s=greedy_s,
+                      feasible_nearest_copy=T.is_latency_feasible(ps, failed, t,
+                                                                  policy="nearest_copy"))
+        repairs[f"t={t}"] = repair
+        print(f"executor t={t} fail 0 + repair: {repair}", flush=True)
+        for live, scheme, dead in (("alive", base, ()), ("fail0", failed, (0,))):
+            for policy in EXEC_POLICIES:
+                for router, hedge in EXEC_ROUTES:
+                    key = f"t={t}/{live}/{policy}/{router or 'home'}{'+hedge' if hedge else ''}"
+                    zero_counts(counters)
+                    k_rep, k_cnt, k_s = execute_once(TD, scheme, ps, dead, policy, router, hedge,
+                                                     "kernel")
+                    got = {"routed_walk": rw.LAUNCHES, "scored_walk": rw.SCORED_LAUNCHES}
+                    t_rep, t_cnt, t_s = execute_once(TD, scheme, ps, dead, policy, router, hedge,
+                                                     "torch")
+                    check(reports_equal(k_rep, t_rep) and k_cnt == t_cnt,
+                          f"executor {key}: kernel and torch reports differ")
+                    walk = "scored_walk" if policy == "nearest_copy_dp" else "routed_walk"
+                    check(got[walk] > 0, f"executor {key}: {walk} not launched")
+                    for name in launches:
+                        launches[name] += got[name]
+                    per_call[key] = got
+                    cases[key] = {"kernel_s": k_s, "torch_s": t_s, "failed": k_rep.n_failed,
+                                  "p99_us": k_rep.p99_us}
+                    if router is None and live == "alive":
+                        summaries[f"t={t}/{policy}"] = k_rep.summary()
+        parts[f"t={t}"] = {
+            pol: executor_parts(TD, executor, backends, streaming, base, ps, pol, dev)
+            for pol in ("nearest_copy", "nearest_copy_dp")}
+    print(f"executor launches per call: {per_call}", flush=True)
+    for key, s in summaries.items():
+        print(f"executor summary {key}: {s}", flush=True)
+    for key, p in parts.items():
+        print(f"executor call by part {key}: {p}", flush=True)
+    out = {"phase": "executor", "seconds": time.perf_counter() - t0, "paths": ps.n_paths,
+           "queries": ps.n_queries, "n_servers": 6, "cases": cases,
+           "kernel_equals_torch": True, "launches": launches, "summaries": summaries,
+           "repair": repairs, "call_by_part": parts}
+    emit(out)
+    return out
+
+
+def load_script(rel: str):
+    """A script of the repository (``examples/``, ``benchmarks/``) as a module."""
+    import importlib.util
+
+    path = pathlib.Path(__file__).resolve().parent / rel
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_quickstart(counters) -> dict:
+    """``examples/torch_quickstart.py``'s table on the card, kernel backend
+    (counters zeroed just before, read just after), then again on the torch
+    backend: every t feasible, the same masks, replicas and executor
+    summaries."""
+    t0 = time.perf_counter()
+    qs = load_script("examples/torch_quickstart.py")
+    zero_counts(counters)
+    tk = time.perf_counter()
+    _, workload, rows = qs.table(backend="kernel")
+    kernel_s = time.perf_counter() - tk
+    launches = read_counts(counters)
+    tt = time.perf_counter()
+    _, _, plain = qs.table(backend="torch")
+    torch_s = time.perf_counter() - tt
+    check(launches["path_latency"] > 0 and launches["routed_walk"] > 0,
+          f"quickstart: the kernels were not launched ({launches})")
+    table = []
+    for k, p in zip(rows, plain):
+        check(k["feasible"] and p["feasible"], f"quickstart t={k['t']}: not feasible")
+        check(k["replicas"] == p["replicas"] and np.array_equal(k["scheme"].mask,
+                                                                 p["scheme"].mask),
+              f"quickstart t={k['t']}: kernel and torch replicas differ")
+        check(k["summary"] == p["summary"], f"quickstart t={k['t']}: executor summaries differ")
+        table.append({key: k[key] for key in ("t", "feasible", "overhead", "mean_us", "p99_us",
+                                              "replicas")})
+        print(f"quickstart t={k['t']}: overhead {k['overhead']:.3f} mean_us "
+              f"{k['mean_us']:.1f} p99_us {k['p99_us']:.1f} replicas {k['replicas']}", flush=True)
+    out = {"phase": "quickstart", "seconds": time.perf_counter() - t0,
+           "paths": workload.n_paths, "queries": workload.n_queries, "table": table,
+           "kernel_s": kernel_s, "torch_s": torch_s, "launches": launches,
+           "kernel_equals_torch": True}
+    emit(out)
+    return out
+
+
+# BENCH_tenants.json's frontier replicas at t_gnn 3 / 2 / 1 / 0 (JAX package)
+TENANT_REPLICAS = [2431, 2431, 3270, 4481]
+
+
+def phase_tenants(T, counters) -> dict:
+    """``benchmarks/torch_tenant_frontier.py``'s frontier at scale 1 on the
+    kernel backend (counters zeroed just before, read just after) and on
+    the torch backend: overhead monotone, 0 failed paths, every scheme
+    feasible, kernel masks equal to torch masks, and the home-first
+    latencies of every scheme equal on both backends."""
+    t0 = time.perf_counter()
+    fr = load_script("benchmarks/torch_tenant_frontier.py")
+    zero_counts(counters)
+    tk = time.perf_counter()
+    rows, k_schemes = fr.frontier(backend="kernel")
+    kernel_s = time.perf_counter() - tk
+    launches = read_counts(counters)
+    check(launches["path_latency"] > 0, f"tenants: path_latency not launched ({launches})")
+    tt = time.perf_counter()
+    plain, t_schemes = fr.frontier(backend="torch")
+    torch_s = time.perf_counter() - tt
+    sps, gps, _, _ = fr.frontier_workload()
+    ps = T.PathSet.concatenate([sps, gps])
+    prev = -1.0
+    for r, p in zip(rows, plain):
+        tg = r["t_gnn"]
+        check(r["failed_paths"] == 0 and r["feasible"], f"tenants t_gnn={tg}: failed or infeasible")
+        check(r["overhead"] >= prev - 1e-9, f"tenants t_gnn={tg}: overhead not monotone")
+        prev = r["overhead"]
+        check(np.array_equal(k_schemes[tg].mask, t_schemes[tg].mask),
+              f"tenants t_gnn={tg}: kernel and torch masks differ")
+        check(np.array_equal(T.path_latencies(ps, k_schemes[tg], backend="kernel"),
+                             T.path_latencies(ps, k_schemes[tg], backend="torch")),
+              f"tenants t_gnn={tg}: kernel and torch latencies differ")
+        print(f"tenants t_gnn={tg}: replicas {r['replicas']} overhead {r['overhead']:.4f} "
+              f"failed {r['failed_paths']}", flush=True)
+    replicas = [r["replicas"] for r in rows]
+    matches = replicas == TENANT_REPLICAS
+    print(f"tenants: replicas equal BENCH_tenants.json's {TENANT_REPLICAS}: {matches}",
+          flush=True)
+    out = {"phase": "tenants", "seconds": time.perf_counter() - t0, "frontier": rows,
+           "kernel_s": kernel_s, "torch_s": torch_s, "launches": launches,
+           "kernel_equals_torch": True, "replicas_match_bench_tenants": matches}
     emit(out)
     return out
 
@@ -1980,11 +2284,13 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
     import repro_torch.core as T
+    import repro_torch.distsys as TD
     from repro_torch import engine as engine_mod
     from repro_torch import graph as graph_mod
     from repro_torch import workload as workload_mod
     from repro_torch.core import combi
     from repro_torch.core import greedy
+    from repro_torch.distsys import executor, faults
     from repro_torch.engine import backends, routing, streaming
     from repro_torch.engine import engine as engine_core
     import torch.nn.functional as F
@@ -2017,6 +2323,8 @@ def main() -> int:
                           backends, scale=10, n_queries=20_000)
     fused_out = phase_fused(T, greedy, backends, pu, counters, targets, case,
                             main_out["schemes"], dev)
+    ex = phase_executor(T, TD, executor, faults, backends, streaming, rw, counters, case,
+                        main_out["schemes"], dev)
     # each kernel's launches on the path that exercises it
     launches = {
         "path_latency": main_out["launches"]["path_latency"],
@@ -2036,6 +2344,8 @@ def main() -> int:
                      launches=launches)
     del case, main_out, fused_out
     torch.cuda.empty_cache()
+    phase_quickstart(counters)
+    phase_tenants(T, counters)
     lm_par = phase_lm_parity(fp, da, eb, dev)
     lm = phase_lm(TM, qwen2_7b, fp, da, ops, F, counters, dev)
     bag = phase_bag(eb, ops, F, counters, dev)
@@ -2078,17 +2388,23 @@ def main() -> int:
                        class_plain_ms=cls["plain_ms"], class_bound_ms=cls["bound_ms"],
                        class_per_batch_ms=cls["per_batch_ms"],
                        class_per_batch_device_ms=cls["per_batch_device_ms"])
+    # the walks' launches on the executor's path (every case of its phase)
+    routed_entry = kernel_entry("routed_walk", "src/repro_torch/csrc/routed_walk.cu",
+                                "src/repro/kernels/routed_walk.py:147", launches["routed_walk"],
+                                err["routed_walk"], tm["routed_walk/nearest_copy"],
+                                at["routed_walk"])
+    routed_entry.update(executor_launches=ex["launches"]["routed_walk"])
+    scored_entry = kernel_entry("scored_walk", "src/repro_torch/csrc/scored_walk.cu",
+                                "src/repro/kernels/routed_walk.py:244", launches["scored_walk"],
+                                err["scored_walk"], tm["scored_walk"], at["scored_walk"])
+    scored_entry.update(executor_launches=ex["launches"]["scored_walk"])
     emit({"kernels": [
         kernel_entry("path_latency", "src/repro_torch/csrc/path_latency.cu",
                      "src/repro/kernels/path_latency.py:93", launches["path_latency"],
                      err["path_latency"], tm["path_latency"], at["path_latency"]),
-        kernel_entry("routed_walk", "src/repro_torch/csrc/routed_walk.cu",
-                     "src/repro/kernels/routed_walk.py:147", launches["routed_walk"],
-                     err["routed_walk"], tm["routed_walk/nearest_copy"], at["routed_walk"]),
+        routed_entry,
         prune_entry,
-        kernel_entry("scored_walk", "src/repro_torch/csrc/scored_walk.cu",
-                     "src/repro/kernels/routed_walk.py:244", launches["scored_walk"],
-                     err["scored_walk"], tm["scored_walk"], at["scored_walk"]),
+        scored_entry,
         dp_entry,
         fused_entry,
         kernel_entry("embedding_bag", "src/repro_torch/csrc/embedding_bag.cu",

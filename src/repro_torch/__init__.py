@@ -1,9 +1,9 @@
 """PyTorch/CUDA port of the latency-bound replication system.
 
 Mirrors the subpackage and module names of the JAX package ``repro``
-(``graph``, ``core``, ``workload``, ``engine``, ``kernels``) so each
-module's counterpart is easy to find.  The port imports ``torch``, numpy
-and the standard library only.
+(``graph``, ``core``, ``workload``, ``engine``, ``distsys``, ``kernels``,
+``models``, ``configs``) so each module's counterpart is easy to find.
+The port imports ``torch``, numpy and the standard library only.
 
 Every entry point takes ``device`` (default ``"cuda"``; pass ``"cpu"``
 to run the plain torch versions on the host) and a backend that

@@ -10,6 +10,12 @@ Public API:
                                 into independent groups with fused=True)
   replicate_workload          — vectorized greedy Alg 1 + Alg 2
   replicate_workload_exact    — faithful sequential Alg 1 + Alg 2
+  single_site_oracle          — Fig 2d baseline
+  dangling_edge_replication   — Table 3 baseline
+  evaluate_baseline           — engine-backed baseline metrics
+  ReshardingMap / apply_reshard / drain_server / repair_paths
+                              — §5.4 incremental updates
+  build_ls_instance           — Thm 4.5 hardness gadget
 """
 from repro_torch.core.paths import PathSet, paths_from_tree
 from repro_torch.core.replication import (
@@ -35,6 +41,26 @@ from repro_torch.core.reference import (
     server_local_subpaths,
     update_exact,
 )
+from repro_torch.core.baselines import (
+    dangling_edge_replication,
+    evaluate_baseline,
+    single_site_oracle,
+)
+from repro_torch.core.reshard import (
+    ReshardingMap,
+    ReshardReport,
+    apply_reshard,
+    drain_server,
+    repair_paths,
+)
+from repro_torch.core.hardness import (
+    LSInstance,
+    brute_force_feasible,
+    brute_force_min_bridge_bisection,
+    build_ls_instance,
+    is_feasible_ls,
+    scheme_from_bisection,
+)
 
 __all__ = [
     "PathSet",
@@ -57,4 +83,18 @@ __all__ = [
     "path_latencies_reference",
     "server_local_subpaths",
     "update_exact",
+    "dangling_edge_replication",
+    "evaluate_baseline",
+    "single_site_oracle",
+    "ReshardingMap",
+    "ReshardReport",
+    "apply_reshard",
+    "drain_server",
+    "repair_paths",
+    "LSInstance",
+    "brute_force_feasible",
+    "brute_force_min_bridge_bisection",
+    "build_ls_instance",
+    "is_feasible_ls",
+    "scheme_from_bisection",
 ]

@@ -109,8 +109,15 @@ class LatencyEngine:
     def host_shard(self) -> np.ndarray:
         return to_host(self.packed.shard)
 
-    def refresh(self) -> None:
-        """Re-pack after the host scheme's mask was mutated directly."""
+    def refresh(self, objects=None) -> None:
+        """Re-pack after the host scheme's mask was mutated directly.
+
+        ``objects`` (the dirty objects of the mutation) is accepted for
+        the JAX package's signature, where it narrows the incremental
+        latency cache's invalidation; the port has no such cache yet
+        (``incremental=True`` raises), so every refresh is a whole
+        re-pack.
+        """
         if self.scheme is not None:
             self.packed = PackedScheme.from_mask(
                 self.scheme.mask, self.scheme.shard, self.device

@@ -16,13 +16,16 @@ import pytest
 import torch
 
 import repro_torch.core as T
+import repro_torch.distsys as TD
 from repro_torch.configs import qwen2_7b
 from repro_torch.engine import LatencyEngine, PackedScheme, resolve_backend
 from repro_torch.kernels import decode_attention, embedding_bag, flash_prefill, ops
 from repro_torch.models import transformer as TM
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "benchmarks").glob("torch_*.py"))
+              + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _imported_modules(path: pathlib.Path) -> list[str]:
@@ -46,7 +49,8 @@ def test_port_imports_neither_jax_nor_repro(path):
 def test_port_import_leaves_jax_unloaded():
     code = (
         "import sys, repro_torch, repro_torch.core.greedy, repro_torch.workload,"
-        " repro_torch.models, repro_torch.configs, repro_torch.kernels.ops;"
+        " repro_torch.models, repro_torch.configs, repro_torch.kernels.ops,"
+        " repro_torch.distsys, repro_torch.graph;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')];"
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -74,6 +78,14 @@ ENTRY_POINTS = {
     "ops.path_latency": lambda ps, shard, sc: ops.path_latency(ps, sc),
     "Transformer": lambda ps, shard, sc: TM.Transformer(qwen2_7b.SMOKE),
     "cache_init": lambda ps, shard, sc: TM.cache_init(qwen2_7b.SMOKE, 1, 8),
+    "execute_workload": lambda ps, shard, sc: TD.execute_workload(TD.Cluster(sc), ps),
+    "trace_paths": lambda ps, shard, sc: TD.trace_paths(ps, sc, np.ones(3, bool)),
+    "evaluate_baseline": lambda ps, shard, sc: T.evaluate_baseline(ps, sc),
+    "repair_paths": lambda ps, shard, sc: T.repair_paths(
+        sc, T.ReshardingMap.from_entries([], shard), ps, 1),
+    "is_feasible_ls": lambda ps, shard, sc: T.is_feasible_ls(
+        T.build_ls_instance([[1], [0]], 1), T.ReplicationScheme.from_sharding(
+            np.array([0, 1, 1, 0], np.int32), 4)),
 }
 
 

@@ -1,20 +1,23 @@
-"""The fused UPDATE of a whole budget class (``fused_update_class``): the
-class priced in 256-row snapshot batches, each batch against the words
-after the batches before it.
+"""Shared cases and checks of the fused UPDATE of a whole budget class
+(``fused_update_class``): the class priced in 256-row snapshot batches,
+each batch against the words after the batches before it.
+
+The tests are split by gate over ``tests/test_torch_update_class_{none,
+routed,scored,scored_depth2}.py`` so that no one file holds the whole
+JAX batch loop (``--dist loadfile`` gives a file to one worker).
 
 * On the CPU, ``fused_update_class_plain`` against the JAX package's batch
   loop (``fused_update_jit`` in interpret mode, called batch by batch on the
   running words, each batch padded to 256 rows of empty paths and to 65
   positions, so one trace serves every N and L) and against a loop of the
-  port's
-  ``fused_update_plain``: gates none, routed, scored (nearest_copy_dp,
-  depth None and 2); N in {0, 100, 256, 700} (700 leaves a partial last
-  batch); L in {6, 65}; W in {1, 3}.  The final words, ``chosen``,
-  ``srv``, ``no_solution`` and ``skipped`` are exact; costs are exact with
-  sizes in eighths (every partial sum is exact) and within ``rtol=1e-6``
-  with sizes drawn uniformly (the JAX kernel sums in XLA's order); the
-  class statistics ``acc`` within ``rtol=1e-5`` (float32 sums in another
-  order).
+  port's ``fused_update_plain``: gates none, routed, scored
+  (nearest_copy_dp, depth None and 2); N in {0, 100, 256, 700} (700 leaves
+  a partial last batch); L in {6, 65}; W in {1, 3}.  The final words,
+  ``chosen``, ``srv``, ``no_solution`` and ``skipped`` are exact; costs are
+  exact with sizes in eighths (every partial sum is exact) and within
+  ``rtol=1e-6`` with sizes drawn uniformly (the JAX kernel sums in XLA's
+  order); the class statistics ``acc`` within ``rtol=1e-5`` (float32 sums
+  in another order).
 * On the card (``cuda``, skipped without one): the class kernel against
   ``fused_update_class_plain``, exactly, at those shapes and at the
   device tiers (L 70, W 65, W 257), and the in-kernel nearest_copy_dp gate
@@ -29,12 +32,9 @@ from repro.engine import PackedScheme as JPacked
 from repro.engine.routing import nearest_copy_dp as j_dp
 from repro.engine.routing import resolve_policy as j_policy
 from repro.kernels.provision_update import fused_update_jit
-from repro_torch.core.replication import subpath_structure
-from repro_torch.engine.backends import _dp_score_tables, _root_home
 from repro_torch.engine.routing import NearestCopy, nearest_copy_dp
 from repro_torch.engine.routing import resolve_policy as t_policy
 from repro_torch.kernels import provision_update as pu
-from repro_torch.kernels.routed_walk import scored_walk
 
 BATCH = 256
 JAX_L = 65  # the positions every JAX batch is padded to (-1: past the path's end)
@@ -47,6 +47,14 @@ GATES = {
 }
 # W -> servers
 SERVERS = {1: 20, 3: 70, 65: 65 * 32, 257: 257 * 32}
+
+# the CPU parity grid and the card's grid, parametrised the same in every file
+PLAIN_LW = [(6, 1), (6, 3), (65, 1), (65, 3)]
+PLAIN_N = [0, 100, 256, 700]
+CARD_GATES = {name: tpol for name, (_, tpol) in GATES.items()}
+CARD_GATES["no_lookahead"] = NearestCopy(lookahead=False)
+CARD_LW = [(6, 1), (6, 3), (65, 1), (65, 3), (70, 1), (6, 65), (6, 257)]
+CARD_N = [(700, 256), (256, 256), (5_000, 64)]
 
 
 def _case(seed, N, L, W, eighths):
@@ -131,10 +139,9 @@ def _stats(cost, no_sol, skipped):
     return np.array([cost.astype(np.float64).sum(), no_sol.sum(), skipped.sum()])
 
 
-@pytest.mark.parametrize("gate", list(GATES))
-@pytest.mark.parametrize("L,W", [(6, 1), (6, 3), (65, 1), (65, 3)])
-@pytest.mark.parametrize("N", [0, 100, 256, 700])
-def test_class_plain_matches_jax_batch_loop(gate, L, W, N):
+def check_plain_matches_jax_batch_loop(gate, L, W, N):
+    """The class's plain version against the JAX batch loop and the port's
+    one-round loop, for both size draws."""
     jpol, tpol = GATES[gate]
     for eighths in (True, False):
         case = _case(N * 7 + L * 3 + W, N, L, W, eighths)
@@ -171,23 +178,7 @@ def test_class_plain_matches_jax_batch_loop(gate, L, W, N):
             assert got[4].any() and got[2].any()
 
 
-def test_class_batches_are_snapshots():
-    """The class equals its batches run one after another, and differs from
-    one round over all rows (one snapshot): later batches see earlier
-    batches' copies."""
-    words, *args = _torch_case(_case(3, 700, 6, 1, True))
-    pol = t_policy("nearest_copy")
-    cls = pu.fused_update_class(words.clone(), *args, torch.zeros(3), pol=pol)
-    one = pu.fused_update(words.clone(), *args, pol=pol)
-    single = pu.fused_update_class(words.clone(), *args, torch.zeros(3), batch_size=700,
-                                   pol=pol)
-    assert all(torch.equal(a, b) for a, b in zip(one, single))
-    assert not torch.equal(cls[3], one[3])
-    assert int(cls[3].sum()) < int(one[3].sum())  # later batches need fewer copies
-
-
-@pytest.mark.parametrize("policy", [None, "nearest_copy", "nearest_copy_dp"])
-def test_greedy_class_route_matches_batch_loop(monkeypatch, policy):
+def check_greedy_class_route(monkeypatch, policy):
     """``replicate_workload(fused=True)`` through the kernel backend's class
     route (``_run_update_class``: one upload, one ``fused_update_class``
     call, the resharding map built afterwards), watched on the CPU by
@@ -219,24 +210,6 @@ def test_greedy_class_route_matches_batch_loop(monkeypatch, policy):
         assert getattr(sr, c) == getattr(sl, c), c
 
 
-def test_class_rejects_bad_inputs():
-    args = _torch_case(_case(4, 10, 6, 1, True))
-    with pytest.raises(ValueError, match="acc must be"):
-        pu.fused_update_class(*args, torch.zeros(4))
-    with pytest.raises(ValueError, match="batch_size"):
-        pu.fused_update_class(*args, torch.zeros(3), batch_size=0)
-    with pytest.raises(ValueError, match="rank must be"):
-        pu.fused_update_class(*args[:-1], args[-1][:-1], torch.zeros(3))
-
-
-# --------------------------------------------------------------------------
-# on the card
-# --------------------------------------------------------------------------
-
-CARD_GATES = {name: tpol for name, (_, tpol) in GATES.items()}
-CARD_GATES["no_lookahead"] = NearestCopy(lookahead=False)
-
-
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -245,15 +218,11 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("gate", list(CARD_GATES))
-@pytest.mark.parametrize("L,W", [(6, 1), (6, 3), (65, 1), (65, 3), (70, 1), (6, 65),
-                                 (6, 257)])
-@pytest.mark.parametrize("N,batch", [(700, 256), (256, 256), (5_000, 64)])
-def test_class_kernel_matches_plain(cuda, gate, L, W, N, batch):
+def check_kernel_matches_plain(device, gate, L, W, N, batch):
+    """The class kernel against its plain version, exactly, with one launch."""
     pol = CARD_GATES[gate]
-    words, *args = _torch_case(_case(N + L + W, N, L, W, True), cuda)
-    acc_k = torch.full((3,), 0.5, device=cuda)
+    words, *args = _torch_case(_case(N + L + W, N, L, W, True), device)
+    acc_k = torch.full((3,), 0.5, device=device)
     acc_p = acc_k.clone()
     before = pu.LAUNCHES
     got = pu.fused_update_class(words.clone(), *args, acc_k, batch_size=batch, pol=pol)
@@ -266,26 +235,3 @@ def test_class_kernel_matches_plain(cuda, gate, L, W, N, batch):
         assert torch.equal(g, w)
     assert torch.equal(acc_k, acc_p)  # both sum in row order, in float32 steps
     assert bool(got[3].any())
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("depth", [None, 2])
-@pytest.mark.parametrize("L,W", [(6, 1), (65, 3)])
-def test_in_kernel_dp_gate_matches_score_plane(cuda, depth, L, W):
-    """The kernel's nearest_copy_dp gate (``dp_gate`` on the path's words)
-    skips exactly the rows the score-plane route skips: over budget under
-    d, and within it under the scored walk (``_dp_score_tables`` and the
-    ``scored_walk`` kernel) against the same words."""
-    words, objects, lengths, shard, f, tables, counts, t, rank = _torch_case(
-        _case(L + W + 11, 2_000, L, W, True), cuda)
-    pol = nearest_copy_dp(depth)
-    got = pu.fused_update(words.clone(), objects, lengths, shard, f, tables, counts, t, rank,
-                          pol=pol)
-    scores = _dp_score_tables(objects, lengths, words, -1 if depth is None else depth)
-    _, local = scored_walk(objects, lengths, words, shard, _root_home(objects, shard), scores)
-    valid = torch.arange(L, device=cuda)[None, :] < lengths[:, None]
-    h_routed = (valid & ~local).sum(dim=1)
-    _, _, h = subpath_structure(objects, lengths, shard)
-    want = (h > t) & (h_routed <= t)
-    assert torch.equal(got[5], want)
-    assert bool(want.any()) and bool(((h > t) & ~want).any())
