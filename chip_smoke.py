@@ -76,6 +76,25 @@ Phases (each prints one JSON line; any failed check exits non-zero):
           t, and one call's time by part (host fail-over and packing,
           uploads, the walk's enqueue and device time, readback, numpy
           accounting).
+  planes  the engine planes on the main cell (the t = 1 ``nearest_copy``
+          drive with ``return_engine=True``; counters zeroed just before each
+          part and read just after): the dirty-set cache (1,000 seeded
+          ``add_replicas``, 500 ``remove_replicas``, a mixed batch; after
+          each, ``path_latencies(incremental=True)`` under all four policies
+          on the kernel backend equal to a full evaluation and to the torch
+          backend, with dirty rows, ``gathered_bytes``, launches and both
+          evaluations' seconds); ``snb_drift`` on the scale-10 graph through
+          ``replicate_delta`` on the engine, separate and fused (unit
+          sizes), kernel = torch (masks, additions, stats), each phase
+          feasible after its delta, and the aligned-batch delta equal to the
+          from-scratch run; ``replicate_stream`` in 8 chunks equal to 8
+          chunked deltas, one chunk resident, the overlap seconds; and
+          ``replicate_workload(resilience=1)`` under home_first and
+          nearest_copy (and nearest_copy fused, unit sizes), kernel = torch,
+          0 violations, resilient-feasible on the card, with rounds,
+          orphans, replicas, overhead and the case-walk / masked-UPDATE
+          seconds; then ``benchmarks/torch_provisioning_policies.py``'s SNB
+          figures with a flag for ``BENCH_provisioning.json``'s.
   prune   the serial prune's kernel on the main path's inputs: the first
           2,000 t = 1 candidates through ``prune_walk`` and its plain loop
           under home_first, nearest_copy and queue_aware (keep flags and
@@ -1128,6 +1147,282 @@ def phase_tenants(T, counters) -> dict:
     out = {"phase": "tenants", "seconds": time.perf_counter() - t0, "frontier": rows,
            "kernel_s": kernel_s, "torch_s": torch_s, "launches": launches,
            "kernel_equals_torch": True, "replicas_match_bench_tenants": matches}
+    emit(out)
+    return out
+
+
+PLANE_POLICIES = ("home_first", "nearest_copy", "queue_aware", "nearest_copy_dp")
+STREAM_CHUNKS = 8
+PLANE_COUNTERS = ("path_latency", "routed_walk", "scored_walk", "fused_update")
+
+
+def plane_policy(engine_mod, name):
+    return engine_mod.nearest_copy_dp(2) if name == "nearest_copy_dp" else name
+
+
+def greedy_counts(st) -> dict:
+    return {k: getattr(st, k) for k in ("replicas", "failed_paths", "fallback_paths",
+                                        "routed_skips", "routed_violations", "paths_processed",
+                                        "total_cost", "resilient_violations",
+                                        "resilience_rounds", "resilience_orphans")}
+
+
+def planes_incremental(T, engine_mod, counters, scheme, ps, dev) -> dict:
+    """The dirty-set cache on the main drive's engine: 1,000 seeded adds,
+    500 removes, then a mixed batch; after each step, under every policy,
+    the incremental latencies on ``kernel`` against a full evaluation and
+    the torch backend (a second engine on the card fed the same deltas),
+    bit for bit."""
+    n, S = scheme.mask.shape
+    kern = engine_mod.LatencyEngine(T.ReplicationScheme(scheme.mask.copy(), scheme.shard.copy()),
+                                    device=dev)
+    plain = engine_mod.LatencyEngine(T.ReplicationScheme(scheme.mask.copy(),
+                                                         scheme.shard.copy()),
+                                     backend="torch", device=dev)
+    rng = np.random.default_rng(20)
+    load = rng.random(S).astype(np.float32)
+    pols = {name: plane_policy(engine_mod, name) for name in PLANE_POLICIES}
+    loads = {name: load if name == "queue_aware" else None for name in PLANE_POLICIES}
+    seed = {}
+    for name, pol in pols.items():
+        t0 = time.perf_counter()
+        kern.path_latencies(ps, policy=pol, load=loads[name], incremental=True)
+        seed[name] = time.perf_counter() - t0
+    add_o = rng.integers(0, n, 1000)
+    add_s = rng.integers(0, S, 1000)
+    # removes: 500 of the replicas the main drive placed (never an original)
+    rep_o, rep_s = np.nonzero(scheme.mask)
+    rep = rep_s != scheme.shard[rep_o]
+    pick = rng.choice(np.nonzero(rep)[0], 500, replace=False)
+    rm_o, rm_s = rep_o[pick], rep_s[pick]
+    mix = rng.choice(np.nonzero(rep)[0], 200, replace=False)
+    steps = [("add", [("add", add_o, add_s)]),
+             ("remove", [("remove", rm_o, rm_s)]),
+             ("mixed", [("add", rng.integers(0, n, 300), rng.integers(0, S, 300)),
+                        ("remove", rep_o[mix], rep_s[mix])])]
+    out = {"seed_s": seed, "steps": {}}
+    for step, ops in steps:
+        changed = []
+        for op, o, s in ops:
+            for eng in (kern, plain):
+                (eng.add_replicas if op == "add" else eng.remove_replicas)(o, s)
+            changed.append(o)
+        cache = kern.incremental.caches[id(ps)]
+        dirty = int(len(cache.index.dirty_paths(np.concatenate(changed))))
+        rows = {}
+        for name, pol in pols.items():
+            with engine_mod.TRANSFER.scope() as tr:
+                before = read_counts(counters)  # the part's counts run on
+                t0 = time.perf_counter()
+                inc = kern.path_latencies(ps, policy=pol, load=loads[name], incremental=True)
+                inc_s = time.perf_counter() - t0
+                launches = {k: v - before[k] for k, v in read_counts(counters).items()
+                            if k in PLANE_COUNTERS and v > before[k]}
+                gathered = tr.gathered_bytes
+            t0 = time.perf_counter()
+            full = kern.path_latencies(ps, policy=pol, load=loads[name])
+            full_s = time.perf_counter() - t0
+            ref = plain.path_latencies(ps, policy=pol, load=loads[name])
+            check(np.array_equal(inc, full) and np.array_equal(inc, ref),
+                  f"planes incremental {step}/{name}: incremental, full and torch differ")
+            rows[name] = {"dirty_rows": dirty, "gathered_bytes": gathered,
+                          "launches": launches, "incremental_s": inc_s, "full_s": full_s}
+            print(f"planes incremental {step} {name}: dirty rows {dirty} gathered_bytes "
+                  f"{gathered} launches {launches} incremental_s {inc_s} full_s {full_s}",
+                  flush=True)
+        out["steps"][step] = rows
+    return out
+
+
+def planes_delta(T, TS, engine_mod, snb, shard, f, dev) -> dict:
+    """``snb_drift`` on the scale-10 graph: phase 0 from scratch, phases 1
+    and 2 as ``replicate_delta`` on the engine, separate and fused, kernel
+    against torch (masks, additions, stats), each phase's workload feasible
+    under ``nearest_copy`` once its delta has run (the union of the phases
+    need not be: the receding-horizon walk is not monotone under later
+    additions, and the JAX package leaves one union query over budget on
+    the scale-1 drift too; the count is printed); then
+    the aligned-batch identity (delta = from-scratch over the concatenated
+    paths) on the same paths."""
+    t0 = time.perf_counter()
+    phases = TS.snb_drift(snb, n_phases=3, queries_per_phase=2000, seed=0)
+    deltas = list(TS.drift_stream(phases))
+    union = T.PathSet.concatenate([p.pathset for p in phases])
+    drift_s = time.perf_counter() - t0
+    out = {"drift_s": drift_s, "phase_paths": [d.pathset.n_paths for d in deltas],
+           "added_paths": [d.added.n_paths for d in deltas], "runs": {}}
+    for fused in (False, True):
+        res = {}
+        # fused runs price with unit sizes: the class kernel sums each
+        # candidate's cost in its own order, so with non-integer sizes a
+        # near-tie can resolve differently from the torch batches (ROADMAP
+        # trap c); with unit sizes every cost is exact
+        fd = None if fused else f
+        for backend in (None, "torch"):  # None: the device's kernel backend
+            ts = time.perf_counter()
+            # no prune of phase 0 (as benchmarks/torch_provisioning_policies.py):
+            # a pruned scheme is tight, and the receding-horizon walk is not
+            # monotone under the deltas' additions
+            scheme, st0, eng = T.replicate_workload(
+                deltas[0].pathset, shard, 6, 1, f=fd, policy="nearest_copy", fused=fused,
+                policy_prune=False, return_engine=True, policy_backend=backend, device=dev)
+            if backend == "torch":
+                eng = engine_mod.LatencyEngine(scheme, backend="torch", device=dev)
+            adds, stats, secs = [], [], []
+            feasible = eng.is_feasible(deltas[0].pathset, 1, policy="nearest_copy")
+            for d in deltas[1:]:
+                td = time.perf_counter()
+                st, add = T.replicate_delta(d.added, eng, 1, f=fd, policy="nearest_copy",
+                                            fused=fused, policy_backend=backend)
+                secs.append(time.perf_counter() - td)
+                adds.append(add)
+                stats.append(greedy_counts(st))
+                feasible &= eng.is_feasible(d.pathset, 1, policy="nearest_copy")
+            union_viol = int((eng.query_slack(union, 1, policy="nearest_copy") < 0).sum())
+            res[backend] = (eng.host_mask(), adds, stats, feasible, secs,
+                            time.perf_counter() - ts, union_viol)
+        k, p = res[None], res["torch"]
+        check(np.array_equal(k[0], p[0]), f"planes delta fused={fused}: kernel and torch masks")
+        check(all(np.array_equal(a, b) for x, y in zip(k[1], p[1]) for a, b in zip(x, y)),
+              f"planes delta fused={fused}: kernel and torch additions differ")
+        check(k[2] == p[2], f"planes delta fused={fused}: kernel and torch stats differ")
+        check(k[3] and p[3], f"planes delta fused={fused}: a phase not feasible after its delta")
+        check(k[6] == p[6], f"planes delta fused={fused}: union violations differ")
+        key = "fused" if fused else "separate"
+        out["runs"][key] = {"additions": [len(a[0]) for a in k[1]], "stats": k[2],
+                            "delta_s": k[4], "sequence_s": k[5], "torch_sequence_s": p[5],
+                            "union_violating_queries": k[6]}
+        print(f"planes delta {key}: additions {out['runs'][key]['additions']} delta_s {k[4]} "
+              f"phases feasible, union violating queries {k[6]} of {union.n_queries}, "
+              "kernel=torch", flush=True)
+    # aligned batches: phase 0's paths cut to a multiple of 256, then the
+    # phase-1 additions as a delta, against one run over both
+    bs = 256
+    a = deltas[0].pathset
+    a = a.select(np.arange(a.n_paths - a.n_paths % bs))
+    b = deltas[1].added
+    ab = T.PathSet.concatenate([a, b])
+    for fused in (False, True):
+        kw = dict(f=f, prune=False, batch_size=bs, fused=fused, device=dev)
+        _, _, eng = T.replicate_workload(a, shard, 6, 1, return_engine=True, **kw)
+        T.replicate_delta(b, eng, 1, f=f, prune=False, batch_size=bs, fused=fused)
+        full, _ = T.replicate_workload(ab, shard, 6, 1, **kw)
+        check(np.array_equal(eng.host_mask(), full.mask),
+              f"planes aligned delta fused={fused}: delta differs from the from-scratch run")
+    out["aligned"] = {"rows_a": a.n_paths, "rows_b": b.n_paths, "delta_equals_scratch": True}
+    print(f"planes aligned delta: {a.n_paths} + {b.n_paths} rows, delta = from-scratch "
+          "(separate and fused)", flush=True)
+    return out
+
+
+def planes_stream(T, engine_mod, ps, shard, f, dev) -> dict:
+    """``replicate_stream`` over a PathStream of the scale-10 paths in 8
+    chunks against 8 chunked ``replicate_delta`` calls (fused, t = 1)."""
+    step = -(-ps.n_paths // STREAM_CHUNKS)
+    spans = [(i, min(i + step, ps.n_paths)) for i in range(0, ps.n_paths, step)]
+
+    def gen():
+        for lo, hi in spans:
+            yield ps.select(np.arange(lo, hi))
+
+    eng = engine_mod.LatencyEngine(T.ReplicationScheme.from_sharding(shard, 6), device=dev)
+    t0 = time.perf_counter()
+    for c in gen():
+        T.replicate_delta(c, eng, 1, f=f, fused=True)
+    chunked_s = time.perf_counter() - t0
+    stream = engine_mod.PathStream(gen())
+    t0 = time.perf_counter()
+    scheme, st = T.replicate_stream(stream, shard, 6, t=1, f=f, fused=True, device=dev)
+    stream_s = time.perf_counter() - t0
+    check(np.array_equal(scheme.mask, eng.host_mask()),
+          "planes stream: replicate_stream differs from the chunked deltas")
+    check(st.peak_resident_paths <= step and stream.stats.chunks == len(spans),
+          f"planes stream: {st.peak_resident_paths} paths resident, chunk {step}")
+    out = {"chunks": len(spans), "chunk_paths": step, "peak_resident_paths":
+           st.peak_resident_paths, "ingest_overlap_s": st.ingest_overlap_s,
+           "stream_s": stream_s, "chunked_deltas_s": chunked_s, "replicas": st.replicas}
+    print(f"planes stream: {len(spans)} chunks, peak resident {st.peak_resident_paths}, "
+          f"overlap_s {st.ingest_overlap_s} stream_s {stream_s} chunked_s {chunked_s}",
+          flush=True)
+    return out
+
+
+def planes_resilience(T, engine_mod, ps, shard, f, dev) -> dict:
+    """``replicate_workload(resilience=1)`` at t = 1 under home_first and
+    nearest_copy (sizes ``f``, separate UPDATE), and under nearest_copy with
+    ``fused=True`` (unit sizes, so the masked repair's class launches are
+    exact against torch): kernel against torch, 0 violations,
+    resilient-feasible on the card."""
+    out = {}
+    for key, pol, fused, fd in (("home_first", "home_first", False, f),
+                                ("nearest_copy", "nearest_copy", False, f),
+                                ("nearest_copy_fused", "nearest_copy", True, None)):
+        res = {}
+        for backend in (None, "torch"):  # None: the device's kernel backend
+            t0 = time.perf_counter()
+            scheme, st = T.replicate_workload(ps, shard, 6, 1, f=fd, policy=pol, resilience=1,
+                                              fused=fused, policy_backend=backend, device=dev)
+            res[backend] = (scheme, st, time.perf_counter() - t0)
+        (ks, kst, k_s), (tsch, tst, t_s) = res[None], res["torch"]
+        check(np.array_equal(ks.mask, tsch.mask), f"planes resilience {key}: kernel != torch")
+        check(greedy_counts(kst) == greedy_counts(tst),
+              f"planes resilience {key}: kernel and torch stats differ")
+        check(kst.resilient_violations == 0, f"planes resilience {key}: violations remain")
+        eng = engine_mod.LatencyEngine(ks, device=dev)
+        tf = time.perf_counter()
+        ok = eng.is_resilient_feasible(ps, 1, 1, policy=pol)
+        check_s = time.perf_counter() - tf
+        check(ok, f"planes resilience {key}: not resilient-feasible on the card")
+        out[key] = {"rounds": kst.resilience_rounds, "orphans": kst.resilience_orphans,
+                    "replicas": kst.replicas,
+                    "overhead": ks.replication_overhead(f.astype(np.float64)),
+                    "stage_s": kst.stage_s, "seconds": k_s, "torch_seconds": t_s,
+                    "resilient_feasible_check_s": check_s}
+        print(f"planes resilience {key}: rounds {kst.resilience_rounds} orphans "
+              f"{kst.resilience_orphans} replicas {kst.replicas} overhead "
+              f"{out[key]['overhead']} case walks {kst.stage_s.get('resilience_eval')} s "
+              f"masked UPDATE {kst.stage_s.get('resilience_repair')} s", flush=True)
+    return out
+
+
+def phase_planes(T, TS, engine_mod, counters, case, dev) -> dict:
+    """The engine planes on the main cell (SNB scale 10, 6 servers, t = 1,
+    ``nearest_copy``, the drive with ``return_engine=True``): incremental,
+    delta, stream, resilience, then the SNB provisioning figures of
+    ``benchmarks/torch_provisioning_policies.py`` with their flag.  The
+    counters are zeroed just before and read just after."""
+    t0 = time.perf_counter()
+    snb, ps, shard, f = case
+    zero_counts(counters)
+    scheme, st, _ = T.replicate_workload(ps, shard, 6, 1, f=f, policy="nearest_copy",
+                                         return_engine=True, device=dev)
+    drive = read_counts(counters)
+    parts, launches = {}, {}
+    for name, fn in (
+        ("incremental", lambda: planes_incremental(T, engine_mod, counters, scheme, ps, dev)),
+        ("delta", lambda: planes_delta(T, TS, engine_mod, snb, shard, f, dev)),
+        ("stream", lambda: planes_stream(T, engine_mod, ps, shard, f, dev)),
+        ("resilience", lambda: planes_resilience(T, engine_mod, ps, shard, f, dev)),
+    ):
+        tp = time.perf_counter()
+        zero_counts(counters)
+        parts[name] = fn()
+        counts = read_counts(counters)
+        launches[name] = {k: counts[k] for k in PLANE_COUNTERS}
+        parts[name]["seconds"] = time.perf_counter() - tp
+        check(sum(launches[name].values()) > 0, f"planes {name}: no kernel launched")
+    check(launches["resilience"]["path_latency"] > 0 and launches["resilience"]["routed_walk"] > 0,
+          f"planes resilience: case walks not launched ({launches['resilience']})")
+    check(launches["delta"]["fused_update"] > 0, "planes delta: fused_update not launched")
+    tb = time.perf_counter()
+    prov = load_script("benchmarks/torch_provisioning_policies.py").snb_row(device=dev)
+    print(f"planes provisioning snb: hf shipped {prov['hf']['shipped_bytes']} resident "
+          f"{prov['hf']['resident_bytes']}; policy shipped {prov['policy']['shipped_bytes']} "
+          f"resident {prov['policy']['resident_bytes']}; equals BENCH_provisioning.json: "
+          f"{prov['matches_bench_provisioning']}", flush=True)
+    out = {"phase": "planes", "seconds": time.perf_counter() - t0, "paths": ps.n_paths,
+           "drive_replicas": st.replicas, "drive_launches": drive, "launches": launches,
+           **parts, "provisioning_snb": prov, "provisioning_s": time.perf_counter() - tb}
     emit(out)
     return out
 
@@ -2285,6 +2580,7 @@ def main() -> int:
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
     import repro_torch.core as T
     import repro_torch.distsys as TD
+    import repro_torch.serve as TS
     from repro_torch import engine as engine_mod
     from repro_torch import graph as graph_mod
     from repro_torch import workload as workload_mod
@@ -2325,6 +2621,7 @@ def main() -> int:
                             main_out["schemes"], dev)
     ex = phase_executor(T, TD, executor, faults, backends, streaming, rw, counters, case,
                         main_out["schemes"], dev)
+    planes = phase_planes(T, TS, engine_mod, counters, case, dev)
     # each kernel's launches on the path that exercises it
     launches = {
         "path_latency": main_out["launches"]["path_latency"],
@@ -2388,20 +2685,28 @@ def main() -> int:
                        class_plain_ms=cls["plain_ms"], class_bound_ms=cls["bound_ms"],
                        class_per_batch_ms=cls["per_batch_ms"],
                        class_per_batch_device_ms=cls["per_batch_device_ms"])
+    # kernels 1-4's launches on the planes phase's paths, by part
+    planes_launches = {name: {part: c[name] for part, c in planes["launches"].items()}
+                       for name in PLANE_COUNTERS}
+    fused_entry.update(planes_launches=planes_launches["fused_update"])
     # the walks' launches on the executor's path (every case of its phase)
     routed_entry = kernel_entry("routed_walk", "src/repro_torch/csrc/routed_walk.cu",
                                 "src/repro/kernels/routed_walk.py:147", launches["routed_walk"],
                                 err["routed_walk"], tm["routed_walk/nearest_copy"],
                                 at["routed_walk"])
-    routed_entry.update(executor_launches=ex["launches"]["routed_walk"])
+    routed_entry.update(executor_launches=ex["launches"]["routed_walk"],
+                        planes_launches=planes_launches["routed_walk"])
     scored_entry = kernel_entry("scored_walk", "src/repro_torch/csrc/scored_walk.cu",
                                 "src/repro/kernels/routed_walk.py:244", launches["scored_walk"],
                                 err["scored_walk"], tm["scored_walk"], at["scored_walk"])
-    scored_entry.update(executor_launches=ex["launches"]["scored_walk"])
+    scored_entry.update(executor_launches=ex["launches"]["scored_walk"],
+                        planes_launches=planes_launches["scored_walk"])
+    pl_entry = kernel_entry("path_latency", "src/repro_torch/csrc/path_latency.cu",
+                            "src/repro/kernels/path_latency.py:93", launches["path_latency"],
+                            err["path_latency"], tm["path_latency"], at["path_latency"])
+    pl_entry.update(planes_launches=planes_launches["path_latency"])
     emit({"kernels": [
-        kernel_entry("path_latency", "src/repro_torch/csrc/path_latency.cu",
-                     "src/repro/kernels/path_latency.py:93", launches["path_latency"],
-                     err["path_latency"], tm["path_latency"], at["path_latency"]),
+        pl_entry,
         routed_entry,
         prune_entry,
         scored_entry,

@@ -47,6 +47,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import combi
 from repro_torch.core.paths import PathSet
 from repro_torch.core.reference import update_exact
@@ -246,6 +247,23 @@ class GreedyStats:
     table_total_rows: int = 0
     # path rows the revalidation rounds did NOT re-walk
     revalidate_rows_saved: int = 0
+    # streamed ingestion (replicate_stream): the largest number of paths
+    # ever host-resident at once, and the host seconds of chunk
+    # materialization hidden behind in-flight device work
+    peak_resident_paths: int = 0
+    ingest_overlap_s: float = 0.0
+    # per-budget-class provisioning telemetry (obs-gated; None when the
+    # telemetry plane is disabled): dicts of {budget, n_vec, n_seq,
+    # n_candidates, routed_skips} in processing order
+    timeline: list | None = None
+    # k-resilience (resilience=...): (loss case, path) pairs still over
+    # budget after the bounded repair rounds (0 = the scheme survives
+    # every loss case) and the masked repair rounds that ran
+    resilient_violations: int = 0
+    resilience_rounds: int = 0
+    # orphans the repair rounds re-homed (objects of violating paths whose
+    # home a loss case took down, copied to the rotation failover home)
+    resilience_orphans: int = 0
     # host seconds per stage (gate, update, revalidate, prune; the one-call
     # prune sweep also books its call as prune_walk, the batched prune its
     # grouping as prune_plan and its group steps as prune_steps, all inside
@@ -258,25 +276,57 @@ class DeviceStatsAcc:
 
     The fused driver adds (cost, failed, skipped) into the device float32
     [3] ``acc`` per batch (the class kernel once per class); :meth:`drain`
-    does the one blocking readback, once per budget class, folds the
-    totals into a :class:`GreedyStats` and zeroes ``acc``.
+    does the one blocking readback, folds the totals into a
+    :class:`GreedyStats` and zeroes ``acc``.  The drivers drain once per
+    budget class; a holder passed to :func:`replicate_delta`
+    (``stats_acc=``) is carried across calls instead and drained once by
+    the caller, so streamed chunks never block on a readback.
     """
 
     def __init__(self, device):
         self.acc = torch.zeros((3,), dtype=torch.float32, device=device)
+        self.used = False
 
     def drain(self, stats: GreedyStats) -> None:
+        if not self.used:
+            return
         a = to_host(self.acc)
         stats.total_cost += float(a[0])
         stats.failed_paths += int(a[1])
         stats.routed_skips += int(a[2])
         self.acc.zero_()
+        self.used = False
+        if obs.enabled():
+            obs.REGISTRY.counter("repro.greedy.stat_readbacks").inc()
 
 
-def _tick(stats: GreedyStats, stage: str, t0: float, device) -> float:
+def _obs_record_class(stats, b, n_vec, n_seq, counts, n_skip) -> None:
+    """Per-budget-class provisioning telemetry (no-op when obs is off)."""
+    if not obs.enabled():
+        return
+    n_cand = int(to_host(counts).sum()) if counts is not None else 0
+    if stats.timeline is None:
+        stats.timeline = []
+    stats.timeline.append({
+        "budget": int(b),
+        "n_vec": int(n_vec),
+        "n_seq": int(n_seq),
+        "n_candidates": n_cand,
+        "routed_skips": int(n_skip),
+    })
+    reg = obs.REGISTRY
+    reg.counter("repro.greedy.classes").inc()
+    reg.counter("repro.greedy.vec_paths").inc(n_vec)
+    reg.counter("repro.greedy.seq_paths").inc(n_seq)
+    reg.counter("repro.greedy.candidates").inc(n_cand)
+    reg.counter("repro.greedy.routed_skips").inc(n_skip)
+
+
+def _tick(stats: GreedyStats, stage: str, t0: float, device, sync: bool = True) -> float:
     """Add the seconds since ``t0`` to ``stats.stage_s[stage]`` (after the
-    device has caught up) and return the new start time."""
-    if device.type == "cuda":
+    device has caught up, unless ``sync`` is False: a deferred stream books
+    host seconds only) and return the new start time."""
+    if sync and device.type == "cuda":
         torch.cuda.synchronize(device)
     now = time.perf_counter()
     stats.stage_s[stage] = stats.stage_s.get(stage, 0.0) + now - t0
@@ -309,6 +359,8 @@ def _run_update_batches(
     pol=None,
     rank=None,
     backend: str = "torch",
+    collect_additions: bool = False,
+    acc_holder: DeviceStatsAcc | None = None,
 ):
     """The batched UPDATE loop over vectorizable paths of one budget class.
 
@@ -323,15 +375,25 @@ def _run_update_batches(
     statistics are read back (and the stage clock synchronised) once at
     the end of the class.  On the ``kernel`` backend without capacity
     checking the whole class is one launch instead
-    (:func:`_run_update_class`).  Mutates ``packed`` and ``stats``;
-    returns the load.
+    (:func:`_run_update_class`).  ``acc_holder`` (fused only) defers the
+    statistics readback: the device accumulator is carried in the holder
+    and drained by the caller, so the stats components stay 0 here.
+
+    Mutates ``packed`` and ``stats``; returns the load and, with
+    ``collect_additions``, the applied (object, server) pairs as two int64
+    arrays in row order (else None).
     """
     if fused and backend == "kernel" and not check_capacity:
-        _run_update_class(packed, vec_objects, vec_lengths, shard_d, f_d, tables, counts,
-                          t_vec, batch_size, stats, track_rm, pol, rank)
-        return load
+        additions = _run_update_class(
+            packed, vec_objects, vec_lengths, shard_d, f_d, tables, counts, t_vec,
+            batch_size, stats, track_rm, pol, rank, collect_additions, acc_holder)
+        return load, additions
     device = packed.device
-    acc = DeviceStatsAcc(device) if fused else None
+    if fused:
+        acc = acc_holder if acc_holder is not None else DeviceStatsAcc(device)
+        acc.used = True
+    add_obj: list[np.ndarray] = []
+    add_srv: list[np.ndarray] = []
     t_class = time.perf_counter()
     for i in range(0, len(vec_objects), batch_size):
         t0 = time.perf_counter()
@@ -366,13 +428,31 @@ def _run_update_batches(
             load = _device_load(packed, f_d)
         if track_rm:
             _append_rm(stats, o, o_d, l_d, shard_d, chosen, srv)
+        if collect_additions:
+            _collect(add_obj, add_srv, o, chosen, srv)
         if not fused:
             _tick(stats, "update", t0, device)
     if fused:
-        # one readback and one device sync per class, not per batch
-        acc.drain(stats)
-        _tick(stats, "update", t_class, device)
-    return load
+        # one readback and one device sync per class, not per batch (none
+        # at all while a caller holds the accumulator)
+        if acc_holder is None:
+            acc.drain(stats)
+        _tick(stats, "update", t_class, device, sync=acc_holder is None)
+    return load, _additions(add_obj, add_srv) if collect_additions else None
+
+
+def _collect(add_obj: list, add_srv: list, o: np.ndarray, chosen, srv) -> None:
+    """Append the (object, server) pairs of ``chosen`` (rows ``o``)."""
+    bb, xx, kk = np.nonzero(to_host(chosen))
+    add_obj.append(np.asarray(o)[bb, xx].astype(np.int64))
+    add_srv.append(to_host(srv)[bb, kk].astype(np.int64))
+
+
+def _additions(add_obj: list, add_srv: list):
+    return (
+        np.concatenate(add_obj) if add_obj else np.zeros(0, np.int64),
+        np.concatenate(add_srv) if add_srv else np.zeros(0, np.int64),
+    )
 
 
 def _append_rm(stats: GreedyStats, o: np.ndarray, o_d, l_d, shard_d, chosen, srv) -> None:
@@ -388,15 +468,20 @@ def _append_rm(stats: GreedyStats, o: np.ndarray, o_d, l_d, shard_d, chosen, srv
 def _run_update_class(packed: PackedScheme, vec_objects: np.ndarray,
                       vec_lengths: np.ndarray, shard_d, f_d, tables, counts,
                       t_vec: np.ndarray, batch_size: int, stats: GreedyStats,
-                      track_rm: bool, pol, rank) -> None:
+                      track_rm: bool, pol, rank, collect_additions: bool = False,
+                      acc_holder: DeviceStatsAcc | None = None):
     """The fused UPDATE of one budget class on the ``kernel`` backend: the
     class uploaded once and one ``fused_update_class`` launch, which prices
     it in ``batch_size``-row snapshot batches on the device, as the batch
-    loop does; the resharding map built afterwards (rows are independent,
-    so its entries come in the loop's order) and the statistics read once.
-    Mutates ``packed`` and ``stats``."""
+    loop does; the resharding map and the additions built afterwards (rows
+    are independent, so their entries come in the loop's order) and the
+    statistics read once (or left in ``acc_holder``).  Mutates ``packed``
+    and ``stats``; returns the additions as :func:`_run_update_batches`."""
     device = packed.device
-    acc = DeviceStatsAcc(device)
+    acc = acc_holder if acc_holder is not None else DeviceStatsAcc(device)
+    acc.used = True
+    add_obj: list[np.ndarray] = []
+    add_srv: list[np.ndarray] = []
     t0 = time.perf_counter()
     N = len(vec_objects)
     if N:
@@ -411,8 +496,12 @@ def _run_update_class(packed: PackedScheme, vec_objects: np.ndarray,
         )
         if track_rm:
             _append_rm(stats, vec_objects, o_d, l_d, shard_d, chosen, srv)
-    acc.drain(stats)
-    _tick(stats, "update", t0, device)
+        if collect_additions:
+            _collect(add_obj, add_srv, vec_objects, chosen, srv)
+    if acc_holder is None:
+        acc.drain(stats)
+    _tick(stats, "update", t0, device, sync=acc_holder is None)
+    return _additions(add_obj, add_srv) if collect_additions else None
 
 
 # host-residency bound on candidate-table construction: a budget class
@@ -620,6 +709,199 @@ def _capacity_arrays(n_servers: int, capacity, epsilon, device):
 _POLICY_REVALIDATE = 2
 
 
+# masked-repair rounds for the k-resilience gate: with rotation-failover
+# homes the home_first masked walk is monotone per loss case (one round
+# closes each case for good — Thm 5.3 applies case by case), so extra
+# rounds only serve the receding-horizon policies, as _POLICY_REVALIDATE
+_RESILIENCE_ROUNDS = 3
+
+
+def _refuse_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= is refused: the port targets one card and has no mesh type; "
+            "multi-card path sharding of the fused driver is still to do "
+            "(the batch row quantum still rounds by the device count, "
+            "repro_torch.engine.sharding.round_up_rows)"
+        )
+
+
+def _run_exact_fallback(host_scheme, cls, seq_idx, b, f_arr, capacity, epsilon,
+                        pol, load, stats: GreedyStats, track_rm: bool):
+    """The exact sequential UPDATE of the enumeration-heavy paths
+    ``seq_idx`` of one class against ``host_scheme``; returns the applied
+    (objects, servers) lists."""
+    fb_obj: list[int] = []
+    fb_srv: list[int] = []
+    for i in seq_idx:
+        res = update_exact(
+            host_scheme, cls.path(int(i)), b, f_arr, capacity, epsilon,
+            policy=pol, load=load,
+        )
+        stats.fallback_paths += 1
+        if res.feasible:
+            stats.total_cost += res.cost
+            fb_obj.extend(v for v, _ in res.additions)
+            fb_srv.extend(s for _, s in res.additions)
+            if track_rm:
+                stats.rm.extend(res.rm_entries)
+        else:
+            stats.failed_paths += 1
+    return fb_obj, fb_srv
+
+
+def _repair_loss_case(packed: PackedScheme, sub_ps: PathSet, t_sub: np.ndarray,
+                      fshard: np.ndarray, cmask_words: np.ndarray, orphans: np.ndarray,
+                      pol, policy_backend: str, f_arr: np.ndarray, f_d, capacity,
+                      epsilon, cap_d, eps_d, check_capacity: bool, batch_size: int,
+                      max_candidates: int, stats: GreedyStats, load, fused: bool,
+                      track_rm: bool):
+    """One masked UPDATE pass: provision ``sub_ps`` as if the loss case had
+    already happened.
+
+    Builds a temporary :class:`PackedScheme` — the live words with the lost
+    servers' holder bits cleared, sharded by the case's rotation-failover
+    homes — and runs the same batched UPDATE machinery (routed gate
+    included; on ``kernel`` with ``fused`` one ``fused_update_class``
+    launch per budget class) against it.  ``orphans`` (the violating
+    paths' objects whose home the case took down and whose failover home
+    holds no copy yet) are re-homed first: the UPDATE's cost model prices
+    every object as free at its own home, which the masked scheme breaks
+    exactly at the orphans.  Every candidate server is a failover home,
+    hence alive under the case.  Returns the applied (object, server)
+    additions, orphan re-homes included, for the caller to replay into
+    the live scheme (Thm 5.3).
+    """
+    device = packed.device
+    masked = PackedScheme(
+        words=_backends.mask_case_words(packed.words, to_device(cmask_words, device)),
+        shard=to_device(np.asarray(fshard, np.int32), device),
+        n_servers=packed.n_servers,
+    )
+    if len(orphans):
+        masked.add(orphans, np.asarray(fshard)[orphans])
+    routed_fn = _routed_gate_fn(masked, pol, policy_backend, load=load)
+    fused_c = fused and policy_backend != "reference"
+    rank = _backends._load_vector(
+        load if (pol is not None and pol.uses_load) else None, masked.words
+    ) if fused_c else None
+    srv_load = _device_load(masked, f_d)
+    host_scheme: ReplicationScheme | None = None
+    add_obj: list[np.ndarray] = []
+    add_srv: list[np.ndarray] = []
+    if len(orphans):
+        add_obj.append(np.asarray(orphans, np.int64))
+        add_srv.append(np.asarray(fshard, np.int64)[orphans])
+    for b, cls, vec_idx, seq_idx, h_all, tables, counts in _budget_class_plan(
+        sub_ps, t_sub, masked.shard, max_candidates,
+        skip_tables=routed_fn is not None, stats=stats,
+    ):
+        if routed_fn is not None and cls.n_paths:
+            vec_idx, seq_idx, tables, counts, n_skip = _routed_class_filter(
+                cls, b, h_all, routed_fn, max_candidates, device, stats=stats
+            )
+            stats.routed_skips += n_skip
+        srv_load, additions = _run_update_batches(
+            masked, cls.objects[vec_idx], cls.lengths[vec_idx], masked.shard, f_d,
+            tables, counts, np.full(len(vec_idx), b, np.int32), srv_load, cap_d, eps_d,
+            check_capacity, batch_size, stats, track_rm,
+            routed_fn=None if fused_c else routed_fn, fused=fused_c, pol=pol,
+            rank=rank, backend=policy_backend, collect_additions=True,
+        )
+        add_obj.append(additions[0])
+        add_srv.append(additions[1])
+        if len(seq_idx):
+            # exact fallback against the masked host view; additions are
+            # replayed into the masked words so later classes see them
+            if host_scheme is None:
+                host_scheme = ReplicationScheme(masked.unpack(), np.asarray(fshard, np.int32))
+            else:
+                host_scheme.mask = masked.unpack()
+            fb_obj, fb_srv = _run_exact_fallback(
+                host_scheme, cls, seq_idx, b, f_arr, capacity, epsilon, pol, load,
+                stats, track_rm)
+            if fb_obj:
+                masked.add(np.asarray(fb_obj), np.asarray(fb_srv))
+                add_obj.append(np.asarray(fb_obj, np.int64))
+                add_srv.append(np.asarray(fb_srv, np.int64))
+                if check_capacity:
+                    srv_load = _device_load(masked, f_d)
+    return _additions(add_obj, add_srv)
+
+
+def _enforce_resilience(packed: PackedScheme, ps: PathSet, t_path: np.ndarray, res, pol,
+                        policy_backend: str, f_arr: np.ndarray, f_d, capacity, epsilon,
+                        cap_d, eps_d, check_capacity: bool, batch_size: int,
+                        max_candidates: int, stats: GreedyStats, load, fused: bool,
+                        track_rm: bool):
+    """The k-resilience gate: repair every loss case until none violates.
+
+    Per bounded round: evaluate h under every loss case of ``res`` (one
+    masked re-walk, ``backends.case_latencies``), then for each violating case
+    run the masked UPDATE over its violating paths and scatter-OR the
+    chosen additions into the LIVE words, so later cases and rounds price
+    against them.  The surviving (case, path) violations land in
+    ``stats.resilient_violations``.  Stage seconds: ``resilience_eval``
+    (the case walks) and ``resilience_repair`` (the masked UPDATE).
+    Returns the applied (object, server) additions.
+    """
+    from repro_torch.engine.resilience import (  # lazy: no cycle at import
+        case_word_mask,
+        failover_shard,
+    )
+
+    device = packed.device
+    n_servers = packed.n_servers
+    shard_host = to_host(packed.shard)
+    cases = res.loss_cases(n_servers)
+    homes = [failover_shard(shard_host, c, n_servers) for c in cases]
+    W = packed.n_words
+    all_obj: list[np.ndarray] = []
+    all_srv: list[np.ndarray] = []
+    objects = np.asarray(ps.objects)
+    for rnd in range(_RESILIENCE_ROUNDS + 1):
+        te = time.perf_counter()
+        h_cases = _backends.case_latencies(
+            packed, ps.objects, ps.lengths, cases, homes, pol, load, policy_backend
+        )
+        _tick(stats, "resilience_eval", te, device)
+        viol = h_cases > t_path[None, :]
+        total = int(viol.sum())
+        if total == 0 or rnd == _RESILIENCE_ROUNDS:
+            stats.resilient_violations = total
+            break
+        stats.resilience_rounds += 1
+        tr = time.perf_counter()
+        mask_host = packed.unpack()
+        for d, c in enumerate(cases):
+            idx = np.nonzero(viol[d])[0]
+            if not len(idx):
+                continue
+            # objects the case orphans: homed on a lost server, no copy at
+            # the rotation failover home yet — re-homed by the repair
+            vobj = np.unique(objects[idx])
+            vobj = vobj[vobj >= 0]
+            dead = np.zeros(n_servers, bool)
+            dead[np.asarray(c)] = True
+            orphans = vobj[dead[shard_host[vobj]] & ~mask_host[vobj, homes[d][vobj]]]
+            stats.resilience_orphans += int(len(orphans))
+            obj, srv = _repair_loss_case(
+                packed, ps.select(idx), t_path[idx], homes[d], case_word_mask(c, W),
+                orphans, pol, policy_backend, f_arr, f_d, capacity, epsilon, cap_d,
+                eps_d, check_capacity, batch_size, max_candidates, stats, load, fused,
+                track_rm,
+            )
+            if len(obj):
+                # replay into the live scheme: monotone adds, all targets
+                # alive under the case (failover homes by construction)
+                packed.add(obj, srv)
+                mask_host[obj, srv] = True  # keep later cases' orphan filter exact
+                all_obj.append(obj)
+                all_srv.append(srv)
+        _tick(stats, "resilience_repair", tr, device)
+    return _additions(all_obj, all_srv)
+
+
 def replicate_workload(
     pathset: PathSet,
     shard: np.ndarray,
@@ -672,17 +954,24 @@ def replicate_workload(
     ``policy_backend="reference"`` it runs the separate pipeline, as the
     JAX package does.
 
-    ``device`` defaults to ``"cuda"``.  ``mesh`` and ``resilience`` are
-    not ported yet and raise.
+    ``resilience`` (int k | :class:`~repro_torch.engine.KResilient` |
+    None) adds the k-resilience gate after the pass and the policy prune
+    (:func:`_enforce_resilience`): every loss case is re-walked over the
+    masked words under rotation-failover homes and each violating (case,
+    path) pair re-run through a masked UPDATE whose additions are replayed
+    into the live scheme.  ``stats.resilient_violations == 0`` certifies
+    the scheme stays feasible under the loss of any k domains.
+
+    ``device`` defaults to ``"cuda"``.  ``mesh`` is refused: the port
+    targets one card and has no mesh type.
     """
     from repro_torch.core.slo import normalize_path_budgets  # local: no cycle
     from repro_torch.engine.incremental import PathIndex
+    from repro_torch.engine.resilience import resolve_resilience
     from repro_torch.engine.routing import resolve_policy
 
-    if resilience is not None:
-        raise NotImplementedError("the resilience gate is not ported yet")
-    if mesh is not None:
-        raise NotImplementedError("mesh= (the sharded fused driver) is not ported yet")
+    _refuse_mesh(mesh)
+    res = resolve_resilience(resilience)
     device = resolve_device(device)
     if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
@@ -733,6 +1022,7 @@ def replicate_workload(
             ps_run, t_run, shard_d, max_candidates,
             skip_tables=routed_fn is not None, stats=stats,
         ):
+            n_skip = 0
             if routed_fn is not None and cls.n_paths:
                 tg = time.perf_counter()
                 vec_idx, seq_idx, tables, counts, n_skip = _routed_class_filter(
@@ -740,7 +1030,8 @@ def replicate_workload(
                 )
                 stats.routed_skips += n_skip
                 _tick(stats, "gate", tg, device)
-            srv_load = _run_update_batches(
+            _obs_record_class(stats, b, len(vec_idx), len(seq_idx), counts, n_skip)
+            srv_load, _ = _run_update_batches(
                 packed,
                 cls.objects[vec_idx],
                 cls.lengths[vec_idx],
@@ -769,22 +1060,9 @@ def replicate_workload(
             if len(seq_idx):
                 tu = time.perf_counter()
                 scheme.mask = packed.unpack()
-                fb_obj: list[int] = []
-                fb_srv: list[int] = []
-                for i in seq_idx:
-                    res = update_exact(
-                        scheme, cls.path(int(i)), b, f_arr, capacity,
-                        epsilon, policy=pol, load=load,
-                    )
-                    stats.fallback_paths += 1
-                    if res.feasible:
-                        stats.total_cost += res.cost
-                        fb_obj.extend(v for v, _ in res.additions)
-                        fb_srv.extend(s for _, s in res.additions)
-                        if track_rm:
-                            stats.rm.extend(res.rm_entries)
-                    else:
-                        stats.failed_paths += 1
+                fb_obj, fb_srv = _run_exact_fallback(
+                    scheme, cls, seq_idx, b, f_arr, capacity, epsilon, pol, load,
+                    stats, track_rm)
                 if fb_obj:
                     packed.add(np.asarray(fb_obj), np.asarray(fb_srv))
                     if check_capacity:
@@ -816,6 +1094,16 @@ def replicate_workload(
             packed = PackedScheme.from_mask(scheme.mask, scheme.shard, device)
         _tick(stats, "prune", tp, device)
 
+    if res is not None:
+        # after the prune: pruning decides on the non-resilient criterion,
+        # so it must not run after the resilience replicas land
+        _enforce_resilience(
+            packed, ps, t_path, res, pol, policy_backend, f_arr, f_d, capacity,
+            epsilon, cap_d, eps_d, check_capacity, batch_size, max_candidates, stats,
+            load, fused, track_rm,
+        )
+        scheme.mask = packed.unpack()
+
     stats.replicas = scheme.replica_count()
     stats.runtime_s = time.perf_counter() - t0
     if return_engine:
@@ -823,11 +1111,301 @@ def replicate_workload(
     return scheme, stats
 
 
-def replicate_delta(*args, **kwargs):
-    """Warm-start UPDATE over delta paths: not ported yet."""
-    raise NotImplementedError("replicate_delta is not ported yet")
+def replicate_delta(
+    pathset: PathSet,
+    engine: LatencyEngine,
+    t,
+    f: np.ndarray | None = None,
+    capacity: np.ndarray | float | None = None,
+    epsilon: float | None = None,
+    batch_size: int = 256,
+    max_candidates: int = 2048,
+    prune: bool = True,
+    track_rm: bool = False,
+    policy=None,
+    policy_backend: str | None = None,
+    load: np.ndarray | None = None,
+    fused: bool = False,
+    mesh=None,
+    collect_additions: bool = True,
+    stats_acc: DeviceStatsAcc | None = None,
+    sync_host: bool = True,
+    resilience=None,
+):
+    """Warm-start incremental UPDATE over *delta* paths (online serving).
+
+    Runs the batched Alg 2 UPDATE of :func:`replicate_workload`, but
+    against the scheme an existing :class:`LatencyEngine` already holds on
+    its device — no rebuild, no re-upload.  The additions are scatter-ORed
+    into the engine's ``PackedScheme`` (on ``kernel`` with ``fused=True``
+    one ``fused_update_class`` launch per budget class against those
+    words), mirrored into the engine's host scheme (when it has one), and
+    reported to the engine's incremental latency cache (``note_changed``).
+
+    ``t`` is an int, a per-query vector or an ``SLOSpec`` aligned with
+    ``pathset``; vector budgets run one pass per budget class, tightest
+    first.  ``policy`` prices the delta under the routed walk, as in
+    :func:`replicate_workload`; ``policy_backend`` defaults from the
+    engine's device.  By Thm 5.3 warm-starting over a path delta is as
+    sound as processing those paths later in a longer from-scratch run:
+    with batch boundaries aligned the two give identical schemes.
+
+    Returns ``(stats, (objects, servers))``: the delta's stats and the
+    applied replica additions as two int64 arrays, deduplicated.  With
+    ``collect_additions=False`` (streamed ingestion) the per-class
+    chosen-mask readbacks are skipped and the arrays are empty.
+    ``stats_acc`` (fused runs) keeps the device stat accumulator live
+    across calls: the returned stats' cost / failed / skipped stay 0 until
+    the caller drains it.  ``sync_host=False`` also skips the end-of-call
+    host-mask refresh.  ``resilience`` runs the k-resilience gate over the
+    delta paths after the pass; its additions join the returned delta.
+    ``mesh`` is refused (one card).
+    """
+    from repro_torch.core.slo import normalize_path_budgets  # local: no cycle
+    from repro_torch.engine.incremental import PathIndex
+    from repro_torch.engine.resilience import resolve_resilience
+    from repro_torch.engine.routing import resolve_policy
+
+    _refuse_mesh(mesh)
+    t0 = time.perf_counter()
+    packed = engine.packed
+    device = packed.device
+    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "torch.backends.cuda.matmul.allow_tf32 is True: TF32 candidate "
+            "costs would flip strict argmins; set it to False"
+        )
+    policy_backend = _backends.resolve_backend(policy_backend, device)
+    shard = engine.host_shard()
+    n = packed.n_objects
+    n_servers = packed.n_servers
+    pol = resolve_policy(policy)
+    pol = None if pol.name == "home_first" else pol
+    res = resolve_resilience(resilience)
+    t_path = normalize_path_budgets(t, pathset)
+    shard_d = packed.shard
+    if prune:
+        ps, keep = pathset.prune_redundant(shard, extra_key=t_path, return_index=True)
+        t_path = t_path[keep]
+    else:
+        ps = pathset
+    stats = GreedyStats(rm=[] if track_rm else None)
+    stats.paths_processed = ps.n_paths
+    empty = (np.zeros(0, np.int64), np.zeros(0, np.int64))
+    if ps.n_paths == 0:
+        stats.runtime_s = time.perf_counter() - t0
+        return stats, empty
+
+    f_arr = np.ones((n,), np.float32) if f is None else f.astype(np.float32)
+    f_d = to_device(f_arr, device)
+    check_capacity, cap_d, eps_d = _capacity_arrays(n_servers, capacity, epsilon, device)
+    srv_load = _device_load(packed, f_d)
+    routed_fn = _routed_gate_fn(packed, pol, policy_backend, load=load)
+    fused = fused and policy_backend != "reference"
+    rank = _backends._load_vector(
+        load if (pol is not None and pol.uses_load) else None, packed.words
+    ) if fused else None
+
+    add_obj = np.zeros(0, np.int64)
+    add_srv = np.zeros(0, np.int64)
+
+    def run_classes(ps_run: PathSet, t_run: np.ndarray) -> None:
+        nonlocal srv_load, add_obj, add_srv
+        for b, cls, vec_idx, seq_idx, h_all, tables, counts in _budget_class_plan(
+            ps_run, t_run, shard_d, max_candidates,
+            skip_tables=routed_fn is not None, stats=stats,
+        ):
+            n_skip = 0
+            if routed_fn is not None and cls.n_paths:
+                tg = time.perf_counter()
+                vec_idx, seq_idx, tables, counts, n_skip = _routed_class_filter(
+                    cls, b, h_all, routed_fn, max_candidates, device, stats=stats
+                )
+                stats.routed_skips += n_skip
+                _tick(stats, "gate", tg, device)
+            _obs_record_class(stats, b, len(vec_idx), len(seq_idx), counts, n_skip)
+            srv_load, additions = _run_update_batches(
+                packed, cls.objects[vec_idx], cls.lengths[vec_idx], shard_d, f_d,
+                tables, counts, np.full(len(vec_idx), b, np.int32), srv_load, cap_d,
+                eps_d, check_capacity, batch_size, stats, track_rm,
+                routed_fn=None if fused else routed_fn, fused=fused, pol=pol, rank=rank,
+                backend=policy_backend, collect_additions=collect_additions,
+                acc_holder=stats_acc if fused else None,
+            )
+            # mirror the class's additions into the host scheme FIRST: the
+            # exact fallback below prices against the host mask
+            if collect_additions:
+                cls_obj, cls_srv = additions
+                if engine.scheme is not None and len(cls_obj):
+                    engine.scheme.mask[cls_obj, cls_srv] = True
+                add_obj = np.concatenate([add_obj, cls_obj])
+                add_srv = np.concatenate([add_srv, cls_srv])
+            elif engine.scheme is not None and len(seq_idx):
+                # no per-pair readback: refresh the host mask from the
+                # packed truth right before the fallback consumes it
+                engine.scheme.mask = packed.unpack()
+                if obs.enabled():
+                    obs.REGISTRY.counter("repro.greedy.mask_syncs").inc()
+            if len(seq_idx):
+                tu = time.perf_counter()
+                host = engine.scheme if engine.scheme is not None else engine.to_scheme()
+                fb_obj, fb_srv = _run_exact_fallback(
+                    host, cls, seq_idx, b, f_arr, capacity, epsilon, pol, load, stats,
+                    track_rm)
+                if fb_obj:
+                    packed.add(np.asarray(fb_obj), np.asarray(fb_srv))
+                    if collect_additions:
+                        add_obj = np.concatenate([add_obj, np.asarray(fb_obj, np.int64)])
+                        add_srv = np.concatenate([add_srv, np.asarray(fb_srv, np.int64)])
+                    if check_capacity:
+                        srv_load = _device_load(packed, f_d)
+                _tick(stats, "update", tu, device)
+
+    run_classes(ps, t_path)
+    if routed_fn is not None:
+        tr = time.perf_counter()
+        _revalidate_routed(
+            routed_fn, ps, t_path, run_classes, stats, device,
+            index=PathIndex(np.asarray(ps.objects), packed.n_objects),
+        )
+        _tick(stats, "revalidate", tr, device)
+
+    if res is not None:
+        r_obj, r_srv = _enforce_resilience(
+            packed, ps, t_path, res, pol, policy_backend, f_arr, f_d, capacity,
+            epsilon, cap_d, eps_d, check_capacity, batch_size, max_candidates, stats,
+            load, fused, track_rm,
+        )
+        if len(r_obj):
+            if engine.scheme is not None:
+                engine.scheme.mask[r_obj, r_srv] = True
+            add_obj = np.concatenate([add_obj, r_obj])
+            add_srv = np.concatenate([add_srv, r_srv])
+
+    # the UPDATE scatter-ORs into packed.words, bypassing add_replicas:
+    # report the touched objects so the engine's incremental cache
+    # invalidates its exact dirty set (without the per-class readbacks the
+    # conservative superset is every object of the processed paths)
+    if collect_additions:
+        engine.note_changed(add_obj)
+    else:
+        engine.note_changed(np.asarray(ps.objects))
+
+    if not collect_additions and sync_host and engine.scheme is not None:
+        engine.scheme.mask = packed.unpack()
+        if obs.enabled():
+            obs.REGISTRY.counter("repro.greedy.mask_syncs").inc()
+
+    # dedupe: a batch can choose the same (v, s) for several paths; the
+    # returned delta is the exact set of new copies
+    if len(add_obj):
+        pairs = np.unique(np.stack([add_obj, add_srv], axis=1), axis=0)
+        add_obj, add_srv = pairs[:, 0], pairs[:, 1]
+
+    stats.replicas = int(len(add_obj))
+    stats.runtime_s = time.perf_counter() - t0
+    return stats, (add_obj, add_srv)
 
 
-def replicate_stream(*args, **kwargs):
-    """Streamed-ingestion greedy: not ported yet."""
-    raise NotImplementedError("replicate_stream is not ported yet")
+def replicate_stream(
+    stream,
+    shard: np.ndarray,
+    n_servers: int,
+    t=None,
+    f: np.ndarray | None = None,
+    capacity: np.ndarray | float | None = None,
+    epsilon: float | None = None,
+    batch_size: int = 256,
+    max_candidates: int = 2048,
+    prune: bool = True,
+    policy=None,
+    policy_backend: str | None = None,
+    load: np.ndarray | None = None,
+    fused: bool = True,
+    mesh=None,
+    return_engine: bool = False,
+    device=None,
+):
+    """Alg 1 over a *streamed* workload — the full path set is never
+    host-resident.
+
+    ``stream`` is a :class:`~repro_torch.engine.streaming.PathStream` (or
+    any iterable of ``PathSet`` chunks / ``(PathSet, budgets)`` tuples,
+    which is wrapped in one): host residency peaks at one chunk
+    (``stats.peak_resident_paths``).  Each chunk runs
+    :func:`replicate_delta` against one device-resident packed scheme; by
+    Thm 5.3 chunked provisioning is as sound as one long run with other
+    batch boundaries.  ``t`` is the default budget for chunks yielded
+    without one.
+
+    Ingestion is double-buffered (:func:`~repro_torch.engine.streaming.
+    double_buffer`): each chunk's UPDATE is dispatched with the stat
+    readback deferred to a device accumulator and the host-mask sync
+    skipped, so the producer builds chunk ``i + 1`` while chunk ``i``
+    computes (CUDA launches are asynchronous, and the chunk uploads are
+    pinned, ``non_blocking`` copies).  The overlapped
+    producer seconds land in ``stats.ingest_overlap_s`` (and the
+    ``repro.stream.*`` gauges when obs is on).
+
+    Returns ``(scheme, stats)``; ``return_engine=True`` appends the
+    device-resident :class:`LatencyEngine`.  ``device`` defaults to
+    ``"cuda"``; ``mesh`` is refused (one card).
+    """
+    from repro_torch.engine.streaming import PathStream, double_buffer  # lazy
+
+    _refuse_mesh(mesh)
+    t0 = time.perf_counter()
+    if not isinstance(stream, PathStream):
+        stream = PathStream(stream)
+    device = resolve_device(device)
+    scheme = ReplicationScheme.from_sharding(shard, n_servers)
+    engine = LatencyEngine(scheme, device=device)
+    policy_backend = _backends.resolve_backend(policy_backend, device)
+    stats = GreedyStats()
+    fused = fused and policy_backend != "reference"
+    acc_holder = DeviceStatsAcc(device) if fused else None
+
+    def dispatch(item):
+        ps, t_chunk = item
+        budgets = t if t_chunk is None else t_chunk
+        if budgets is None:
+            raise ValueError("no latency budget: pass t= or stream (PathSet, t) tuples")
+        cstats, _ = replicate_delta(
+            ps, engine, budgets, f=f, capacity=capacity, epsilon=epsilon,
+            batch_size=batch_size, max_candidates=max_candidates, prune=prune,
+            policy=policy, policy_backend=policy_backend, load=load, fused=fused,
+            collect_additions=False, stats_acc=acc_holder, sync_host=False,
+        )
+        # cost / failed / skipped of fused runs live in the deferred device
+        # accumulator and drain once after the stream
+        stats.total_cost += cstats.total_cost
+        stats.failed_paths += cstats.failed_paths
+        stats.paths_processed += cstats.paths_processed
+        stats.fallback_paths += cstats.fallback_paths
+        stats.routed_skips += cstats.routed_skips
+        stats.routed_violations += cstats.routed_violations
+        stats.table_peak_rows = max(stats.table_peak_rows, cstats.table_peak_rows)
+        stats.table_total_rows += cstats.table_total_rows
+        for k, v in cstats.stage_s.items():
+            stats.stage_s[k] = stats.stage_s.get(k, 0.0) + v
+        if cstats.timeline:
+            stats.timeline = (stats.timeline or []) + cstats.timeline
+
+    overlap_s = double_buffer(stream, dispatch)
+    if acc_holder is not None:
+        acc_holder.drain(stats)
+    stats.ingest_overlap_s = stream.stats.ingest_overlap_s = overlap_s
+    # the one end-of-stream host sync the per-chunk sync_host=False deferred
+    scheme.mask = engine.packed.unpack()
+    stats.replicas = scheme.replica_count()
+    stats.peak_resident_paths = stream.stats.peak_resident_paths
+    stream.stats.peak_resident_table_rows = stats.table_peak_rows
+    stream.stats.total_table_rows = stats.table_total_rows
+    stats.runtime_s = time.perf_counter() - t0
+    if obs.enabled():
+        obs.REGISTRY.gauge("repro.stream.ingest_overlap_s").set(overlap_s)
+        obs.REGISTRY.gauge("repro.stream.peak_resident_paths").set(stats.peak_resident_paths)
+        obs.REGISTRY.counter("repro.stream.chunks").inc(stream.stats.chunks)
+    if return_engine:
+        return scheme, stats, engine
+    return scheme, stats

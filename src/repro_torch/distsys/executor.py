@@ -373,8 +373,8 @@ def execute_workload(
     faster jitter draw (min of two lognormals), a direct secondary benefit
     of the replication scheme.
 
-    ``trace``: any object with ``record`` / ``finalize`` / ``policy`` (the
-    JAX package's ``obs.Tracer`` interface) collecting *structural* spans —
+    ``trace``: a :class:`repro_torch.obs.Tracer` (or any object with its
+    ``record`` / ``finalize`` / ``policy``) collecting *structural* spans —
     one per unique access of each query's shared-prefix walk (hop order,
     object, server, local/remote), timed with the jitter-free model
     constants and no queueing (enqueue == start).  The executor prices

@@ -111,10 +111,10 @@ def apply_event(
 
     ``engine`` (a :class:`~repro_torch.engine.LatencyEngine` holding
     ``cluster.scheme``) is resynced after every scheme mutation: the
-    device-resident packed words are re-packed (the dirty objects the
-    event touched are passed along for an incremental latency cache; the
-    port has none yet, so every refresh is a whole re-pack).  Without it
-    a resident engine would keep evaluating the pre-event words.
+    device-resident packed words are re-packed and the incremental
+    latency cache drops exactly the dirty objects the event touched
+    (everything, for a scale-out's layout change).  Without it a
+    resident engine would keep evaluating the pre-event words.
 
     An inapplicable event is reported, not silently swallowed: the
     returned dict carries ``{"skipped": True, "reason": ...}``.

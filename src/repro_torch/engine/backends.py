@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.engine.packed import test_bits, unpack_bits
 from repro_torch.engine.routing import resolve_policy
-from repro_torch.engine.streaming import to_device
+from repro_torch.engine.streaming import to_device, to_host
 from repro_torch.kernels.path_latency import path_latency, path_latency_plain
 from repro_torch.kernels import prune_walk as _prune_walk
 from repro_torch.kernels.routed_walk import (
@@ -88,11 +88,21 @@ def kernel_eval(objects, lengths, words, shard):
     return path_latency(objects, lengths, words, shard)
 
 
-def reference_eval(objects, lengths, mask, shard) -> np.ndarray:
-    """Pure-python oracle over a host mask (``repro_torch.core.reference``)."""
-    from repro_torch.core.reference import path_latencies_reference  # lazy: no cycle
+def reference_eval(objects, lengths, mask, shard, policy=None, load=None) -> np.ndarray:
+    """Pure-python oracle over a host mask (``repro_torch.core.reference``):
+    the home-first walk, or the routed walk under any other ``policy``
+    (``load`` the forecast a ``queue_aware`` policy prices with)."""
+    from repro_torch.core.reference import (  # lazy: no cycle
+        path_latencies_reference,
+        routed_path_latencies_reference,
+    )
 
-    return path_latencies_reference(objects, lengths, mask, shard)
+    pol = resolve_policy(policy)
+    if pol.name == "home_first":
+        return path_latencies_reference(objects, lengths, mask, shard)
+    return routed_path_latencies_reference(
+        objects, lengths, mask, shard, policy=pol, load=load
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -263,6 +273,96 @@ def routed_counts(objects, lengths, words, shard, policy, load=None,
 def kernel_routed_eval(objects, lengths, words, shard, policy, load=None):
     """Distributed-traversal counts from the routed-walk kernel."""
     return routed_counts(objects, lengths, words, shard, policy, load, backend="kernel")
+
+
+# ---------------------------------------------------------------------------
+# k-resilient evaluation: the masked re-walk over every loss case.
+# ---------------------------------------------------------------------------
+def mask_case_words(words, case_mask):
+    """Clear one loss case's holder bits: ``words & ~case_mask`` per row
+    (int32 words and mask, see ``resilience.case_word_mask``)."""
+    return words & ~case_mask[None, :]
+
+
+def _case_counts(objects, lengths, words, home, pol, rank, backend):
+    """h per path for one (possibly masked) word table and home vector."""
+    if pol.name == "home_first":
+        fn = kernel_eval if backend == "kernel" else words_scan
+        return fn(objects, lengths, words, home)
+    return gate_counts(objects, lengths, words, home, pol, rank, backend)
+
+
+def resilient_counts(objects, lengths, words, case_masks, case_homes, policy=None,
+                     load=None, backend: str = "torch"):
+    """h(p, r - case, rho; policy) per (loss case, path): int32 [D, P].
+
+    For each case the lost servers' holder bits are cleared from the
+    packed words (``case_masks`` int32 [D, W]) and the walk runs under the
+    case's rotation-failover homes (``case_homes`` int32 [D, n]).  On
+    ``kernel`` each case is one launch of the existing walk over its
+    masked words (``path_latency``, ``routed_walk``, or ``scored_walk``
+    under ``nearest_copy_dp``).  On ``torch`` all D cases are one batched
+    evaluation: the D masked tables are stacked into one ``[D*(n+1), W]``
+    table, each case's object ids offset into its block, and the plain
+    walk runs once over the ``[D*P, L]`` rows (rows are independent, so
+    each row's count is the per-case walk's).  The reference loop is
+    :func:`case_latencies`'.
+    """
+    if backend not in ("torch", "kernel"):
+        raise ValueError(f"resilient_counts runs on torch | kernel, got {backend!r}")
+    pol = resolve_policy(policy)
+    rank = _load_vector(load if pol.uses_load else None, words)
+    D = case_masks.shape[0]
+    if backend == "kernel":
+        return torch.stack([
+            _case_counts(objects, lengths, mask_case_words(words, case_masks[d]),
+                         case_homes[d], pol, rank, backend)
+            for d in range(D)
+        ])
+    R = words.shape[0]  # n + 1: each case's block keeps its sacrificial row
+    P = objects.shape[0]
+    w_all = (words[None] & ~case_masks[:, None, :]).reshape(D * R, -1)
+    pad = torch.zeros((D, 1), dtype=case_homes.dtype, device=case_homes.device)
+    h_all = torch.cat([case_homes, pad], dim=1).reshape(-1)
+    off = (torch.arange(D, device=objects.device, dtype=torch.int32) * R)[:, None, None]
+    o_all = torch.where(objects[None] >= 0, objects[None] + off, -1).reshape(D * P, -1)
+    l_all = lengths.repeat(D)
+    return _case_counts(o_all, l_all, w_all, h_all, pol, rank, backend).reshape(D, P)
+
+
+def case_latencies(packed, objects, lengths, cases, homes, policy=None, load=None,
+                   backend: str = "torch") -> np.ndarray:
+    """h per (loss case, path) against ``packed``'s current words, int32
+    [D, P] on the host: loss case d (server ids ``cases[d]``) clears its
+    servers' holder bits and walks under the rotation-failover homes
+    ``homes[d]``.  ``torch`` and ``kernel`` run :func:`resilient_counts`;
+    ``reference`` loops the host oracle over per-case masks.  ``objects``
+    and ``lengths`` are host arrays."""
+    from repro_torch.engine.resilience import case_word_mask  # lazy: no cycle
+
+    objects = np.asarray(objects, np.int32)
+    lengths = np.asarray(lengths, np.int32)
+    if backend == "reference":
+        mask = packed.unpack()
+        rows = []
+        for c, fs in zip(cases, homes):
+            m = mask.copy()
+            m[:, np.asarray(c)] = False
+            rows.append(reference_eval(objects, lengths, m, fs, policy, load))
+        return np.stack(rows).astype(np.int32)
+    device = packed.device
+    case_masks = np.stack([case_word_mask(c, packed.n_words) for c in cases])
+    out = resilient_counts(
+        to_device(objects, device),
+        to_device(lengths, device),
+        packed.words,
+        to_device(case_masks, device),
+        to_device(np.stack(homes).astype(np.int32), device),
+        policy=policy,
+        load=load,
+        backend=backend,
+    )
+    return to_host(out).astype(np.int32)
 
 
 def query_slack(path_lats, query_ids, t_q):

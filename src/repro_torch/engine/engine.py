@@ -6,6 +6,8 @@
   ok = engine.is_feasible(pathset, t, path_lats=h)
   dc = engine.margin_costs(cand_objs, cand_srvs, f)   # vs device snapshot
   engine.add_replicas(objs, srvs)             # on-device scatter-OR
+  h  = engine.path_latencies(pathset, incremental=True)  # dirty rows only
+  hr = engine.resilient_path_latencies(pathset, 1)       # [loss cases, P]
 
 State model: the scheme lives on the device as a
 :class:`~repro_torch.engine.packed.PackedScheme` — one packed upload at
@@ -91,6 +93,8 @@ class LatencyEngine:
         self.packed = packed
         if self.packed is None:
             self.packed = PackedScheme.from_mask(scheme.mask, scheme.shard, self.device)
+        # lazy incremental dirty-set evaluation plane (engine.incremental)
+        self._inc = None
 
     # -- classmethods -----------------------------------------------------
     @classmethod
@@ -109,19 +113,50 @@ class LatencyEngine:
     def host_shard(self) -> np.ndarray:
         return to_host(self.packed.shard)
 
+    @property
+    def incremental(self):
+        """The engine's :class:`~repro_torch.engine.incremental.IncrementalEval`.
+
+        Created on first use; scheme mutations routed through this engine
+        (:meth:`add_replicas` / :meth:`remove_replicas` /
+        :meth:`note_changed` / :meth:`refresh`) keep it exact.
+        """
+        if self._inc is None:
+            from repro_torch.engine.incremental import IncrementalEval  # lazy
+
+            self._inc = IncrementalEval(self)
+        return self._inc
+
+    def note_changed(self, objects) -> None:
+        """Invalidate cached incremental latencies of paths touching
+        ``objects``.
+
+        :meth:`add_replicas` / :meth:`remove_replicas` call this; callers
+        that mutate ``packed.words`` directly (the greedy's UPDATE) must
+        call it with the objects they touched — a superset is safe, a
+        miss is not.
+        """
+        if self._inc is not None:
+            self._inc.invalidate_objects(objects)
+
     def refresh(self, objects=None) -> None:
         """Re-pack after the host scheme's mask was mutated directly.
 
-        ``objects`` (the dirty objects of the mutation) is accepted for
-        the JAX package's signature, where it narrows the incremental
-        latency cache's invalidation; the port has no such cache yet
-        (``incremental=True`` raises), so every refresh is a whole
-        re-pack.
+        ``objects`` — when the caller knows the exact set of objects whose
+        replica rows changed (a §5.4 drain's dirty set) — invalidates only
+        the cached latencies of paths touching them, keeping the rest of
+        the incremental cache warm; without it every cached vector is
+        dropped (the safe call for layout changes like scale-out).
         """
         if self.scheme is not None:
             self.packed = PackedScheme.from_mask(
                 self.scheme.mask, self.scheme.shard, self.device
             )
+        if self._inc is not None:
+            if objects is None:
+                self._inc.invalidate_all()
+            else:
+                self._inc.invalidate_objects(objects)
 
     @staticmethod
     def _valid_pairs(objects, servers):
@@ -139,6 +174,7 @@ class LatencyEngine:
         self.packed.add(obj, srv)
         if self.scheme is not None:
             self.scheme.mask[obj, srv] = True
+        self.note_changed(obj)
 
     def remove_replicas(self, objects, servers) -> None:
         """Drop replicas on the device (and in the host scheme).  Removals
@@ -149,6 +185,7 @@ class LatencyEngine:
         self.packed.remove(obj, srv)
         if self.scheme is not None:
             self.scheme.mask[obj, srv] = False
+        self.note_changed(obj)
 
     def prepare(self, pathset) -> DevicePaths:
         """Pin a PathSet on the device for repeated evaluation (one upload)."""
@@ -172,27 +209,28 @@ class LatencyEngine:
 
         ``policy`` (str | ``RoutingPolicy``; default ``home_first``)
         scores the walk under a hop-routing policy; ``load`` ranks holders
-        for ``queue_aware``.  ``incremental=True`` (the dirty-set cache)
-        is not ported yet and raises.
+        for ``queue_aware``.
+
+        ``incremental=True`` routes through the engine's persistent
+        per-path latency cache (:attr:`incremental`): the first call for a
+        PathSet evaluates fully, later calls re-walk only the paths whose
+        latency a scheme delta since then could have changed.  Equal to
+        ``incremental=False`` bit for bit as long as every scheme mutation
+        is routed through the engine (or reported via
+        :meth:`note_changed`).  A :class:`DevicePaths` is always evaluated
+        in full.
         """
-        if incremental:
-            raise NotImplementedError("incremental evaluation lands with IncrementalEval")
         pol = resolve_policy(policy)
         if pathset.n_paths == 0:
             return np.zeros((0,), dtype=np.int32)
+        if incremental and not isinstance(pathset, DevicePaths):
+            return self.incremental.path_latencies(pathset, policy=pol, load=load)
         if self.backend == "reference":
             pinned = isinstance(pathset, DevicePaths)
             objects = to_host(pathset.objects) if pinned else np.asarray(pathset.objects)
             lengths = to_host(pathset.lengths) if pinned else np.asarray(pathset.lengths)
-            if pol.name == "home_first":
-                return backends.reference_eval(
-                    objects, lengths, self.host_mask(), self.host_shard()
-                )
-            from repro_torch.core.reference import routed_path_latencies_reference
-
-            return routed_path_latencies_reference(
-                objects, lengths, self.host_mask(), self.host_shard(),
-                policy=pol, load=load,
+            return backends.reference_eval(
+                objects, lengths, self.host_mask(), self.host_shard(), pol, load
             )
         compute = self._make_compute(pol, load)
         if isinstance(pathset, DevicePaths):
@@ -279,14 +317,18 @@ class LatencyEngine:
         path_lats: np.ndarray | None = None,
         policy=None,
         load: np.ndarray | None = None,
+        incremental: bool = False,
     ) -> np.ndarray:
         """t_Q - l_Q per query, computed on the device (int32 [n_queries]).
 
         ``t`` is an int, a per-query budget vector, or an ``SLOSpec``.
-        Negative entries mark violating queries.
+        Negative entries mark violating queries.  ``incremental=True``
+        sources the path latencies from the dirty-set cache.
         """
         if path_lats is None:
-            path_lats = self.path_latencies(pathset, policy=policy, load=load)
+            path_lats = self.path_latencies(
+                pathset, policy=policy, load=load, incremental=incremental
+            )
         nq = pathset.n_queries
         t_q = _budget_vector(t, nq)
         if nq == 0:
@@ -305,9 +347,67 @@ class LatencyEngine:
         path_lats: np.ndarray | None = None,
         policy=None,
         load: np.ndarray | None = None,
+        incremental: bool = False,
     ) -> bool:
-        """All queries within their own t_Q (Def 4.4)."""
-        return bool(np.all(self.query_slack(pathset, t, path_lats, policy, load) >= 0))
+        """All queries within their own t_Q (Def 4.4); ``incremental=True``
+        sources the path latencies from the dirty-set cache."""
+        return bool(np.all(
+            self.query_slack(pathset, t, path_lats, policy, load, incremental=incremental) >= 0
+        ))
+
+    def resilient_path_latencies(
+        self,
+        pathset,
+        resilience,
+        policy=None,
+        load: np.ndarray | None = None,
+    ) -> np.ndarray:
+        """h per (loss case, path) under ``resilience``: int32 [D, P].
+
+        Row d is the policy walk with loss case d's servers down — their
+        holder bits cleared from the packed words and every lost home
+        remapped by rotation failover (``repro_torch.engine.resilience``).
+        A path is k-resilient iff every row keeps it within budget.  The
+        ``torch`` backend walks all D cases in one batched evaluation,
+        ``kernel`` launches the walk once per case over the masked words,
+        ``reference`` loops the host oracle.
+        """
+        from repro_torch.engine.resilience import (  # lazy: no cycle
+            failover_shard,
+            resolve_resilience,
+        )
+
+        res = resolve_resilience(resilience)
+        if res is None:
+            raise ValueError("resilient_path_latencies needs a resilience spec")
+        S = self.n_servers
+        cases = res.loss_cases(S)
+        if pathset.n_paths == 0:
+            return np.zeros((len(cases), 0), np.int32)
+        homes = [failover_shard(self.host_shard(), c, S) for c in cases]
+        return backends.case_latencies(
+            self.packed, pathset.objects, pathset.lengths, cases, homes,
+            policy=policy, load=load, backend=self.backend,
+        )
+
+    def is_resilient_feasible(
+        self,
+        pathset,
+        t,
+        resilience,
+        policy=None,
+        load: np.ndarray | None = None,
+    ) -> bool:
+        """Every query within its t_Q under EVERY loss case (Def 4.4 + k):
+        the per-query latency is maxed over the query's paths and over all
+        loss cases of ``resilience`` before the budget comparison."""
+        h = self.resilient_path_latencies(pathset, resilience, policy=policy, load=load)
+        if h.shape[1] == 0:
+            return True
+        t_q = _budget_vector(t, pathset.n_queries)
+        lq = np.zeros(pathset.n_queries, np.int32)
+        np.maximum.at(lq, np.asarray(pathset.query_ids), h.max(axis=0))
+        return bool(np.all(lq <= t_q))
 
     def margin_costs(
         self, objects, servers, f: np.ndarray | None = None

@@ -49,6 +49,10 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None
+# called with the build's seconds after every build that ran nvcc (a
+# cached library calls none); ``repro_torch.obs.install_compile_hook``
+# counts builds through it
+BUILD_LISTENERS: list = []
 
 
 def _nvcc() -> str:
@@ -106,6 +110,8 @@ def build() -> pathlib.Path:
         raise RuntimeError(f"nvcc link failed:\n{' '.join(link)}\n{res.stdout}")
     os.replace(tmp, so)
     BUILD_SECONDS = time.perf_counter() - t0
+    for listener in BUILD_LISTENERS:
+        listener(BUILD_SECONDS)
     return so
 
 

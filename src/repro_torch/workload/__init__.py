@@ -1,5 +1,11 @@
 """Workload analyzers: causal-access-path enumeration per query family."""
-from repro_torch.workload.analyzer import batched, materialize, trace_objects
+from repro_torch.workload.analyzer import (
+    batched,
+    materialize,
+    stream_latencies,
+    trace_objects,
+    workload_latency_summary,
+)
 from repro_torch.workload.snb import snb_query_paths, snb_workload, snb_workload_materialized
 from repro_torch.workload.gnn import gnn_query_paths, gnn_workload, gnn_workload_materialized
 from repro_torch.workload.recsys import recsys_workload, recsys_workload_materialized
@@ -17,6 +23,8 @@ __all__ = [
     "batched",
     "materialize",
     "trace_objects",
+    "stream_latencies",
+    "workload_latency_summary",
     "snb_workload",
     "snb_workload_materialized",
     "snb_query_paths",

@@ -6,6 +6,7 @@ storage metrics on the torch and reference backends, the Thm 4.5
 instance, the bisection schemes and ``is_feasible_ls`` (walked on the
 engine from every server) on every bisection and on random schemes.
 """
+import torch_threads  # noqa: F401  (one torch thread per test worker)
 import dataclasses
 import itertools
 

@@ -8,6 +8,7 @@ the chunk edges included.  ``flash_prefill`` picks one of its two CUDA
 kernels by dtype (``kernel_route``) and refuses what neither takes.  The
 inputs are made with numpy from a seed.
 """
+import torch_threads  # noqa: F401  (one torch thread per test worker)
 import numpy as np
 import pytest
 import torch

@@ -16,6 +16,7 @@ numpy inputs.
   ``scored_walk`` kernels) against the ``torch`` backend, on random schemes
   with dead servers and W 1, 2 and 3 (6, 40 and 70 servers).
 """
+import torch_threads  # noqa: F401  (one torch thread per test worker)
 import os
 import tempfile
 

@@ -9,6 +9,7 @@ under ``home_first``, ``nearest_copy``, ``queue_aware`` and
 against the Pallas kernel it replaces, on the gathered inputs that kernel
 takes.
 """
+import torch_threads  # noqa: F401  (one torch thread per test worker)
 import numpy as np
 import pytest
 import torch
@@ -212,8 +213,8 @@ def test_margin_costs_match():
 
 
 def test_nearest_copy_dp_raises():
-    """``nearest_copy_dp`` no longer raises anywhere (it runs through the
-    engine and the greedy); only the unported incremental plane does."""
+    """``nearest_copy_dp`` no longer raises anywhere: it runs through the
+    engine, the greedy and the incremental plane."""
     jps, tps, mask, shard, _ = _case(10)
     jeng, teng = _engines(mask, shard)
     want = jeng["jnp"].path_latencies(jps, policy="nearest_copy_dp")
@@ -222,8 +223,8 @@ def test_nearest_copy_dp_raises():
     scheme, _ = T.replicate_workload(tps, shard, 5, 1, policy="nearest_copy_dp", device=CPU)
     assert T.is_latency_feasible(tps, scheme, 1, policy="nearest_copy_dp", device=CPU)
     for policy in POLICIES:
-        with pytest.raises(NotImplementedError, match="incremental"):
-            teng["torch"].path_latencies(tps, policy=policy, incremental=True)
+        inc = teng["torch"].path_latencies(tps, policy=policy, incremental=True)
+        assert np.array_equal(inc, jeng["jnp"].path_latencies(jps, policy=policy))
 
 
 def _gathered(seed, P, L, n_srv):

@@ -11,6 +11,7 @@ the two packages: for every routing policy the port's
 pipeline, so it is compared with ``rtol=1e-5`` as the JAX package's own
 test compares it.
 """
+import torch_threads  # noqa: F401  (one torch thread per test worker)
 import numpy as np
 import pytest
 

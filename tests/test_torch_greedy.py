@@ -6,6 +6,7 @@ equal ``GreedyStats`` counters across t x policy, vector budgets,
 ``SLOSpec`` budgets and capacity / epsilon constraints, and the two
 ``is_latency_feasible`` must agree.
 """
+import torch_threads  # noqa: F401  (one torch thread per test worker)
 import numpy as np
 import pytest
 

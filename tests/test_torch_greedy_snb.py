@@ -5,6 +5,7 @@ be bit-identical with unit storage costs (``f=None``) and with
 ``f = object_sizes()``, whose non-integer float32 candidate costs are
 summed in a different order by the two frameworks (ROADMAP trap c).
 """
+import torch_threads  # noqa: F401  (one torch thread per test worker)
 import numpy as np
 import pytest
 

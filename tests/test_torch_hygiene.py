@@ -5,6 +5,7 @@ The port imports torch, numpy and the standard library only — never
 run on CUDA unless the caller asks for the CPU: without a card they raise
 instead of silently falling back.
 """
+import torch_threads  # noqa: F401  (one torch thread per test worker)
 import ast
 import os
 import pathlib
@@ -17,6 +18,7 @@ import torch
 
 import repro_torch.core as T
 import repro_torch.distsys as TD
+import repro_torch.workload as TW
 from repro_torch.configs import qwen2_7b
 from repro_torch.engine import LatencyEngine, PackedScheme, resolve_backend
 from repro_torch.kernels import decode_attention, embedding_bag, flash_prefill, ops
@@ -50,7 +52,8 @@ def test_port_import_leaves_jax_unloaded():
     code = (
         "import sys, repro_torch, repro_torch.core.greedy, repro_torch.workload,"
         " repro_torch.models, repro_torch.configs, repro_torch.kernels.ops,"
-        " repro_torch.distsys, repro_torch.graph;"
+        " repro_torch.distsys, repro_torch.graph, repro_torch.obs, repro_torch.serve,"
+        " repro_torch.engine.incremental, repro_torch.engine.resilience;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')];"
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -83,6 +86,8 @@ ENTRY_POINTS = {
     "evaluate_baseline": lambda ps, shard, sc: T.evaluate_baseline(ps, sc),
     "repair_paths": lambda ps, shard, sc: T.repair_paths(
         sc, T.ReshardingMap.from_entries([], shard), ps, 1),
+    "replicate_stream": lambda ps, shard, sc: T.replicate_stream([ps], shard, 3, 1),
+    "stream_latencies": lambda ps, shard, sc: list(TW.stream_latencies([ps], sc)),
     "is_feasible_ls": lambda ps, shard, sc: T.is_feasible_ls(
         T.build_ls_instance([[1], [0]], 1), T.ReplicationScheme.from_sharding(
             np.array([0, 1, 1, 0], np.int32), 4)),
@@ -118,14 +123,24 @@ def test_backend_resolves_from_device():
 
 
 def test_unported_options_raise():
-    ps, shard, _ = _small_case()
-    for kw in ({"resilience": 1}, {"mesh": object()}, {"fused": True, "mesh": object()}):
-        with pytest.raises(NotImplementedError):
+    """``mesh=`` stays refused with its reason (one card, no mesh type)."""
+    ps, shard, sc = _small_case()
+    for kw in ({"mesh": object()}, {"fused": True, "mesh": object()}):
+        with pytest.raises(NotImplementedError, match="one card"):
             T.replicate_workload(ps, shard, 3, 1, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        T.replicate_delta(ps, None, 1)
-    with pytest.raises(NotImplementedError):
-        T.replicate_stream(None, shard, 3, 1)
+    with pytest.raises(NotImplementedError, match="one card"):
+        T.replicate_delta(ps, LatencyEngine(sc, device="cpu"), 1, mesh=object())
+    with pytest.raises(NotImplementedError, match="one card"):
+        T.replicate_stream([ps], shard, 3, 1, device="cpu", mesh=object())
+
+
+def test_obs_and_serve_are_importable_without_jax():
+    import repro_torch.obs as TO
+    import repro_torch.serve as TS
+
+    assert set(TS.__all__) == {"DriftPhase", "PhaseDelta", "path_delta", "drift_stream",
+                               "hotspot_phases", "snb_drift", "gnn_drift", "recsys_drift"}
+    assert isinstance(TO.REGISTRY, TO.MetricsRegistry)
 
 
 def _kernel_calls(device):

@@ -7,6 +7,7 @@ Comparisons are exact: every output is an integer or a bool, and the
 fused UPDATE's float32 costs are summed in the same order by the kernel
 and its plain version.
 """
+import torch_threads  # noqa: F401  (one torch thread per test worker)
 import numpy as np
 import pytest
 import torch

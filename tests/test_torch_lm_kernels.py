@@ -12,6 +12,7 @@ The tests marked ``cuda`` hold each CUDA kernel against its plain version
 on the card and skip where there is none:
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_lm_kernels.py``.
 """
+import torch_threads  # noqa: F401  (one torch thread per test worker)
 import types
 
 import numpy as np

@@ -4,6 +4,7 @@ After the same add/remove sequence — bits 31 and 63, duplicate pairs and
 negative pairs included — the port's words viewed as uint32 equal
 ``repro.engine.PackedScheme.words`` exactly, sacrificial row included.
 """
+import torch_threads  # noqa: F401  (one torch thread per test worker)
 import numpy as np
 import pytest
 

@@ -4,6 +4,7 @@
 kernel itself is held against ``path_latency_plain`` by the ``cuda`` tests
 of ``tests/test_torch_kernels.py``.
 """
+import torch_threads  # noqa: F401  (one torch thread per test worker)
 import re
 from pathlib import Path
 

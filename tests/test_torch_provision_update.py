@@ -13,6 +13,7 @@ the JAX package's, on seeded random batches.
   uniformly the two kernels sum in different orders, so costs agree to
   ``rtol=1e-6`` (float32 rounding) and the decisions stay exact.
 """
+import torch_threads  # noqa: F401  (one torch thread per test worker)
 import numpy as np
 import pytest
 import torch

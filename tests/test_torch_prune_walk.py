@@ -14,6 +14,7 @@ words) and the kernel backend's wide shapes against ``repro``, and skip
 without a card; on a machine with one run
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_prune_walk.py``.
 """
+import torch_threads  # noqa: F401  (one torch thread per test worker)
 import numpy as np
 import pytest
 import torch

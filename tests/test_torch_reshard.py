@@ -6,6 +6,7 @@ reports; ``event_schedule``, ``apply_event`` / ``run_schedule`` (a
 resident engine resynced after every event), ``chaos_schedule``,
 ``violation_windows`` and ``time_to_repair`` give the same results.
 """
+import torch_threads  # noqa: F401  (one torch thread per test worker)
 import copy
 import dataclasses
 

@@ -8,6 +8,7 @@ h2o-danube-3-4b and chatglm3-6b.  Tolerances: ``forward`` 1e-4 in f32 with
 and without ``use_flash_prefill``; prefill and decode logits 2e-3 (those of
 ``tests/test_models.py``); bf16 as stated in its test.
 """
+import torch_threads  # noqa: F401  (one torch thread per test worker)
 import dataclasses
 
 import jax

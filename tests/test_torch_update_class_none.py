@@ -4,6 +4,7 @@ its plain version on the card (cases and checks in
 ``update_class_cases.py``); the greedy's class route under
 ``nearest_copy``, and the wrapper's input checks.
 """
+import torch_threads  # noqa: F401  (one torch thread per test worker)
 import pytest
 import torch
 

@@ -4,6 +4,7 @@ class against the JAX package's batch loop on the CPU, the class kernel
 against its plain version on the card (cases and checks in
 ``update_class_cases.py``); the class's snapshot batches.
 """
+import torch_threads  # noqa: F401  (one torch thread per test worker)
 import pytest
 import torch
 

@@ -5,6 +5,7 @@ kernel against its plain version on the card (cases and checks in
 ``update_class_cases.py``), the kernel's in-kernel gate against the
 score-plane route, and the greedy's class route under ``nearest_copy_dp``.
 """
+import torch_threads  # noqa: F401  (one torch thread per test worker)
 import pytest
 import torch
 

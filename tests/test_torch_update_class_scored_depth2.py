@@ -6,6 +6,7 @@ kernel against its plain version on the card (cases and checks in
 score-plane route, and the greedy's class route under the default
 (home-first) policy.
 """
+import torch_threads  # noqa: F401  (one torch thread per test worker)
 import pytest
 import torch
 

@@ -1,5 +1,6 @@
 """The port's graph, partition and workload copies give the JAX
 package's arrays for the same seeds (exact)."""
+import torch_threads  # noqa: F401  (one torch thread per test worker)
 import numpy as np
 import pytest
 
@@ -173,3 +174,95 @@ def test_tenant_frontier_matches_jax():
                                         budgets={"snb": 1, "gnn": t_gnn})
         want, _ = replicate_workload(ps, shard, 6, slo, f=f)
         assert np.array_equal(want.mask, schemes[t_gnn].mask), t_gnn
+
+
+# --------------------------------------------------------------------------
+# the streamed analyzer: stream_latencies and workload_latency_summary
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def summary_case(graphs):
+    """A two-tenant SNB + recsys stream on the scale-1 graph, three query
+    batches, against a seeded scheme with extra replicas (both packages'
+    copies of the same inputs)."""
+    from repro.core import ReplicationScheme
+    from repro.workload import multi_tenant_workload, recsys_workload_materialized
+    from repro_torch.core import ReplicationScheme as TScheme
+    from repro_torch.workload import multi_tenant_workload as t_multi
+    from repro_torch.workload import recsys_workload_materialized as t_recsys
+
+    j, t = graphs
+    budgets = {"snb": 2, "recsys": 2}
+    ps_j, slo_j = multi_tenant_workload(
+        [("snb", snb_workload_materialized(j, n_queries=150, seed=3)),
+         ("recsys", recsys_workload_materialized(50, 400, n_requests=60))], budgets)
+    ps_t, slo_t = t_multi(
+        [("snb", t_snb_workload(t, n_queries=150, seed=3)),
+         ("recsys", t_recsys(50, 400, n_requests=60))], budgets)
+    shard = make_sharding("hash", j.graph, 6, seed=0)
+    rng = np.random.default_rng(5)
+    mask = np.zeros((j.graph.n_nodes, 6), bool)
+    mask[np.arange(j.graph.n_nodes), shard] = True
+    mask[rng.integers(0, j.graph.n_nodes, 3000), rng.integers(0, 6, 3000)] = True
+    cuts = [0, 70, 150, ps_j.n_queries]  # the tenants' boundary falls inside a batch
+    return {
+        "batches_j": [ps_j.select_queries(a, b) for a, b in zip(cuts, cuts[1:])],
+        "batches_t": [ps_t.select_queries(a, b) for a, b in zip(cuts, cuts[1:])],
+        "slo_j": slo_j, "slo_t": slo_t,
+        "scheme_j": ReplicationScheme(mask.copy(), shard.copy()),
+        "scheme_t": TScheme(mask.copy(), shard.copy()),
+    }
+
+
+@pytest.mark.parametrize("policy", [None, "nearest_copy"])
+@pytest.mark.parametrize("with_slo", [False, True])
+def test_workload_latency_summary_equals_jax(summary_case, policy, with_slo):
+    """The streamed report (histogram, max_traversals, feasible and, with
+    an SLOSpec, the per-tenant dict consumed batch by batch) equals the
+    JAX package's on the same batches and scheme, exactly."""
+    from repro.workload import workload_latency_summary
+    from repro_torch.workload import workload_latency_summary as t_summary
+
+    c = summary_case
+    kw_j = {"slo": c["slo_j"]} if with_slo else {"t": 2}
+    kw_t = {"slo": c["slo_t"]} if with_slo else {"t": 2}
+    want = workload_latency_summary(c["batches_j"], c["scheme_j"], policy=policy, **kw_j)
+    got = t_summary(c["batches_t"], c["scheme_t"], policy=policy, device="cpu", **kw_t)
+    assert got == want
+    assert len(got["histogram"]) > 1
+    if with_slo:
+        assert set(got["per_tenant"]) == {"snb", "recsys"}
+        assert sum(v["queries"] for v in got["per_tenant"].values()) == \
+            sum(b.n_queries for b in c["batches_t"])
+
+
+def test_stream_latencies_reuses_a_resident_engine(summary_case):
+    """stream_latencies gives the JAX package's h per batch; with a built
+    LatencyEngine it uploads only the path rows (the same bytes as calling
+    path_latencies per batch), and from a scheme it packs and uploads the
+    scheme once for the whole stream."""
+    from repro.workload import stream_latencies
+    from repro_torch.engine import TRANSFER, LatencyEngine
+    from repro_torch.workload import stream_latencies as t_stream
+
+    c = summary_case
+    want = [h for _, h in stream_latencies(c["batches_j"], c["scheme_j"],
+                                           policy="nearest_copy")]
+    eng = LatencyEngine(c["scheme_t"], device="cpu")
+    with TRANSFER.scope() as tr:
+        for ps in c["batches_t"]:
+            eng.path_latencies(ps, policy="nearest_copy")
+        direct = tr.h2d_bytes
+    with TRANSFER.scope() as tr:
+        got = list(t_stream(c["batches_t"], eng, policy="nearest_copy"))
+        resident = tr.h2d_bytes
+    assert [ps for ps, _ in got] == c["batches_t"]
+    assert all(np.array_equal(h, w) for (_, h), w in zip(got, want))
+    assert resident == direct > 0
+    with TRANSFER.scope() as tr:
+        again = [h for _, h in t_stream(c["batches_t"], c["scheme_t"],
+                                        policy="nearest_copy", device="cpu")]
+        built = tr.h2d_bytes
+    assert all(np.array_equal(h, w) for h, w in zip(again, want))
+    # one pack and upload of the scheme: its words and its shard
+    assert built == direct + (eng.packed.words.numel() + eng.packed.shard.numel()) * 4

@@ -23,6 +23,7 @@ JAX batch loop (``--dist loadfile`` gives a file to one worker).
   device tiers (L 70, W 65, W 257), and the in-kernel nearest_copy_dp gate
   against the score-plane route's skip flags.
 """
+import torch_threads  # noqa: F401  (one torch thread per test worker)
 import numpy as np
 import pytest
 import torch
