@@ -95,6 +95,29 @@ Phases (each prints one JSON line; any failed check exits non-zero):
           orphans, replicas, overhead and the case-walk / masked-UPDATE
           seconds; then ``benchmarks/torch_provisioning_policies.py``'s SNB
           figures with a flag for ``BENCH_provisioning.json``'s.
+  serve   the serving stack on the main cell (the main phase's t = 1
+          ``nearest_copy`` scheme, 20,000 queries at 20,000 qps): ``simulate``
+          under home_first, nearest_copy and nearest_copy_dp (home router),
+          ``replica_lb`` and ``hedged``, queue_aware with ``reroute_every``
+          = 2,000 (10 rebuilds), batching + admission + ``HedgePolicy`` under
+          a uniform t = 1 ``SLOSpec``, server 0 killed mid-run and revived,
+          and ``hop_feedback`` closed loop (64 clients): each on the kernel
+          backend (counters zeroed just before, read just after: one
+          ``routed_walk`` / ``scored_walk`` launch per routing variant, none
+          under hop feedback), every walk re-run on torch and equal, the
+          whole ``SimReport`` against the torch backend's for home_first,
+          the reroute case and the chaos case; p50 / p99 / p999, achieved
+          qps, utilization, failed and shed queries and the host seconds
+          by part (walk: packing, uploads, enqueue, readback; tree build;
+          event loop).  Then ``snb_drift`` at scale 10 (3 x 2,000 queries)
+          through an ``AdaptiveController`` on the drive's engine and on a
+          torch twin (reports, masks, feasibility after each repair), one
+          ``on_liveness_change`` with server 2 failed (resilient-feasible,
+          0 violations), a home-first controller whose repair evicts (each
+          window's incremental re-check equal to a full evaluation); and
+          ``harness_simulate`` on the first 200 queries beside ``simulate``
+          (every query completes, failed flags equal; the real-clock
+          percentiles printed, not compared).
   prune   the serial prune's kernel on the main path's inputs: the first
           2,000 t = 1 candidates through ``prune_walk`` and its plain loop
           under home_first, nearest_copy and queue_aware (keep flags and
@@ -124,7 +147,9 @@ Phases (each prints one JSON line; any failed check exits non-zero):
   tenants  ``benchmarks/torch_tenant_frontier.py``'s frontier (GNN t_Q 3 ->
           0, SNB at 1) on both backends: overhead monotone, 0 failed paths,
           masks and home-first latencies equal; a printed flag says
-          whether the replica counts equal ``BENCH_tenants.json``'s.
+          whether the replica counts equal ``BENCH_tenants.json``'s; its
+          drift part (per-tenant p99 under the arbitrating controller) on
+          both backends, equal.
   lm_parity  the attention and embedding-bag kernels against their plain
           versions on seeded inputs: flash prefill (bf16 on the wgmma
           kernel, f32 on the CUDA-core kernel) on the JAX package's sweep
@@ -1113,7 +1138,9 @@ def phase_tenants(T, counters) -> dict:
     kernel backend (counters zeroed just before, read just after) and on
     the torch backend: overhead monotone, 0 failed paths, every scheme
     feasible, kernel masks equal to torch masks, and the home-first
-    latencies of every scheme equal on both backends."""
+    latencies of every scheme equal on both backends; then its drift part
+    (the arbitrating controller over three drift phases) on both backends,
+    equal."""
     t0 = time.perf_counter()
     fr = load_script("benchmarks/torch_tenant_frontier.py")
     zero_counts(counters)
@@ -1144,9 +1171,26 @@ def phase_tenants(T, counters) -> dict:
     matches = replicas == TENANT_REPLICAS
     print(f"tenants: replicas equal BENCH_tenants.json's {TENANT_REPLICAS}: {matches}",
           flush=True)
+    # the drift part: the arbitrating controller over three drift phases,
+    # kernel (counters zeroed just before, read just after) against torch
+    zero_counts(counters)
+    td = time.perf_counter()
+    drift = fr.drift(backend="kernel")
+    drift_kernel_s = time.perf_counter() - td
+    drift_launches = {k: v for k, v in read_counts(counters).items() if v}
+    td = time.perf_counter()
+    check(drift == fr.drift(backend="torch"), "tenants drift: kernel and torch differ")
+    drift_torch_s = time.perf_counter() - td
+    check(drift_launches.get("path_latency", 0) > 0 and drift_launches.get("routed_walk", 0) > 0,
+          f"tenants drift: the walks were not launched ({drift_launches})")
+    for row in drift["per_tenant_p99"]:
+        print(f"tenants drift {row['scheme']}: snb p99 {row['snb']['p99_us']} gnn p99 "
+              f"{row['gnn']['p99_us']} us", flush=True)
     out = {"phase": "tenants", "seconds": time.perf_counter() - t0, "frontier": rows,
            "kernel_s": kernel_s, "torch_s": torch_s, "launches": launches,
-           "kernel_equals_torch": True, "replicas_match_bench_tenants": matches}
+           "kernel_equals_torch": True, "replicas_match_bench_tenants": matches,
+           "drift": drift, "drift_kernel_s": drift_kernel_s, "drift_torch_s": drift_torch_s,
+           "drift_launches": drift_launches}
     emit(out)
     return out
 
@@ -1423,6 +1467,368 @@ def phase_planes(T, TS, engine_mod, counters, case, dev) -> dict:
     out = {"phase": "planes", "seconds": time.perf_counter() - t0, "paths": ps.n_paths,
            "drive_replicas": st.replicas, "drive_launches": drive, "launches": launches,
            **parts, "provisioning_snb": prov, "provisioning_s": time.perf_counter() - tb}
+    emit(out)
+    return out
+
+
+SERVE_RATE_QPS = 20_000.0
+SERVE_REROUTE_EVERY = 2_000  # ~10 mid-run rebuilds over the 20,000 arrivals
+SERVE_CLIENTS = 64
+SERVE_HARNESS_QUERIES = 200
+SERVE_HARNESS_SCALE = 5e-4  # real seconds per model µs: 200 queries at 20,000 qps ~ 5 s
+SERVE_WALKS = ("routed_walk", "scored_walk")
+
+
+@contextlib.contextmanager
+def serve_parts(simulator, executor, dev):
+    """While the block runs, split ``simulate``'s host seconds: the routing
+    variants' builds (``_build_variant``), and within them the walks
+    (``trace_paths``: the host fail-over map and packing, the uploads, the
+    walk's enqueue, the readback, each synchronised); the rest of a run is
+    its event loop.  Every walk's arguments and outputs are kept, so the
+    same walks can be re-run on the torch backend afterwards."""
+    parts = {"build_s": 0.0, "trace_s": 0.0, "pack_s": 0.0, "upload_s": 0.0,
+             "launch_s": 0.0, "readback_s": 0.0, "walks": 0, "walk_rows": 0}
+    calls = []
+    orig = (simulator._build_variant, simulator.trace_paths, executor.walk_inputs,
+            executor.to_device, executor.access_trace, executor.to_host)
+
+    def clocked(key, fn):
+        def wrapped(*args, **kwargs):
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args, **kwargs)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            parts[key] += time.perf_counter() - t0
+            return res
+        return wrapped
+
+    def walk(pathset, scheme, alive, start=None, policy=None, load=None, device=None,
+             backend=None):
+        t0 = time.perf_counter()
+        out = orig[1](pathset, scheme, alive, start, policy, load, device, backend)
+        parts["trace_s"] += time.perf_counter() - t0
+        # chaos flips ``alive`` in place: keep the walk's own copy
+        calls.append((pathset, scheme, alive.copy(), start, policy, load, out))
+        if pathset.n_paths:
+            parts["walks"] += 1
+            parts["walk_rows"] += int(pathset.n_paths)
+        return out
+
+    simulator._build_variant = clocked("build_s", orig[0])
+    simulator.trace_paths = walk
+    executor.walk_inputs = clocked("pack_s", orig[2])
+    executor.to_device = clocked("upload_s", orig[3])
+    executor.access_trace = clocked("launch_s", orig[4])
+    executor.to_host = clocked("readback_s", orig[5])
+    try:
+        yield parts, calls
+    finally:
+        (simulator._build_variant, simulator.trace_paths, executor.walk_inputs,
+         executor.to_device, executor.access_trace, executor.to_host) = orig
+
+
+def retrace_on_torch(executor, calls, dev) -> bool:
+    """Every recorded walk, re-run on the torch backend: the same servers and
+    locality, bit for bit."""
+    for ps, scheme, alive, start, policy, load, (srv, loc) in calls:
+        s2, l2 = executor.trace_paths(ps, scheme, alive, start, policy, load, dev, "torch")
+        if not (np.array_equal(srv, s2) and np.array_equal(loc, l2)):
+            return False
+    return True
+
+
+def sim_reports_equal(a, b) -> bool:
+    """Every field of two ``SimReport``s (arrays bit for bit, the batch
+    stats by their summary) and both ``summary()``s."""
+    for fld in dataclasses.fields(a):
+        x, y = getattr(a, fld.name), getattr(b, fld.name)
+        if fld.name == "batch_stats":
+            same = (x is None and y is None) or (x is not None and y is not None
+                                                 and x.summary() == y.summary())
+        elif isinstance(x, np.ndarray):
+            same = isinstance(y, np.ndarray) and x.dtype == y.dtype and np.array_equal(x, y)
+        else:
+            same = x == y
+        if not same:
+            return False
+    return a.summary() == b.summary()
+
+
+def adapt_reports_equal(a, b) -> bool:
+    """Two ``AdaptationReport``s (or Nones), every field but ``runtime_s``."""
+    if a is None or b is None:
+        return a is None and b is None
+    for fld in dataclasses.fields(a):
+        if fld.name == "runtime_s":
+            continue
+        x, y = getattr(a, fld.name), getattr(b, fld.name)
+        if fld.name == "additions":
+            same = all(np.array_equal(u, v) for u, v in zip(x, y))
+        else:
+            same = x == y
+        if not same:
+            return False
+    return True
+
+
+def serve_case_kwargs(TD, TS, T, scheme, n: int) -> dict:
+    """name -> (a function giving a fresh run's keyword arguments, whether
+    the whole report is held against the torch backend's)."""
+    mid = 0.5 * n / SERVE_RATE_QPS * 1e6  # the arrivals' midpoint, µs
+    return {
+        "home_first": (lambda: dict(policy="home_first"), True),
+        "nearest_copy": (lambda: dict(policy="nearest_copy"), False),
+        "nearest_copy_dp": (lambda: dict(policy="nearest_copy_dp"), False),
+        "replica_lb": (lambda: dict(policy="nearest_copy",
+                                    router=TD.Router(scheme, "replica_lb")), False),
+        "hedged": (lambda: dict(policy="nearest_copy", router=TD.Router(scheme, "hedged")),
+                   False),
+        "queue_aware_reroute": (lambda: dict(policy="queue_aware",
+                                             reroute_every=SERVE_REROUTE_EVERY), True),
+        "batched_admission_hedge": (lambda: dict(
+            policy="nearest_copy", slo=T.SLOSpec.uniform(1, n), batching=TS.BatchingConfig(),
+            admission=TS.AdmissionConfig(stretch=4.0), hedge=TS.HedgePolicy()), False),
+        "chaos": (lambda: dict(policy="nearest_copy", chaos=[
+            TD.ChaosEvent(mid, "kill", 0), TD.ChaosEvent(1.5 * mid, "revive", 0)]), True),
+        "hop_feedback_closed": (lambda: dict(policy="queue_aware", hop_feedback=True,
+                                             clients=SERVE_CLIENTS), False),
+    }
+
+
+def serve_simulate(T, TD, TS, simulator, executor, counters, scheme, ps, dev) -> dict:
+    """``simulate`` on the main t = 1 ``nearest_copy`` scheme, open loop at
+    20,000 qps (the hop-feedback case closed loop), one case per routing
+    policy, router and plane: on the kernel backend with the launches
+    counted (zeroed just before, read just after) and the host seconds
+    split; every walk re-run on torch and equal; three cases' whole
+    reports held against the torch backend's."""
+    n = ps.n_queries
+    out = {}
+    for name, (kwargs, whole) in serve_case_kwargs(TD, TS, T, scheme, n).items():
+        cluster = TD.Cluster(scheme)
+        with serve_parts(simulator, executor, dev) as (parts, calls):
+            zero_counts(counters)
+            t0 = time.perf_counter()
+            rep = TS.simulate(cluster, ps, rate_qps=SERVE_RATE_QPS, seed=0, device=dev,
+                              **kwargs())
+            total = time.perf_counter() - t0
+            counts = read_counts(counters)
+        launches = {k: counts[k] for k in SERVE_WALKS}
+        check(sum(launches.values()) == parts["walks"],
+              f"serve {name}: {launches} launches for {parts['walks']} walks")
+        check((parts["walks"] == 0) == (name == "hop_feedback_closed"),
+              f"serve {name}: {parts['walks']} walks")
+        check(rep.latency_us.shape == (n,) and np.isfinite(rep.latency_us).all(),
+              f"serve {name}: latencies malformed")
+        t1 = time.perf_counter()
+        check(retrace_on_torch(executor, calls, dev),
+              f"serve {name}: a walk differs between kernel and torch")
+        retrace_s = time.perf_counter() - t1
+        torch_s = None
+        if whole:
+            t1 = time.perf_counter()
+            plain = TS.simulate(TD.Cluster(scheme), ps, rate_qps=SERVE_RATE_QPS, seed=0,
+                                device=dev, backend="torch", **kwargs())
+            torch_s = time.perf_counter() - t1
+            check(sim_reports_equal(rep, plain),
+                  f"serve {name}: the kernel and torch SimReports differ")
+        s = rep.summary()
+        seconds = {"total": total, "trace": parts["trace_s"], "pack": parts["pack_s"],
+                   "upload": parts["upload_s"], "launch": parts["launch_s"],
+                   "readback": parts["readback_s"],
+                   "tree_build": parts["build_s"] - parts["trace_s"],
+                   "event_loop": total - parts["build_s"]}
+        out[name] = {"p50_us": s["p50_us"], "p99_us": s["p99_us"], "p999_us": s["p999_us"],
+                     "achieved_qps": s["achieved_qps"], "max_utilization": s["max_utilization"],
+                     "failed_queries": s["failed_queries"],
+                     "shed_queries": s.get("admission", {}).get("n_shed", 0),
+                     "reroutes": rep.reroutes, "launches": launches, "walks": parts["walks"],
+                     "walk_rows": parts["walk_rows"], "seconds": seconds,
+                     "retrace_s": retrace_s, "torch_report_equal": whole,
+                     "torch_s": torch_s}
+        extra = {k: s[k] for k in ("chaos", "hedging", "batching") if k in s}
+        out[name].update(extra)
+        print(f"serve {name}: p50 {s['p50_us']} p99 {s['p99_us']} p999 {s['p999_us']} us, "
+              f"qps {s['achieved_qps']}, max util {s['max_utilization']}, failed "
+              f"{s['failed_queries']}, shed {out[name]['shed_queries']}, launches {launches}, "
+              f"seconds {seconds}, whole report kernel=torch: {whole}", flush=True)
+    return out
+
+
+def serve_controller(T, TD, TS, engine_mod, counters, snb, shard, f, dev) -> dict:
+    """``snb_drift`` at scale 10 (3 phases x 2,000 queries): phase 0 driven
+    with ``return_engine=True``, then each phase simulated and observed by an
+    ``AdaptiveController`` on that engine (kernel) and by a twin on a torch
+    engine: reports (all but ``runtime_s``) and masks equal after every
+    step, each phase feasible after its repair; one ``on_liveness_change``
+    with server 2 failed, resilient-feasible with 0 violations; then a
+    capacity tight enough to evict (a home-first controller on the card),
+    after which every window's incremental re-check equals a full
+    evaluation and a fresh engine's.  The kernel steps must launch the
+    walks (``routed_walk``; ``path_latency`` in the home-first one)."""
+    t0 = time.perf_counter()
+    phases = TS.snb_drift(snb, n_phases=3, queries_per_phase=2000, seed=0)
+    deltas = list(TS.drift_stream(phases))
+    # no prune of phase 0, as in the planes phase: a pruned scheme is tight,
+    # and the receding-horizon walk is not monotone under later additions
+    scheme, _, eng = T.replicate_workload(deltas[0].pathset, shard, 6, 1, f=f,
+                                          policy="nearest_copy", policy_prune=False,
+                                          return_engine=True, device=dev)
+    drive_mask = scheme.mask.copy()
+    twin = engine_mod.LatencyEngine(T.ReplicationScheme(scheme.mask.copy(), scheme.shard.copy()),
+                                    backend="torch", device=dev)
+    sides = {"kernel": eng, "torch": twin}
+    clusters = {k: TD.Cluster(e.scheme, f=f) for k, e in sides.items()}
+    ctls = {k: TS.AdaptiveController(
+        clusters[k], TS.ControllerConfig(t=1, window=2000, min_queries=200,
+                                         score_policy="nearest_copy"), f=f, engine=e)
+        for k, e in sides.items()}
+    steps = []
+    for d in deltas:
+        got = {}
+        for k in ("kernel", "torch"):
+            zero_counts(counters)
+            ts = time.perf_counter()
+            rep = TS.simulate(clusters[k], d.pathset, rate_qps=SERVE_RATE_QPS, seed=d.phase,
+                              device=dev, backend=sides[k].backend)
+            sim_s = time.perf_counter() - ts
+            ts = time.perf_counter()
+            act = ctls[k].observe(d.pathset, latency_us=rep.latency_us)
+            observe_s = time.perf_counter() - ts
+            got[k] = (rep, act, sides[k].scheme.mask.copy(), read_counts(counters), sim_s,
+                      observe_s)
+        (kr, ka, km, kc, ks, ko), (tr, ta, tm, _, tsim, tobs) = got["kernel"], got["torch"]
+        check(sim_reports_equal(kr, tr), f"serve controller phase {d.phase}: SimReports differ")
+        check(adapt_reports_equal(ka, ta),
+              f"serve controller phase {d.phase}: AdaptationReports differ")
+        check(np.array_equal(km, tm), f"serve controller phase {d.phase}: masks differ")
+        check(np.array_equal(eng.host_mask(), km),
+              f"serve controller phase {d.phase}: engine words and host mask differ")
+        feasible = eng.is_feasible(d.pathset, 1, policy="nearest_copy")
+        check(feasible, f"serve controller phase {d.phase}: not feasible after its repair")
+        row = {"phase": d.phase, "paths": d.pathset.n_paths, "added_paths": d.added.n_paths,
+               "p99_us": kr.p99_us, "adapted": ka is not None,
+               "launches": {k: v for k, v in kc.items() if v},
+               "simulate_s": ks, "observe_s": ko, "torch_simulate_s": tsim,
+               "torch_observe_s": tobs}
+        if ka is not None:
+            row.update(trigger=ka.trigger, paths_repaired=ka.paths_repaired,
+                       replicas_added=ka.replicas_added, bytes_added=ka.bytes_added,
+                       feasible_after=ka.feasible_after, runtime_s=ka.runtime_s,
+                       torch_runtime_s=ta.runtime_s)
+        steps.append(row)
+        print(f"serve controller phase {d.phase}: {row}", flush=True)
+    # a server fails: one liveness repair over the dead set
+    live = {}
+    for k in ("kernel", "torch"):
+        clusters[k].fail_server(2)
+        zero_counts(counters)
+        ts = time.perf_counter()
+        act = ctls[k].on_liveness_change(deltas[-1].pathset)
+        live[k] = (act, sides[k].scheme.mask.copy(), read_counts(counters),
+                   time.perf_counter() - ts)
+        clusters[k].recover_server(2)
+    (ka, km, kc, ks), (ta, tm, _, tls) = live["kernel"], live["torch"]
+    walked = sum(st["launches"].get("routed_walk", 0) for st in steps)
+    check(walked > 0 and kc.get("routed_walk", 0) > 0,
+          f"serve controller: routed_walk not launched ({walked}, liveness {kc})")
+    check(adapt_reports_equal(ka, ta) and np.array_equal(km, tm),
+          "serve controller liveness: kernel and torch differ")
+    res = engine_mod.KResilient(k=1, domains=((2,),))
+    h = eng.resilient_path_latencies(deltas[-1].pathset, res, policy="nearest_copy")
+    hq = np.zeros((h.shape[0], deltas[-1].pathset.n_queries), np.int32)
+    for c in range(h.shape[0]):
+        np.maximum.at(hq[c], np.asarray(deltas[-1].pathset.query_ids), h[c])
+    violations = int((hq > 1).any(axis=0).sum())
+    check(ka is not None and ka.feasible_after and violations == 0,
+          f"serve controller liveness: {violations} resilient violations")
+    liveness = {"replicas_added": ka.replicas_added, "bytes_added": ka.bytes_added,
+                "resilient_violations": violations, "seconds": ks, "torch_seconds": tls,
+                "launches": {k: v for k, v in kc.items() if v}}
+    print(f"serve controller liveness (server 2 failed): {liveness}", flush=True)
+    # eviction: cold copies of 4,000 objects no phase touches, on every
+    # server, push each one over a capacity of the drive scheme's fullest
+    # load plus half those copies' bytes, so a repair evicts; scored
+    # home-first, so the re-checks launch path_latency
+    used = np.unique(np.concatenate([np.asarray(d.pathset.objects).ravel() for d in deltas]))
+    cold = np.random.default_rng(0).choice(
+        np.setdiff1d(np.arange(drive_mask.shape[0]), used), 4000, replace=False)
+    ev_scheme = T.ReplicationScheme(drive_mask.copy(), scheme.shard.copy())
+    cap = float(ev_scheme.storage_per_server(f).max() + 0.5 * f[cold].sum())
+    ev_scheme.mask[cold] = True
+    ev = TS.AdaptiveController(TD.Cluster(ev_scheme, f=f), TS.ControllerConfig(
+        t=1, window=2000, min_queries=200, capacity=cap), f=f, device=dev)
+    zero_counts(counters)
+    ts = time.perf_counter()
+    acts = [ev.observe(d) for d in (deltas[0].pathset, deltas[1].pathset)]
+    evict_s = time.perf_counter() - ts
+    ev_launches = {k: v for k, v in read_counts(counters).items() if v}
+    act = next((a for a in acts if a is not None and a.replicas_evicted), None)
+    check(act is not None, "serve controller: nothing evicted")
+    check(ev_launches.get("path_latency", 0) > 0,
+          f"serve controller eviction: path_latency not launched ({ev_launches})")
+    fresh = engine_mod.LatencyEngine(ev_scheme.copy(), backend="torch", device=dev)
+    for w in ev._tenants.values():
+        for e in w.entries:
+            inc = ev.engine.path_latencies(e.pathset, incremental=True)
+            full = ev.engine.path_latencies(e.pathset)
+            want = fresh.path_latencies(e.pathset)
+            check(np.array_equal(e.path_lats, want) and np.array_equal(inc, want)
+                  and np.array_equal(full, want),
+                  "serve controller eviction: a window's re-check differs from a full one")
+    eviction = {"cold_objects": len(cold), "capacity": cap, "step": act.step,
+                "replicas_evicted": act.replicas_evicted, "bytes_evicted": act.bytes_evicted,
+                "replicas_added": act.replicas_added, "feasible_after": act.feasible_after,
+                "seconds": evict_s, "launches": ev_launches, "incremental_equals_full": True}
+    print(f"serve controller eviction: {eviction}", flush=True)
+    return {"seconds": time.perf_counter() - t0, "steps": steps, "liveness": liveness,
+            "eviction": eviction}
+
+
+def serve_harness(T, TD, TS, scheme, ps, dev) -> dict:
+    """``harness_simulate`` on the first 200 queries beside ``simulate`` at
+    the same seed: every query completes, the failed flags equal the
+    simulator's; the percentiles are printed, not compared (the harness
+    runs on a real clock)."""
+    sub = ps.select_queries(0, SERVE_HARNESS_QUERIES)
+    kw = dict(rate_qps=SERVE_RATE_QPS, seed=0, policy="nearest_copy", device=dev)
+    sim = TS.simulate(TD.Cluster(scheme), sub, **kw)
+    t0 = time.perf_counter()
+    har = TS.harness_simulate(TD.Cluster(scheme), sub, time_scale=SERVE_HARNESS_SCALE, **kw)
+    seconds = time.perf_counter() - t0
+    check(har.latency_us.shape == (sub.n_queries,) and np.isfinite(har.latency_us).all(),
+          "serve harness: a query did not complete")
+    check(np.array_equal(har.query_failed, sim.query_failed),
+          "serve harness: failed flags differ from the simulator's")
+    out = {"queries": sub.n_queries, "time_scale": SERVE_HARNESS_SCALE, "seconds": seconds,
+           "harness_p50_us": har.p50_us, "harness_p99_us": har.p99_us,
+           "simulate_p50_us": sim.p50_us, "simulate_p99_us": sim.p99_us}
+    print(f"serve harness: {out}", flush=True)
+    return out
+
+
+def phase_serve(T, TD, TS, engine_mod, counters, case, scheme, dev) -> dict:
+    """The serving stack on the main cell (SNB scale 10, 20,000 queries,
+    146,907 paths, 6 servers, the main phase's t = 1 ``nearest_copy``
+    scheme): the simulator's cases, the adaptive controller over
+    ``snb_drift``, and the asyncio harness."""
+    from repro_torch.distsys import executor
+    from repro_torch.serve import simulator
+
+    t0 = time.perf_counter()
+    snb, ps, shard, f = case
+    sims = serve_simulate(T, TD, TS, simulator, executor, counters, scheme, ps, dev)
+    sim_s = time.perf_counter() - t0
+    ctl = serve_controller(T, TD, TS, engine_mod, counters, snb, shard, f, dev)
+    har = serve_harness(T, TD, TS, scheme, ps, dev)
+    out = {"phase": "serve", "seconds": time.perf_counter() - t0, "simulate_s": sim_s,
+           "paths": ps.n_paths, "queries": ps.n_queries, "rate_qps": SERVE_RATE_QPS,
+           "cases": sims, "controller": ctl, "harness": har,
+           "launches": {name: {case: c["launches"][name] for case, c in sims.items()}
+                        for name in SERVE_WALKS}}
     emit(out)
     return out
 
@@ -2622,6 +3028,7 @@ def main() -> int:
     ex = phase_executor(T, TD, executor, faults, backends, streaming, rw, counters, case,
                         main_out["schemes"], dev)
     planes = phase_planes(T, TS, engine_mod, counters, case, dev)
+    serve = phase_serve(T, TD, TS, engine_mod, counters, case, main_out["schemes"][1], dev)
     # each kernel's launches on the path that exercises it
     launches = {
         "path_latency": main_out["launches"]["path_latency"],
@@ -2688,23 +3095,36 @@ def main() -> int:
     # kernels 1-4's launches on the planes phase's paths, by part
     planes_launches = {name: {part: c[name] for part, c in planes["launches"].items()}
                        for name in PLANE_COUNTERS}
-    fused_entry.update(planes_launches=planes_launches["fused_update"])
+    # kernels 1-4's launches on the serving controller's steps (each phase's
+    # simulate + observe, the liveness repair, the home-first eviction
+    # drive); the walks' per simulate case come from the serve phase's
+    serve_ctl = {name: [st["launches"].get(name, 0) for st in serve["controller"]["steps"]]
+                 + [serve["controller"][part]["launches"].get(name, 0)
+                    for part in ("liveness", "eviction")]
+                 for name in PLANE_COUNTERS}
+    fused_entry.update(planes_launches=planes_launches["fused_update"],
+                       serve_controller_launches=serve_ctl["fused_update"])
     # the walks' launches on the executor's path (every case of its phase)
     routed_entry = kernel_entry("routed_walk", "src/repro_torch/csrc/routed_walk.cu",
                                 "src/repro/kernels/routed_walk.py:147", launches["routed_walk"],
                                 err["routed_walk"], tm["routed_walk/nearest_copy"],
                                 at["routed_walk"])
     routed_entry.update(executor_launches=ex["launches"]["routed_walk"],
-                        planes_launches=planes_launches["routed_walk"])
+                        planes_launches=planes_launches["routed_walk"],
+                        serve_launches=serve["launches"]["routed_walk"],
+                        serve_controller_launches=serve_ctl["routed_walk"])
     scored_entry = kernel_entry("scored_walk", "src/repro_torch/csrc/scored_walk.cu",
                                 "src/repro/kernels/routed_walk.py:244", launches["scored_walk"],
                                 err["scored_walk"], tm["scored_walk"], at["scored_walk"])
     scored_entry.update(executor_launches=ex["launches"]["scored_walk"],
-                        planes_launches=planes_launches["scored_walk"])
+                        planes_launches=planes_launches["scored_walk"],
+                        serve_launches=serve["launches"]["scored_walk"],
+                        serve_controller_launches=serve_ctl["scored_walk"])
     pl_entry = kernel_entry("path_latency", "src/repro_torch/csrc/path_latency.cu",
                             "src/repro/kernels/path_latency.py:93", launches["path_latency"],
                             err["path_latency"], tm["path_latency"], at["path_latency"])
-    pl_entry.update(planes_launches=planes_launches["path_latency"])
+    pl_entry.update(planes_launches=planes_launches["path_latency"],
+                    serve_controller_launches=serve_ctl["path_latency"])
     emit({"kernels": [
         pl_entry,
         routed_entry,

@@ -12,9 +12,9 @@ budget.  Three layers, one gate:
               merges, percentile within one bucket of exact); the global
               :data:`REGISTRY` is what the ad-hoc stats objects
               additionally register onto
-  trace     — hop-level :class:`Span` / :class:`Tracer`: the executor
-              (and, once ported, the serving simulator) emits one span
-              per access (hop, server, object, local/remote, queue-wait vs service
+  trace     — hop-level :class:`Span` / :class:`Tracer`: the executor and
+              the serving simulator emit one span per access (hop,
+              server, object, local/remote, queue-wait vs service
               split), ring-buffer sampled head + tail-biased — a query
               that violated its t_Q is never dropped — exportable as
               Chrome ``trace_event`` JSON

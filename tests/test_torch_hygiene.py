@@ -18,6 +18,7 @@ import torch
 
 import repro_torch.core as T
 import repro_torch.distsys as TD
+import repro_torch.serve as TS
 import repro_torch.workload as TW
 from repro_torch.configs import qwen2_7b
 from repro_torch.engine import LatencyEngine, PackedScheme, resolve_backend
@@ -91,6 +92,10 @@ ENTRY_POINTS = {
     "is_feasible_ls": lambda ps, shard, sc: T.is_feasible_ls(
         T.build_ls_instance([[1], [0]], 1), T.ReplicationScheme.from_sharding(
             np.array([0, 1, 1, 0], np.int32), 4)),
+    "simulate": lambda ps, shard, sc: TS.simulate(TD.Cluster(sc), ps),
+    "harness_simulate": lambda ps, shard, sc: TS.harness_simulate(TD.Cluster(sc), ps),
+    "AdaptiveController": lambda ps, shard, sc: TS.AdaptiveController(
+        TD.Cluster(sc), TS.ControllerConfig(t=1)),
 }
 
 
@@ -138,8 +143,13 @@ def test_obs_and_serve_are_importable_without_jax():
     import repro_torch.obs as TO
     import repro_torch.serve as TS
 
-    assert set(TS.__all__) == {"DriftPhase", "PhaseDelta", "path_delta", "drift_stream",
-                               "hotspot_phases", "snb_drift", "gnn_drift", "recsys_drift"}
+    assert set(TS.__all__) == {
+        "AdmissionConfig", "BatchLadder", "BatchStats", "BatchingConfig", "HedgePolicy",
+        "derive_deadlines", "SimReport", "simulate", "harness_simulate", "DriftPhase",
+        "PhaseDelta", "path_delta", "drift_stream", "hotspot_phases", "snb_drift",
+        "gnn_drift", "recsys_drift", "AdaptationReport", "AdaptiveController",
+        "ControllerConfig", "evict_cold_replicas"}
+    assert len(TS.__all__) == 21 and all(hasattr(TS, n) for n in TS.__all__)
     assert isinstance(TO.REGISTRY, TO.MetricsRegistry)
 
 
