@@ -176,6 +176,28 @@ Phases (each prints one JSON line; any failed check exits non-zero):
   bag     ``ops.embedding_bag`` at MIND's widths: a 2^26 x 64 f32 item
           table and 4,096 bags of 50 ids with ~10% padding, in mean and sum,
           against the plain version, timed beside ``F.embedding_bag``.
+  lm_moe  twice: qwen3-moe-235b-a22b (4 MoE layers) and deepseek-v2-236b
+          (its dense layer + 3 MoE layers, MLA) at full width in bf16 from
+          a seeded init.  ``forward`` on 2 x 4,096 tokens (qwen3: with
+          ``use_flash_prefill``, 4 launches all on the tensor-core kernel
+          at G = 16, and without, each layer's attention flash vs torch ops
+          at 3e-2; deepseek: the blockwise MLA branch, no flash launch);
+          ``prefill`` 4 x 1,024 against ``forward`` over exactly those
+          prompts at capacity factor 1.25 (the same drops); a copy at
+          factor E/K + 1, which drops nothing, serving 4 x 512 prompts with
+          16 greedy decode steps, each against ``forward`` (trap g).  Every
+          ``moe_dispatch_plan`` call is recorded: dropped assignments per
+          layer, and between two runs the tokens routed to other experts
+          or dropped elsewhere (trap h), whose logits are reported and not
+          checked; the first MoE layer may differ at no more than 10% of
+          the tokens.  The decode step beside its byte bound (every
+          expert read, trap j); qwen3's flash timed at G = 16 and its f32
+          2-layer flash check at 1e-4.
+  recsys  MIND FULL in f32 (2^26 x 64 items): ``serve_score`` at
+          ``serve_p99`` (512 users x 100 candidates) and ``serve_bulk``
+          (262,144 x 100), ``retrieval_score`` at ``retrieval_cand`` (1 x
+          2^20), each against the same port code on the CPU for the first
+          64 users at 1e-4, and timed.
 The last two lines are the kernels' JSON summary (kernels 1-4 timed at
 the sweep's shapes, and under "main_shape_*" at their paths' median
 rows per launch; ``fused_update`` also under "class_*", the whole-class
@@ -208,6 +230,10 @@ BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
 # std ~1; a 28-layer bf16 model at widths 448 and 896 on the CPU differed by
 # at most 0.090 / 0.098 and 0.014 / 0.015 on average between the branches
 LOGIT_MAX_TOL, LOGIT_MEAN_TOL = 0.5, 0.05
+# bf16 attention against the exact f32 output of the same bf16 q, k, v:
+# max |err| / rms of the output row (row_scaled_err) at most 4 bf16 ulps
+# (2^-7 each) of that row's scale
+FLASH_BF16_REL = 2.0 ** -5
 
 
 def emit(obj) -> None:
@@ -2659,6 +2685,42 @@ def close_err(got, want, tol: float) -> tuple[float, bool]:
     return float(d.max()), bool((d <= tol + tol * want.abs()).all())
 
 
+def row_scaled_err(got, want) -> float:
+    """max |got - want| over the rms of ``want`` across its last axis (hd),
+    taken per (query row, head).  An attention output's scale falls along
+    the sequence (an early row averages few values of v, a late one
+    thousands), so an absolute tolerance, or one rms per head, set at the
+    early rows' scale would pass a late row that lost a whole key tile."""
+    got, want = got.float(), want.float()
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt().clamp_min(1e-30)
+    return float(((got - want).abs() / rms).max())
+
+
+def tile_mutants(q, k, v, h: int, want) -> dict:
+    """How far :func:`row_scaled_err` moves when a kernel loses or repeats
+    one 64-key tile: the exact attention of kv head ``h`` for the last
+    query tile (its 128 rows: the last 128 // G positions), with the keys
+    at the middle of the sequence dropped from its softmax or counted
+    twice, rounded to bf16, against ``want`` (the exact output of the
+    same rows)."""
+    S, G, hd = q.shape[1], q.shape[3], q.shape[4]
+    n = max(128 // G, 1)
+    qh = q[:, S - n:, h].float()                                  # [B, n, G, hd]
+    s = torch.einsum("bqgh,bth->bgqt", qh, k[:, :, h].float()) / hd ** 0.5
+    s = torch.where(torch.arange(S, device=q.device)[None, :]
+                    <= torch.arange(S - n, S, device=q.device)[:, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    k0 = S // 2 // 64 * 64
+    out = {}
+    for name, w in (("tile_dropped", 0.0), ("tile_doubled", 2.0)):
+        pm = p.clone()
+        pm[..., k0:k0 + 64] *= w
+        pm = pm / pm.sum(-1, keepdim=True)
+        mut = torch.einsum("bgqt,bth->bqgh", pm, v[:, :, h].float()).to(q.dtype)
+        out[name] = row_scaled_err(mut, want[:, S - n:, 0])
+    return out
+
+
 def bound(ops: float, nbytes: float, ops_per_s: float) -> dict:
     """The least time for ``ops`` operations at ``ops_per_s`` and ``nbytes``
     moved once at the memory rate, and which of the two bounds it."""
@@ -2693,23 +2755,49 @@ def phase_lm_parity(fp, da, eb, dev) -> dict:
         check(ok, f"{kernel} {case}: kernel vs plain beyond {tol} (max err {err})")
 
     dtypes = ((torch.float32, "float32"), (torch.bfloat16, "bfloat16"))
+    # bf16 flash (decode below too): the kernel against the plain version in f32 on
+    # the same bf16 values (the exact output, not rounded), by
+    # row_scaled_err at FLASH_BF16_REL; at G = 16 also the ratio a kernel
+    # that lost or repeated one key tile would give, which must fail it
+    flash_rel, mutants = {}, {}
     for B, S, KV, G, hd, win in ((2, 256, 2, 4, 64, 0), (1, 128, 1, 8, 32, 0),
                                  (2, 256, 4, 2, 64, 48), (1, 4096, 4, 7, 128, 0),
                                  (1, 2048, 2, 16, 128, 700), (1, 384, 2, 5, 32, 0),
-                                 (1, 8192, 8, 4, 120, 4096)):
+                                 (1, 8192, 8, 4, 120, 4096), (1, 4096, 4, 16, 128, 0)):
         for dt, name in dtypes:
             q = seeded(g, (B, S, KV, G, hd), dt, dev)
             k = seeded(g, (B, S, KV, hd), dt, dev)
             v = seeded(g, (B, S, KV, hd), dt, dev)
             got = fp.flash_prefill(q, k, v, win)
+            case = dict(B=B, S=S, KV=KV, G=G, hd=hd, window=win, dtype=name)
             # the plain version one kv head at a time bounds its [S, S] scores
             for h in range(KV):
-                want = fp.flash_prefill_plain(q[:, :, h:h + 1], k[:, :, h:h + 1],
-                                              v[:, :, h:h + 1], win)
-                record("flash_prefill", dict(B=B, S=S, KV=KV, G=G, hd=hd, window=win,
-                                             dtype=name, kv_head=h),
-                       got[:, :, h:h + 1], want, 3e-2 if dt == torch.bfloat16 else 2e-5)
-            del q, k, v, got, want
+                sl = slice(h, h + 1)
+                if dt == torch.float32:
+                    record("flash_prefill", dict(case, kv_head=h), got[:, :, sl],
+                           fp.flash_prefill_plain(q[:, :, sl], k[:, :, sl], v[:, :, sl], win),
+                           2e-5)
+                    continue
+                want = fp.flash_prefill_plain(q[:, :, sl].float(), k[:, :, sl].float(),
+                                              v[:, :, sl].float(), win)
+                rel = row_scaled_err(got[:, :, sl], want)
+                max_err["flash_prefill"] = max(max_err["flash_prefill"],
+                                               float((got[:, :, sl].float() - want).abs().max()))
+                key = f"B{B}_S{S}_KV{KV}_G{G}_hd{hd}_w{win}"
+                flash_rel[key] = max(flash_rel.get(key, 0.0), rel)
+                check(rel <= FLASH_BF16_REL, f"flash_prefill {case} kv head {h}: error "
+                      f"{rel} of the row rms beyond {FLASH_BF16_REL}")
+                if G == 16 and win == 0 and h == KV - 1:
+                    mutants[key] = tile_mutants(q, k, v, h, want)
+                    for m_name, m_rel in mutants[key].items():
+                        check(m_rel > FLASH_BF16_REL, f"flash_prefill {case}: a kernel with "
+                              f"one key tile {m_name} passes ({m_rel})")
+                del want
+            del q, k, v, got
+    cases["flash_prefill/bfloat16"] = {"check": "row_scaled_err vs the f32 plain version",
+                                       "limit": FLASH_BF16_REL, "by_case": flash_rel,
+                                       "one_tile_mutants": mutants}
+    decode_rel = {}
     for B, KV, G, hd, T, lens in ((2, 2, 4, 64, 300, None), (1, 1, 8, 128, 1024, None),
                                   (3, 4, 1, 64, 77, None),
                                   (9, 4, 7, 128, 4100, [0, 1, 2, 31, 32, 33, 2050, 4099, 4100]),
@@ -2723,10 +2811,22 @@ def phase_lm_parity(fp, da, eb, dev) -> dict:
             q = seeded(g, (B, KV, G, hd), dt, dev)
             k = seeded(g, (B, T, KV, hd), dt, dev)
             v = seeded(g, (B, T, KV, hd), dt, dev)
-            record("decode_attention", dict(B=B, KV=KV, G=G, hd=hd, T=T, dtype=name,
-                                            lengths=lengths.tolist()),
-                   da.decode_attention(q, k, v, lengths), da.decode_attention_plain(q, k, v, lengths),
-                   2e-2 if dt == torch.bfloat16 else 2e-5)
+            case = dict(B=B, KV=KV, G=G, hd=hd, T=T, dtype=name, lengths=lengths.tolist())
+            got = da.decode_attention(q, k, v, lengths)
+            if dt == torch.float32:
+                record("decode_attention", case, got, da.decode_attention_plain(q, k, v, lengths),
+                       2e-5)
+                continue
+            # bf16 as flash: against the f32 plain version, row-scaled
+            want = da.decode_attention_plain(q.float(), k.float(), v.float(), lengths)
+            rel = row_scaled_err(got, want)
+            max_err["decode_attention"] = max(max_err["decode_attention"],
+                                              float((got.float() - want).abs().max()))
+            decode_rel[f"B{B}_KV{KV}_G{G}_hd{hd}_T{T}"] = rel
+            check(rel <= FLASH_BF16_REL, f"decode_attention {case}: error {rel} of the row rms "
+                  f"beyond {FLASH_BF16_REL}")
+    cases["decode_attention/bfloat16"] = {"check": "row_scaled_err vs the f32 plain version",
+                                          "limit": FLASH_BF16_REL, "by_case": decode_rel}
     N, d, B, L = 100_000, 64, 1024, 50
     ids = torch.randint(0, N, (B, L), generator=g, device=dev, dtype=torch.int32)
     ids[torch.rand((B, L), generator=g, device=dev) < 0.1] = -1
@@ -2747,9 +2847,9 @@ def phase_lm_parity(fp, da, eb, dev) -> dict:
     return out
 
 
-def set_flash(model, on: bool) -> None:
-    """Switch ``use_flash_prefill`` on the model and every layer."""
-    cfg = dataclasses.replace(model.cfg, use_flash_prefill=on)
+def set_cfg(model, **changes) -> None:
+    """Replace fields of the config of the model and of every layer."""
+    cfg = dataclasses.replace(model.cfg, **changes)
     for m in (model, *model.layers):
         m.cfg = cfg
 
@@ -2843,9 +2943,9 @@ def phase_lm(TM, qwen2, fp, da, ops, F, counters, dev) -> dict:
         tokens = torch.randint(0, cfg.vocab, (2, 4096), generator=g, device=dev)
         # the main path: counters zeroed just before, read just after
         zero_counts(counters)
-        set_flash(model, True)
+        set_cfg(model, use_flash_prefill=True)
         flash_logits, stage_s["forward_flash"] = synced(lambda: model(tokens))
-        set_flash(model, False)
+        set_cfg(model, use_flash_prefill=False)
         torch_logits, stage_s["forward_torch_ops"] = synced(lambda: model(tokens))
         check(bool(torch.isfinite(flash_logits).all()), "flash forward: non-finite logits")
         check(flash_logits.shape == (*tokens.shape, cfg.vocab), "flash forward: logits malformed")
@@ -2890,9 +2990,9 @@ def phase_lm(TM, qwen2, fp, da, ops, F, counters, dev) -> dict:
         cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
         m32 = TM.Transformer(cfg32, device=dev, generator=torch.Generator(device=dev).manual_seed(2))
         t32 = torch.randint(0, cfg.vocab, (1, 1024), generator=g, device=dev)
-        set_flash(m32, True)
+        set_cfg(m32, use_flash_prefill=True)
         a = m32(t32)
-        set_flash(m32, False)
+        set_cfg(m32, use_flash_prefill=False)
         f32_err, ok = close_err(a, m32(t32), 1e-4)
         check(ok, f"f32 forward flash vs torch ops: max err {f32_err} beyond 1e-4")
         del m32, a
@@ -2957,6 +3057,438 @@ def phase_bag(eb, ops, F, counters, dev) -> dict:
     return out
 
 
+# the MoE LMs at full width, reduced depth (qwen3-moe: 4 MoE layers;
+# deepseek-v2: 1 dense + 3 MoE), and MIND at its published widths
+MOE_DEPTH = 4
+MOE_FORWARD, MOE_PREFILL = (2, 4096), (4, 1024)
+MOE_SERVE_PROMPTS, MOE_SERVE_STEPS = (4, 512), 16
+MIND_CHECK_USERS, MIND_TOL = 64, 1e-4
+# recsys_family's serve and retrieval cells: (users, candidates each, corpus)
+MIND_CELLS = {"serve_p99": (512, 100, 0), "serve_bulk": (262_144, 100, 0),
+              "retrieval_cand": (1, 0, 1 << 20)}
+
+
+class RouteLog:
+    """While active, wraps ``moe_dispatch_plan`` of the transformer module
+    and keeps, per call (one per MoE layer and dispatch chunk), each
+    token's K experts in ascending order and whether each was kept (under
+    capacity): two [T, K] tensors on the card."""
+
+    def __init__(self, TM):
+        self.TM, self.plan_fn, self.calls = TM, TM.moe_dispatch_plan, []
+
+    def __enter__(self):
+        self.TM.moe_dispatch_plan = self.recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.TM.moe_dispatch_plan = self.plan_fn
+
+    def recorded(self, x, router, cfg):
+        plan = self.plan_fn(x, router, cfg)
+        per_token = torch.argsort(plan.t_sorted, stable=True)
+        self.calls.append((plan.e_sorted[per_token].view(-1, cfg.top_k),
+                           plan.keep[per_token].view(-1, cfg.top_k)))
+        return plan
+
+    @contextlib.contextmanager
+    def paused(self):
+        """The plain ``moe_dispatch_plan`` for the timed passes: the model
+        as served, without the wrapper's sort, gathers and kept tensors."""
+        self.TM.moe_dispatch_plan = self.plan_fn
+        try:
+            yield
+        finally:
+            self.TM.moe_dispatch_plan = self.recorded
+
+    def take(self) -> list:
+        calls, self.calls = self.calls, []
+        return calls
+
+
+def route_diffs(a: list, b: list) -> dict:
+    """Two runs' routing over the same tokens: per MoE layer the number of
+    tokens whose expert set differs (router flips) and of those whose kept
+    flags differ at the same experts (a capacity drop moved by another
+    token's flip); and the mask [T] of tokens either touched in any layer."""
+    flips, drops = [], []
+    touched = torch.zeros(a[0][0].shape[0], dtype=torch.bool, device=a[0][0].device)
+    for (ea, ka), (eb, kb) in zip(a, b):
+        f = (ea != eb).any(1)
+        dk = (ka != kb).any(1) & ~f
+        flips.append(int(f.sum()))
+        drops.append(int(dk.sum()))
+        touched |= f | dk
+    return {"router_flips_per_layer": flips, "drop_changes_per_layer": drops,
+            "tokens_touched": int(touched.sum())}, touched
+
+
+def dropped_per_layer(calls: list) -> list:
+    return [int((~keep).sum()) for _, keep in calls]
+
+
+def logit_gap_unperturbed(got, want, touched, what: str) -> dict:
+    """The logit gap over the rows no routing difference touched (checked
+    at the lm phase's tolerance) and over all rows (reported)."""
+    got, want = got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1])
+    keep = ~touched.reshape(-1)
+    check(int(keep.sum()) > 0, f"{what}: every row touched by a routing difference")
+    gap = logit_gap(got[keep], want[keep])
+    check_gap(gap, what)
+    return {"checked_rows": int(keep.sum()), "rows": int(keep.numel()), "gap": gap,
+            "gap_all_rows": logit_gap(got, want)}
+
+
+def check_flip_share(per_layer: list, tokens: int, what: str) -> None:
+    """Routing differences between two runs come from near-tied gates, so
+    they are a small share of the first MoE layer's choices (the later
+    layers add the tokens that an earlier difference already changed); a
+    wrong route on one side would differ at most tokens."""
+    check(per_layer[0] <= 0.1 * tokens,
+          f"{what}: {per_layer[0]} of {tokens} tokens routed differently in the first MoE "
+          f"layer ({per_layer} by layer)")
+
+
+def serve_vs_forward(model, prompts, steps: int, log: RouteLog) -> dict:
+    """Prefill ``prompts`` and decode ``steps`` greedy tokens, then one
+    ``forward`` over the whole sequence: the prefill's last logits and each
+    step's against the forward at the same position, over the rows whose
+    token there no routing difference (flip or moved drop) touched in any
+    layer.  Its times ("route_log_on") include the RouteLog wrapper in
+    every MoE layer; :func:`serve_timed` gives the model's own."""
+    B, S = prompts.shape
+    St = S + steps
+    (cache, lg), prefill_s = synced(lambda: model.prefill(prompts, max_len=St))
+    pre_calls = log.take()
+    step_logits, gen, decode_s, dec_calls = [lg], [lg.argmax(-1)], [], []
+    for _ in range(steps):
+        (cache, lg), sec = synced(lambda: model.decode_step(cache, gen[-1]))
+        decode_s.append(sec)
+        dec_calls.append(log.take())
+        step_logits.append(lg)
+        gen.append(lg.argmax(-1))
+    full = torch.cat([prompts, torch.stack(gen[:steps], dim=1)], dim=1)
+    ref = model(full)
+    ref_calls = log.take()
+    # per layer, the (row, position) tokens routed differently in the two runs
+    touched = torch.zeros((B, St), dtype=torch.bool, device=prompts.device)
+    per_layer = []
+    for li, (fe, fk) in enumerate(ref_calls):
+        fe, fk = fe.view(B, St, -1), fk.view(B, St, -1)
+        pe, pk = pre_calls[li][0].view(B, S, -1), pre_calls[li][1].view(B, S, -1)
+        diff = torch.zeros((B, St), dtype=torch.bool, device=prompts.device)
+        diff[:, :S] = ((fe[:, :S] != pe) | (fk[:, :S] != pk)).any(-1)
+        for i, calls in enumerate(dec_calls):
+            de, dk = calls[li]
+            diff[:, S + i] = ((fe[:, S + i] != de) | (fk[:, S + i] != dk)).any(-1)
+        per_layer.append(int(diff.sum()))
+        touched |= diff
+    gaps = []
+    for i in range(steps + 1):
+        p = S - 1 + i   # the position whose next-token logits step i gives
+        gaps.append(logit_gap_unperturbed(step_logits[i], ref[:, p], touched[:, p],
+                                          "prefill vs forward" if i == 0
+                                          else f"decode step {i} vs forward"))
+    dropped = [dropped_per_layer(c) for c in (pre_calls, *dec_calls, ref_calls)]
+    check(not any(any(d) for d in dropped), f"serve: assignments dropped {dropped}")
+    check_flip_share(per_layer, B * St, "serve vs forward")
+    return {"prompts": [B, S], "decode_steps": steps, "routing_differences_per_layer": per_layer,
+            "route_log_on": {"prefill_s": prefill_s, "decode_step_s": decode_s,
+                             "tokens_per_s": B * steps / sum(decode_s)},
+            "rows_touched_by_step": [g["rows"] - g["checked_rows"] for g in gaps],
+            "gaps_vs_forward": gaps}
+
+
+def serve_timed(model, prompts, steps: int, log: RouteLog) -> dict:
+    """The serve pass of :func:`serve_vs_forward` again with the RouteLog
+    wrapper off, timed: prefill, each greedy decode step, tokens/s."""
+    with log.paused():
+        (cache, lg), prefill_s = synced(lambda: model.prefill(
+            prompts, max_len=prompts.shape[1] + steps))
+        tok, decode_s = lg.argmax(-1), []
+        for _ in range(steps):
+            (cache, lg), sec = synced(lambda: model.decode_step(cache, tok))
+            decode_s.append(sec)
+            tok = lg.argmax(-1)
+    return {"prefill_s": prefill_s, "decode_step_s": decode_s,
+            "tokens_per_s": prompts.shape[0] * steps / sum(decode_s)}
+
+
+def decode_bound(model, cache_bytes: int) -> dict:
+    """A decode step's least time: every layer's weights (all E experts:
+    the step's products run over every expert, trap j), ``lm_head`` and the
+    cache read once at the memory rate."""
+    layer_bytes = sum(p.numel() * p.element_size() for p in model.layers.parameters())
+    expert_bytes = sum(getattr(lay, n).numel() * getattr(lay, n).element_size()
+                       for lay in model.layers if lay.kind == "moe" for n in ("we1", "we2", "we3"))
+    head = model.lm_head.numel() * model.lm_head.element_size()
+    nbytes = layer_bytes + head + cache_bytes
+    return {"bytes": nbytes, "expert_bytes": expert_bytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "experts_only_bound_ms": expert_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def layer_attention_check(TM, fp, model, tokens) -> dict:
+    """Each layer's attention on the same hidden states (those of the
+    torch-op forward): the flash branch and the torch-op branch, each
+    against the exact f32 attention of the layer's bf16 q, k, v (the plain
+    flash version on f32 copies, one kv head at a time), by
+    :func:`row_scaled_err` at FLASH_BF16_REL."""
+    cfg = model.cfg
+    KV, G = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    x = model._embed(tokens)
+    B, S = tokens.shape
+    pos = torch.arange(S, device=tokens.device)
+    out = {"flash": [], "torch_ops": []}
+    for i, layer in enumerate(model.layers):
+        h = TM.rms_norm(x, layer.ln_attn, cfg.norm_eps)
+        q, k, v = layer.qkv(h, pos)
+        q = q.reshape(B, S, KV, G, cfg.hd)
+        got = {name: layer.attend(h, pos, flash=flash)[0].view(B, S, KV, G, cfg.hd)
+               for name, flash in (("flash", True), ("torch_ops", False))}
+        rel = dict.fromkeys(got, 0.0)
+        for j in range(KV):
+            sl = slice(j, j + 1)
+            want = fp.flash_prefill_plain(q[:, :, sl].float(), k[:, :, sl].float(),
+                                          v[:, :, sl].float(), cfg.sliding_window)
+            for name, a in got.items():
+                rel[name] = max(rel[name], row_scaled_err(a[:, :, sl], want))
+            del want
+        for name, r in rel.items():
+            check(r <= FLASH_BF16_REL, f"layer {i}: {name} attention error {r} of the row "
+                  f"rms beyond {FLASH_BF16_REL}")
+            out[name].append(r)
+        del q, k, v, h, got
+        x = layer(x, pos)
+    return out
+
+
+def phase_lm_moe(TM, arch, fp, F, counters, dev) -> dict:
+    """One MoE LM at full width with MOE_DEPTH layers in bf16 from a seeded
+    init: forward 2 x 4,096 (GQA: with and without flash, each layer's
+    attention, flash and torch ops, held against the exact f32 attention;
+    MLA: blockwise torch ops), prefill
+    4 x 1,024 against forward over exactly those prompts at the default
+    capacity factor (the same drops), then a copy whose capacity covers
+    every token serving 4 x 512 prompts with 16 greedy decode steps, each
+    against forward (trap g).  Routing differences between two runs are
+    counted (trap h) and the gaps checked on the rows none touched.  The
+    forwards, the prefill and the serve pass are timed again with the
+    RouteLog wrapper off."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(arch.FULL, n_layers=MOE_DEPTH)
+    stage_s = {}
+    g = torch.Generator(device=dev).manual_seed(21)
+    out = {"phase": "lm_moe", "config": cfg.name, "layers": cfg.layer_kinds(),
+           "dtype": str(cfg.dtype), "capacity_factor": cfg.capacity_factor}
+    gqa = not cfg.is_mla
+    with torch.no_grad(), RouteLog(TM) as log:
+        model, stage_s["init"] = synced(lambda: TM.Transformer(
+            cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0)))
+        out["params"] = sum(p.numel() for p in model.parameters())
+        out["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+        tokens = torch.randint(0, cfg.vocab, MOE_FORWARD, generator=g, device=dev)
+        T = tokens.numel()
+        # the main path: counters zeroed just before, read just after
+        zero_counts(counters)
+        set_cfg(model, use_flash_prefill=gqa)
+        logits, stage_s["forward_flash" if gqa else "forward"] = synced(lambda: model(tokens))
+        launches = read_counts(counters)
+        main_calls = log.take()
+        check(bool(torch.isfinite(logits).all()), "forward: non-finite logits")
+        check(logits.shape == (*tokens.shape, cfg.vocab), "forward: logits malformed")
+        out["dropped_per_layer_forward"] = dropped_per_layer(main_calls)
+        want = cfg.n_layers if gqa else 0   # MLA never takes the flash branch
+        check(launches["flash_prefill"] == launches["flash_prefill_tc"] == want,
+              f"flash_prefill: {launches['flash_prefill_tc']} of {launches['flash_prefill']} "
+              f"launches on the tensor-core kernel, expected {want}")
+        if gqa:
+            set_cfg(model, use_flash_prefill=False)
+            torch_logits, stage_s["forward_torch_ops"] = synced(lambda: model(tokens))
+            diffs, touched = route_diffs(main_calls, log.take())
+            check_flip_share([f + d for f, d in zip(diffs["router_flips_per_layer"],
+                                                    diffs["drop_changes_per_layer"])],
+                             T, "forward flash vs torch ops")
+            out["forward_flash_vs_torch_ops"] = {
+                **diffs, **logit_gap_unperturbed(logits, torch_logits, touched,
+                                                 "forward flash vs torch ops")}
+            del torch_logits
+            out["layer_attention_vs_f32"], stage_s["layer_attention_check"] = \
+                synced(lambda: layer_attention_check(TM, fp, model, tokens))
+            out["layer_attention_vs_f32"]["limit"] = FLASH_BF16_REL
+            log.take()   # the routing of the check's own layer walk
+        del logits
+        # the timed passes run with the RouteLog wrapper off (the model as
+        # served), each after its checked pass, which also paid one-time
+        # set-up (allocator growth at these shapes)
+        timed_s = {"forward": {}}
+        with log.paused():
+            for name, flash in ((("flash", True), ("torch_ops", False)) if gqa else
+                                (("torch_ops", False),)):
+                set_cfg(model, use_flash_prefill=flash)
+                timed_s["forward"][name] = synced(lambda: model(tokens))[1]
+        set_cfg(model, use_flash_prefill=False)
+        # prefill at the default capacity against forward over the prompts
+        prompts = torch.randint(0, cfg.vocab, MOE_PREFILL, generator=g, device=dev)
+        (cache, lg), stage_s["prefill"] = synced(
+            lambda: model.prefill(prompts, max_len=MOE_PREFILL[1]))
+        pre_calls = log.take()
+        ref, stage_s["forward_prompts"] = synced(lambda: model(prompts))
+        diffs, touched = route_diffs(pre_calls, log.take())
+        out["prefill_vs_forward"] = {
+            **diffs, "dropped_per_layer": dropped_per_layer(pre_calls),
+            **logit_gap_unperturbed(lg, ref[:, -1], touched.view(prompts.shape)[:, -1],
+                                    "prefill vs forward (default capacity)")}
+        del cache, ref
+        with log.paused():
+            timed_s["prefill"] = synced(
+                lambda: model.prefill(prompts, max_len=MOE_PREFILL[1]))[1]
+        torch.cuda.empty_cache()
+        # the no-drop copy: capacity >= every token of a forward (trap g)
+        set_cfg(model, capacity_factor=cfg.n_experts / cfg.top_k + 1.0)
+        serve_prompts = torch.randint(0, cfg.vocab, MOE_SERVE_PROMPTS, generator=g, device=dev)
+        out["serve_no_drop"] = serve_vs_forward(model, serve_prompts, MOE_SERVE_STEPS, log)
+        out["serve_no_drop"]["capacity_factor"] = model.cfg.capacity_factor
+        timed_s["serve_no_drop"] = serve_timed(model, serve_prompts, MOE_SERVE_STEPS, log)
+        B, St = MOE_SERVE_PROMPTS[0], MOE_SERVE_PROMPTS[1] + MOE_SERVE_STEPS
+        width = cfg.mla_kv_lora + cfg.mla_rope_dim if cfg.is_mla else 2 * cfg.n_kv_heads * cfg.hd
+        per_token = width * model.embed.element_size() * cfg.n_layers
+        out["cache_bytes_per_token"] = per_token
+        out["decode_bound"] = decode_bound(model, per_token * B * St)
+        out["decode_bound"]["tokens_per_s"] = B / (out["decode_bound"]["bound_ms"] * 1e-3)
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        del model
+        torch.cuda.empty_cache()
+        if gqa:
+            out["flash_timing"] = time_flash(fp, F, cfg, dev)
+            # f32 at full width, 2 layers: the flash branch within 1e-4 of torch ops
+            cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+            m32 = TM.Transformer(cfg32, device=dev,
+                                 generator=torch.Generator(device=dev).manual_seed(2))
+            t32 = torch.randint(0, cfg.vocab, (1, 1024), generator=g, device=dev)
+            set_cfg(m32, use_flash_prefill=True)
+            a = m32(t32)
+            a_calls = log.take()
+            set_cfg(m32, use_flash_prefill=False)
+            b = m32(t32)
+            diffs, touched = route_diffs(a_calls, log.take())
+            f32_err, ok = close_err(a[0][~touched], b[0][~touched], 1e-4)
+            check(ok, f"f32 forward flash vs torch ops: max err {f32_err} beyond 1e-4")
+            out["f32_two_layer_flash_vs_torch_ops"] = {"max_abs": f32_err, "tol": 1e-4, **diffs}
+            del m32, a, b
+            torch.cuda.empty_cache()
+    # stage_s: the checked passes (RouteLog on); timed_s: the model as served
+    out.update(seconds=time.perf_counter() - t0, launches=launches, stage_s=stage_s,
+               timed_s=timed_s, logit_tol={"max_abs": LOGIT_MAX_TOL, "mean_abs": LOGIT_MEAN_TOL})
+    emit(out)
+    return out
+
+
+def mind_batch(cfg, B: int, g, rng, zipf_rows, dev, candidates: int = 0,
+               corpus: int = 0) -> dict:
+    """A batch in ``recsys_family``'s layout: histories of a uniform length
+    in 0 .. hist_len (the first 8 users none), uniform profile features,
+    and ``candidates`` [B, C] or uniform ``candidate_ids`` [N]; history and
+    candidate items drawn by ``workload/recsys.py``'s ``zipf_rows`` from the
+    numpy generator ``rng``."""
+    def items(shape):
+        return torch.from_numpy(zipf_rows(rng, cfg.n_items, shape)).to(dev, torch.int32)
+
+    lens = torch.randint(0, cfg.hist_len + 1, (B,), generator=g, device=dev)
+    lens[:8] = 0
+    batch = {"hist": items((B, cfg.hist_len)),
+             "hist_mask": torch.arange(cfg.hist_len, device=dev)[None] < lens[:, None],
+             "user_feats": torch.randint(0, cfg.n_user_feats, (B, cfg.user_feat_len),
+                                         generator=g, device=dev, dtype=torch.int32)}
+    if candidates:
+        batch["candidates"] = items((B, candidates))
+    if corpus:
+        batch["candidate_ids"] = torch.randint(0, cfg.n_items, (corpus,), generator=g,
+                                               device=dev, dtype=torch.int32)
+    return batch
+
+
+def mind_cpu_twin(RM, model, batch: dict, users: int):
+    """The same port code on the CPU for the first ``users`` users: a MIND
+    whose tables hold just the rows the batch reads (ids remapped), the
+    dense weights copied."""
+    sub = {k: (v if k == "candidate_ids" else v[:users]).cpu() for k, v in batch.items()}
+    keys = [k for k in ("hist", "candidates", "candidate_ids") if k in sub]
+    items, inv = torch.unique(torch.cat([sub[k].clamp_min(0).reshape(-1) for k in keys]),
+                              return_inverse=True)
+    feats, f_inv = torch.unique(sub["user_feats"].reshape(-1), return_inverse=True)
+    cfg = dataclasses.replace(model.cfg, n_items=len(items), n_user_feats=len(feats))
+    twin = RM.MIND(cfg, device="cpu")
+    twin.item_embed.copy_(model.item_embed[items.to(model.item_embed.device)].cpu())
+    twin.user_embed.copy_(model.user_embed[feats.to(model.user_embed.device)].cpu())
+    for name in ("bilinear", "w_hidden", "b_hidden", "w_out", "b_out"):
+        getattr(twin, name).copy_(getattr(model, name).cpu())
+    parts = iter(torch.split(inv, [sub[k].numel() for k in keys]))
+    for k in keys:
+        sub[k] = next(parts).view(sub[k].shape).to(torch.int32)
+    sub["user_feats"] = f_inv.view(sub["user_feats"].shape).to(torch.int32)
+    return twin, sub
+
+
+def phase_recsys(RM, mind, zipf_rows, counters, dev) -> dict:
+    """MIND FULL in f32 (2^26 x 64 items, 2^20 x 64 user features):
+    serve_score at serve_p99 (512 users x 100 candidates) and serve_bulk
+    (262,144 x 100), retrieval_score at retrieval_cand (1 user x 2^20
+    candidates); each held against the same port code on the CPU for the
+    first 64 users at MIND_TOL, and timed."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = mind.FULL
+    g = torch.Generator(device=dev).manual_seed(31)
+    rng = np.random.default_rng(31)
+    with torch.no_grad():
+        model, init_s = synced(lambda: RM.MIND(cfg, device=dev,
+                                               generator=torch.Generator(device=dev).manual_seed(0)))
+        cells = {name: (mind_batch(cfg, users, g, rng, zipf_rows, dev, cands, corpus),
+                        "serve_score" if cands else "retrieval_score")
+                 for name, (users, cands, corpus) in MIND_CELLS.items()}
+        setup_s = time.perf_counter() - t0
+        # the main path: counters zeroed just before, read just after
+        zero_counts(counters)
+        results, call_s = {}, {}
+        for name, (batch, fn) in cells.items():
+            results[name], call_s[name] = synced(lambda: getattr(model, fn)(batch))
+        launches = read_counts(counters)
+        out = {"phase": "recsys", "config": cfg.name, "items": [cfg.n_items, cfg.embed_dim],
+               "user_feats": [cfg.n_user_feats, cfg.embed_dim], "init_s": init_s,
+               "setup_s": setup_s, "first_call_s": call_s, "launches": launches,
+               "tol": MIND_TOL, "cells": {}}
+        for name, (batch, fn) in cells.items():
+            got = results[name]
+            B = batch["hist"].shape[0]
+            n_cand = batch["candidates"].shape[1] if "candidates" in batch \
+                else batch["candidate_ids"].shape[0]
+            check(got.shape == (B, n_cand) and bool(torch.isfinite(got).all()),
+                  f"recsys {name}: scores malformed")
+            users = min(B, MIND_CHECK_USERS)
+            twin, sub = mind_cpu_twin(RM, model, batch, users)
+            err, ok = close_err(got[:users].cpu(), getattr(twin, fn)(sub), MIND_TOL)
+            check(ok, f"recsys {name}: card vs CPU max err {err} beyond {MIND_TOL}")
+            rows = batch["hist"].numel() + (batch["candidates"].numel() if "candidates" in batch
+                                            else n_cand * B)
+            nbytes = (rows * cfg.embed_dim + batch["user_feats"].numel() * cfg.embed_dim) * 4 \
+                + sum(v.numel() * v.element_size() for v in batch.values()) + got.numel() * 4
+            out["cells"][name] = {
+                "fn": fn, "users": B, "candidates": n_cand, "checked_users": users,
+                "users_without_history": int((~batch["hist_mask"].any(1)).sum()),
+                "max_abs_err_vs_cpu": err,
+                **timed("call", lambda: getattr(model, fn)(batch)),
+                "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+            del twin, sub
+        del model, results, cells
+        torch.cuda.empty_cache()
+    out.update(seconds=time.perf_counter() - t0,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    emit(out)
+    return out
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int, err, timing,
                  main_shape: dict | None = None) -> dict:
     """One kernel of the kernels line: "ms", "plain_ms" and "library_ms" time
@@ -2997,7 +3529,7 @@ def main() -> int:
     from repro_torch.engine import engine as engine_core
     import torch.nn.functional as F
 
-    from repro_torch.configs import qwen2_7b
+    from repro_torch.configs import deepseek_v2_236b, mind, qwen2_7b, qwen3_moe_235b_a22b
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import embedding_bag as eb
@@ -3007,7 +3539,9 @@ def main() -> int:
     from repro_torch.kernels import provision_update as pu
     from repro_torch.kernels import prune_walk as pw
     from repro_torch.kernels import routed_walk as rw
+    from repro_torch.models import recsys as RM
     from repro_torch.models import transformer as TM
+    from repro_torch.workload.recsys import zipf_rows
 
     dev = torch.device("cuda")
     counters = [(pl, "LAUNCHES"), (rw, "LAUNCHES"), (rw, "SCORED_LAUNCHES"), (pu, "LAUNCHES"),
@@ -3053,6 +3587,9 @@ def main() -> int:
     lm_par = phase_lm_parity(fp, da, eb, dev)
     lm = phase_lm(TM, qwen2_7b, fp, da, ops, F, counters, dev)
     bag = phase_bag(eb, ops, F, counters, dev)
+    lm_moe = phase_lm_moe(TM, qwen3_moe_235b_a22b, fp, F, counters, dev)
+    phase_lm_moe(TM, deepseek_v2_236b, fp, F, counters, dev)
+    phase_recsys(RM, mind, zipf_rows, counters, dev)
     launches.update(flash_prefill=lm["launches"]["flash_prefill"],
                     decode_attention=lm["launches"]["decode_attention"],
                     embedding_bag=bag["launches"]["embedding_bag"])
@@ -3125,6 +3662,21 @@ def main() -> int:
                             err["path_latency"], tm["path_latency"], at["path_latency"])
     pl_entry.update(planes_launches=planes_launches["path_latency"],
                     serve_controller_launches=serve_ctl["path_latency"])
+    # flash_prefill on qwen2-7b's path (G 7), and on qwen3-moe's (G 16):
+    # its launches in the lm_moe phase's flash forward, timed at that shape
+    flash_entry = kernel_entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
+                               "src/repro/kernels/flash_prefill.py:85", launches["flash_prefill"],
+                               lm_par["max_abs_err"]["flash_prefill"],
+                               lm["timings"]["flash_prefill"])
+    g16 = lm_moe["flash_timing"]
+    flash_entry.update(lm_moe_config=lm_moe["config"],
+                       lm_moe_launches=lm_moe["launches"]["flash_prefill"],
+                       lm_moe_tc_launches=lm_moe["launches"]["flash_prefill_tc"],
+                       lm_moe_shape=g16["shape"], lm_moe_ms=g16["kernel_ms"],
+                       lm_moe_device_ms=g16["kernel_device_ms"], lm_moe_plain_ms=g16["plain_ms"],
+                       lm_moe_library_ms=g16["library_ms"],
+                       lm_moe_library_device_ms=g16["library_device_ms"],
+                       lm_moe_bound_ms=g16["bound_ms"], lm_moe_bound_by=g16["bound_by"])
     emit({"kernels": [
         pl_entry,
         routed_entry,
@@ -3135,9 +3687,7 @@ def main() -> int:
         kernel_entry("embedding_bag", "src/repro_torch/csrc/embedding_bag.cu",
                      "src/repro/kernels/embedding_bag.py:68", launches["embedding_bag"],
                      lm_par["max_abs_err"]["embedding_bag"], bag["timing"]),
-        kernel_entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
-                     "src/repro/kernels/flash_prefill.py:85", launches["flash_prefill"],
-                     lm_par["max_abs_err"]["flash_prefill"], lm["timings"]["flash_prefill"]),
+        flash_entry,
         kernel_entry("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
                      "src/repro/kernels/decode_attention.py:83", launches["decode_attention"],
                      lm_par["max_abs_err"]["decode_attention"],

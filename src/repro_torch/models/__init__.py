@@ -1,8 +1,9 @@
-"""Model definitions (torch): the dense transformer LM family.
+"""Model definitions (torch): the transformer LM family (dense, MoE, MLA)
+and the serving half of the MIND recsys model.
 
-The GNN family and the MIND recsys model of the JAX package are later
-slices of the port.
+MIND's training loss and the GNN family of the JAX package are a later
+slice of the port.
 """
-from repro_torch.models import transformer
+from repro_torch.models import recsys, transformer
 
-__all__ = ["transformer"]
+__all__ = ["recsys", "transformer"]

@@ -1,0 +1,216 @@
+"""MIND multi-interest recsys model [1904.08030] (torch port): the serving half.
+
+The port of ``repro.models.recsys`` without its training loss:
+
+  * **EmbeddingBag**: the ragged form (``indices`` + ``offsets``, the
+    torch.nn.EmbeddingBag layout) and the fixed-shape form (ids + mask)
+    that the model uses.  Both are torch ops (gather, masked sum), as the
+    JAX package's are ``jnp.take`` and sums; the ``embedding_bag`` CUDA
+    kernel (``kernels/embedding_bag.py``) is the port of the Pallas bag,
+    which the model does not call.
+  * **Capsule multi-interest extractor**: behaviour-to-interest dynamic
+    routing, ``capsule_iters`` rounds from a fixed ``sin`` routing-logit
+    init, softmax over the K interests with masked history slots at -1e30,
+    the squash nonlinearity.
+  * **Label-aware attention**, **serve scoring** (users x their candidate
+    lists) and **retrieval scoring** (users x the whole candidate corpus):
+    the max over interests of dot products.
+
+Parameters are the JAX package's names and layout; :func:`load_jax_params`
+carries a JAX parameter tree across.  They do not require gradients:
+``loss_fn`` and training are a later slice of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.engine.streaming import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class MINDConfig:
+    name: str = "mind"
+    n_items: int = 100_000
+    n_user_feats: int = 10_000
+    embed_dim: int = 64
+    n_interests: int = 4
+    capsule_iters: int = 3
+    hist_len: int = 50
+    user_feat_len: int = 8
+    d_hidden: int = 128
+    dtype: Any = torch.float32
+
+    def validate(self) -> None:
+        if self.n_interests < 1 or self.capsule_iters < 1:
+            raise ValueError(f"n_interests {self.n_interests} and capsule_iters "
+                             f"{self.capsule_iters} must be >= 1")
+
+
+# ---------------------------------------------------------------------------
+# EmbeddingBag
+# ---------------------------------------------------------------------------
+def embedding_bag(table: torch.Tensor, indices: torch.Tensor, offsets: torch.Tensor,
+                  mode: str = "mean") -> torch.Tensor:
+    """Ragged EmbeddingBag: pool ``table[indices]`` into per-bag vectors.
+
+    indices: int [nnz] flattened bag contents; offsets: int [n_bags] start
+    of each bag (ascending, the last bag runs to nnz).  Positions before
+    the first offset belong to no bag; an empty bag pools to 0."""
+    nnz, n_bags = indices.shape[0], offsets.shape[0]
+    rows = table[indices.long()]
+    pos = torch.arange(nnz, device=table.device, dtype=offsets.dtype)
+    bag = torch.searchsorted(offsets, pos, right=True) - 1
+    inside = bag >= 0
+    bag, rows = bag[inside], rows[inside]
+    out = table.new_zeros((n_bags, table.shape[1])).index_add_(0, bag, rows)
+    if mode == "mean":
+        cnt = torch.zeros(n_bags, dtype=torch.float32, device=table.device)
+        cnt.index_add_(0, bag, torch.ones(bag.shape[0], device=table.device))
+        out = out / cnt.clamp_min(1.0)[:, None]
+    return out
+
+
+def embedding_bag_dense(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
+                        mode: str = "mean") -> torch.Tensor:
+    """Fixed-shape bag: ids [B, L], mask [B, L] -> [B, d]; negative ids
+    read row 0 (their mask should be False)."""
+    rows = table[ids.clamp_min(0).long()]
+    m = mask.to(rows.dtype)[..., None]
+    s = (rows * m).sum(dim=1)
+    if mode == "mean":
+        s = s / m.sum(dim=1).clamp_min(1.0)
+    return s
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+def shapes(cfg: MINDConfig) -> dict[str, tuple[int, ...]]:
+    d = cfg.embed_dim
+    return {
+        "item_embed": (cfg.n_items, d),
+        "user_embed": (cfg.n_user_feats, d),
+        "bilinear": (d, d),
+        "w_hidden": (2 * d, cfg.d_hidden),
+        "b_hidden": (cfg.d_hidden,),
+        "w_out": (cfg.d_hidden, d),
+        "b_out": (d,),
+    }
+
+
+@torch.no_grad()
+def init_params(model: nn.Module, generator: torch.Generator) -> None:
+    """Random init as the JAX ``init``: ``b_*`` zeros, the embedding tables
+    normal * 0.1, every other weight normal * 1/sqrt(shape[0]).  Drawn in
+    place (a 2^26 x 64 table has no room for a second copy on one card);
+    the draws differ from JAX's."""
+    for name, p in model.named_parameters():
+        if name.startswith("b_"):
+            p.zero_()
+        else:
+            std = 0.1 if "embed" in name else 1.0 / math.sqrt(p.shape[0])
+            p.normal_(0.0, std, generator=generator)
+
+
+# ---------------------------------------------------------------------------
+# Model
+# ---------------------------------------------------------------------------
+def squash(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    n2 = (x * x).sum(dim=dim, keepdim=True)
+    return (n2 / (1.0 + n2)) * x / torch.sqrt(n2 + 1e-9)
+
+
+def multi_interest(bilinear: torch.Tensor, behav_emb: torch.Tensor, mask: torch.Tensor,
+                   cfg: MINDConfig) -> torch.Tensor:
+    """B2I dynamic routing.  behav_emb [B, H, d], mask [B, H] -> [B, K, d]."""
+    B, H, _ = behav_emb.shape
+    K = cfg.n_interests
+    e_hat = behav_emb @ bilinear                                    # [B, H, d]
+    # fixed (non-trainable, deterministic) routing-logit init as in MIND
+    binit = torch.sin(torch.arange(K * H, dtype=torch.float32, device=e_hat.device) * 12.9898)
+    b = binit.reshape(1, K, H).expand(B, K, H)
+    neg = ~mask.bool()[:, None, :]
+    u = None
+    for _ in range(cfg.capsule_iters):
+        w = torch.softmax(torch.where(neg, -1e30, b), dim=1)       # over K
+        u = squash(torch.einsum("bkh,bhd->bkd", w, e_hat))
+        b = b + torch.einsum("bkd,bhd->bkh", u, e_hat)
+    return u
+
+
+def label_aware_attention(interests: torch.Tensor, target_emb: torch.Tensor,
+                          p: float = 2.0) -> torch.Tensor:
+    """MIND label-aware attention: pow-softmax over interests."""
+    s = torch.einsum("bkd,bd->bk", interests, target_emb)
+    w = torch.softmax((s.abs() + 1e-9) ** p * torch.sign(s), dim=-1)
+    return torch.einsum("bk,bkd->bd", w, interests)
+
+
+class MIND(nn.Module):
+    """The MIND model.  ``device`` defaults to CUDA and raises without a
+    card unless ``"cpu"`` is asked for; ``generator`` (on that device)
+    draws the random init, a generator seeded 0 when None.
+
+    A batch is a dict in the layout of ``repro.configs.recsys_family``:
+    ``hist`` int [B, hist_len], ``hist_mask`` bool [B, hist_len],
+    ``user_feats`` int [B, user_feat_len], and ``candidates`` int [B, C]
+    (serve) or ``candidate_ids`` int [N] (retrieval)."""
+
+    def __init__(self, cfg: MINDConfig, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        cfg.validate()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        for name, shape in shapes(cfg).items():
+            self.register_parameter(name, nn.Parameter(
+                torch.empty(shape, dtype=cfg.dtype, device=dev), requires_grad=False))
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        init_params(self, generator)
+
+    def user_tower(self, batch: dict) -> torch.Tensor:
+        """-> interests [B, K, d] (profile-feature conditioned)."""
+        cfg = self.cfg
+        mask = batch["hist_mask"]
+        behav = self.item_embed[batch["hist"].clamp_min(0).long()]
+        behav = behav * mask[..., None].to(behav.dtype)
+        interests = multi_interest(self.bilinear, behav, mask, cfg)
+        feats = batch["user_feats"]
+        profile = embedding_bag_dense(self.user_embed, feats, torch.ones_like(feats), "mean")
+        B, K, d = interests.shape
+        h = torch.cat([interests, profile[:, None].expand(B, K, d)], dim=-1)
+        h = torch.relu(h @ self.w_hidden + self.b_hidden)
+        return h @ self.w_out + self.b_out
+
+    def serve_score(self, batch: dict) -> torch.Tensor:
+        """Online scoring: scores [B, C], each the max over interests of the
+        candidate's dot products."""
+        interests = self.user_tower(batch)                              # [B, K, d]
+        cand = self.item_embed[batch["candidates"].long()]              # [B, C, d]
+        return torch.einsum("bkd,bcd->bkc", interests, cand).amax(dim=1)
+
+    def retrieval_score(self, batch: dict) -> torch.Tensor:
+        """Retrieval: the users against the candidate corpus ``candidate_ids``
+        [N] in one batched product -> scores [B, N]."""
+        interests = self.user_tower(batch)                              # [B, K, d]
+        cand = self.item_embed[batch["candidate_ids"].long()]           # [N, d]
+        return torch.einsum("bkd,nd->bkn", interests, cand).amax(dim=1)
+
+
+@torch.no_grad()
+def load_jax_params(model: MIND, params: dict) -> None:
+    """Load a JAX parameter tree (numpy leaves, e.g.
+    ``jax.tree.map(np.asarray, repro.models.recsys.init(cfg, key))``)."""
+    want = shapes(model.cfg)
+    got = {k: tuple(np.shape(v)) for k, v in params.items()}
+    if got != want:
+        raise ValueError(f"parameter tree {got} does not match the config's {want}")
+    for name, value in params.items():
+        getattr(model, name).copy_(torch.from_numpy(np.array(value, dtype=np.float32)))

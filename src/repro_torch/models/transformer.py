@@ -1,20 +1,33 @@
-"""Dense GQA transformer LM: forward, prefill and decode (torch port).
+"""Transformer LM family: forward, prefill and decode (torch port).
 
-The port of ``repro.models.transformer`` for the dense decoders (qwen2-7b,
-h2o-danube-3-4b, chatglm3-6b): GQA attention with RoPE (full or partial
-rotary), optional QKV bias and sliding window, SwiGLU MLP, a KV cache with
-a ring layout under a sliding window.  The parameter layout is the JAX
-package's (``x @ w`` with ``w`` [in, out]; head h = kv * G + g), one
-``DecoderLayer`` module per layer instead of ``[L, ...]`` scan stacks, so
-:func:`load_jax_params` carries a JAX parameter tree across unchanged.
+The port of ``repro.models.transformer`` for the five decoders the JAX
+package configures, dense (qwen2-7b, h2o-danube-3-4b, chatglm3-6b) and MoE
+(qwen3-moe-235b-a22b, deepseek-v2-236b):
 
-``layer_fwd`` takes the ``flash_prefill`` kernel when
-``cfg.use_flash_prefill`` and S % 128 == 0, as the JAX package does;
-``prefill`` and ``decode_step`` compute attention with torch ops whatever
-the flag says, as the JAX package's versions do.  Sharding constraints
-(``_wsc``) and rematerialisation have no meaning on one card and are not
-ported; the config keeps their fields.  MoE and MLA layers are a later
-slice of the port and raise ``NotImplementedError``.
+  * GQA attention with RoPE (full or partial rotary), optional QKV bias and
+    sliding window, a KV cache with a ring layout under a sliding window;
+  * MLA: a low-rank compressed KV stream (``kv_lora``) with decoupled RoPE
+    dims, attended in the absorbed form, so the cache keeps only ``c_kv``
+    [.., kv_lora] and ``k_rope`` [.., rope];
+  * MoE: token-choice top-k routing through a float32 router, the
+    sort-based dispatch with a per-expert capacity (assignments past it are
+    dropped), optional shared experts; deepseek's leading dense layers come
+    first in the one layer list.
+
+The parameter layout is the JAX package's (``x @ w`` with ``w`` [in, out];
+head h = kv * G + g; expert stacks [E, in, out]), one ``DecoderLayer``
+module per layer instead of the ``dense_layers`` / ``layers`` scan stacks,
+so :func:`load_jax_params` carries a JAX parameter tree across unchanged.
+
+``DecoderLayer.forward`` takes the ``flash_prefill`` kernel for GQA when
+``cfg.use_flash_prefill`` and S % 128 == 0, as the JAX package does (MLA
+never does); ``prefill`` and ``decode_step`` compute attention with torch
+ops whatever the flag says, as the JAX package's versions do.  A MoE
+layer's combine sums each token's K expert contributions in ascending
+expert order in the activations' dtype, the order of the JAX package's
+scatter-add, so results do not depend on atomics.  Sharding constraints
+(``_wsc``), rematerialisation and the chunk checkpoint have no meaning on
+one card and are not ported; the config keeps their fields.
 
 The parameters do not require gradients: this slice serves only.
 """
@@ -22,7 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -44,16 +57,16 @@ class TransformerConfig:
     vocab: int = 1024
     head_dim: int | None = None      # default d_model // n_heads
     max_seq: int = 2048
-    # --- MoE (not ported yet) ---
+    # --- MoE ---
     n_experts: int = 0               # 0 = dense
     top_k: int = 0
-    moe_d_ff: int = 0
+    moe_d_ff: int = 0                # routed-expert hidden
     n_shared_experts: int = 0
     shared_d_ff: int = 0
-    n_dense_layers: int = 0
+    n_dense_layers: int = 0          # leading dense layers (deepseek)
     capacity_factor: float = 1.25
-    moe_chunk: int = 32768
-    # --- MLA (not ported yet) ---
+    moe_chunk: int = 32768           # tokens per dispatch round
+    # --- MLA (deepseek) ---
     mla_kv_lora: int = 0             # 0 = standard GQA
     mla_q_lora: int = 0
     mla_rope_dim: int = 64
@@ -78,7 +91,7 @@ class TransformerConfig:
     attn_block_q: int = 1024         # blockwise attention chunk
     blockwise_from: int = 8192       # use blockwise attention above this S
     loss_chunk: int = 0
-    use_flash_prefill: bool = False  # the flash_prefill kernel for full-seq attention
+    use_flash_prefill: bool = False  # the flash_prefill kernel for full-seq GQA attention
     norm_eps: float = 1e-6
 
     @property
@@ -93,29 +106,77 @@ class TransformerConfig:
     def is_mla(self) -> bool:
         return self.mla_kv_lora > 0
 
+    @property
+    def n_moe_layers(self) -> int:
+        return self.n_layers - self.n_dense_layers if self.is_moe else 0
+
+    def layer_kinds(self) -> list[str]:
+        """Each layer's FFN, in order: a MoE model's leading dense layers
+        (the JAX ``dense_layers`` stack), then its MoE layers."""
+        if not self.is_moe:
+            return ["dense"] * self.n_layers
+        return ["dense"] * self.n_dense_layers + ["moe"] * self.n_moe_layers
+
     def validate(self) -> None:
+        """The JAX config's rules (``TransformerConfig.validate``)."""
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"n_heads {self.n_heads} is not a multiple of "
                              f"n_kv_heads {self.n_kv_heads}")
         if self.is_moe:
-            raise NotImplementedError("MoE layers are not ported yet (a later slice)")
-        if self.is_mla:
-            raise NotImplementedError("MLA attention is not ported yet (a later slice)")
+            if not 0 < self.top_k <= self.n_experts:
+                raise ValueError(f"top_k {self.top_k} is not in 1 .. n_experts "
+                                 f"{self.n_experts}")
+            if not 0 <= self.n_dense_layers < self.n_layers:
+                raise ValueError(f"n_dense_layers {self.n_dense_layers} is not in "
+                                 f"0 .. n_layers - 1 = {self.n_layers - 1}")
 
 
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
-def layer_shapes(cfg: TransformerConfig) -> dict[str, tuple[int, ...]]:
-    """Shapes of one dense decoder layer (the JAX ``_layer_shapes`` without
-    the leading layer axis)."""
+def attn_shapes(cfg: TransformerConfig) -> dict[str, tuple[int, ...]]:
+    """The attention half of one layer (the JAX ``_attn_shapes``)."""
     d, hd, H, KV = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    sh = {"ln_attn": (d,), "ln_mlp": (d,), "wo": (H * hd, d),
-          "wq": (d, H * hd), "wk": (d, KV * hd), "wv": (d, KV * hd)}
-    if cfg.qkv_bias:
-        sh.update(bq=(H * hd,), bk=(KV * hd,), bv=(KV * hd,))
-    sh.update(w1=(d, cfg.d_ff), w3=(d, cfg.d_ff), w2=(cfg.d_ff, d))
+    sh = {"ln_attn": (d,), "ln_mlp": (d,),
+          "wo": (H * (cfg.mla_v_dim if cfg.is_mla else hd), d)}
+    if cfg.is_mla:
+        qd = cfg.mla_nope_dim + cfg.mla_rope_dim
+        if cfg.mla_q_lora:
+            sh.update(w_dq=(d, cfg.mla_q_lora), w_uq=(cfg.mla_q_lora, H * qd))
+        else:
+            sh["wq"] = (d, H * qd)
+        sh.update(w_dkv=(d, cfg.mla_kv_lora + cfg.mla_rope_dim),
+                  w_uk=(cfg.mla_kv_lora, H * cfg.mla_nope_dim),
+                  w_uv=(cfg.mla_kv_lora, H * cfg.mla_v_dim))
+    else:
+        sh.update(wq=(d, H * hd), wk=(d, KV * hd), wv=(d, KV * hd))
+        if cfg.qkv_bias:
+            sh.update(bq=(H * hd,), bk=(KV * hd,), bv=(KV * hd,))
     return sh
+
+
+def layer_shapes(cfg: TransformerConfig, kind: str = "dense") -> dict[str, tuple[int, ...]]:
+    """Shapes of one decoder layer of ``kind`` ``"dense"`` (SwiGLU MLP) or
+    ``"moe"`` (routed experts [+ shared]): the JAX ``_layer_shapes``
+    without the leading layer axis."""
+    d = cfg.d_model
+    sh = attn_shapes(cfg)
+    if kind == "dense":
+        sh.update(w1=(d, cfg.d_ff), w3=(d, cfg.d_ff), w2=(cfg.d_ff, d))
+    elif kind == "moe":
+        E, f = cfg.n_experts, cfg.moe_d_ff
+        sh.update(router=(d, E), we1=(E, d, f), we3=(E, d, f), we2=(E, f, d))
+        if cfg.n_shared_experts:
+            sff = cfg.shared_d_ff or cfg.n_shared_experts * cfg.moe_d_ff
+            sh.update(ws1=(d, sff), ws3=(d, sff), ws2=(sff, d))
+    else:
+        raise ValueError(f"unknown layer kind {kind!r}")
+    return sh
+
+
+def param_dtype(name: str, cfg: TransformerConfig) -> torch.dtype:
+    """The router is float32 whatever ``cfg.dtype`` is, as in the JAX package."""
+    return torch.float32 if name == "router" else cfg.dtype
 
 
 def top_shapes(cfg: TransformerConfig) -> dict[str, tuple[int, ...]]:
@@ -123,16 +184,16 @@ def top_shapes(cfg: TransformerConfig) -> dict[str, tuple[int, ...]]:
             "lm_head": (cfg.d_model, cfg.vocab)}
 
 
-def _param(shape, cfg, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=cfg.dtype, device=device),
-                        requires_grad=False)
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
 
 
 @torch.no_grad()
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """Random init as the JAX ``init``: ``ln_*`` ones, ``b*`` zeros, every
-    other weight normal * 1/sqrt(fan_in) (fan_in = shape[-2]) drawn in f32
-    and cast to the parameter's dtype.  The draws differ from JAX's."""
+    other weight (the 3-D expert stacks too) normal * 1/sqrt(fan_in)
+    (fan_in = shape[-2]) drawn in f32 and cast to the parameter's dtype.
+    The draws differ from JAX's."""
     for full, p in model.named_parameters():
         name = full.rsplit(".", 1)[-1]
         if name.startswith("ln_"):
@@ -179,13 +240,20 @@ def _attn_mask(q_pos, k_pos, window: int) -> torch.Tensor:
     return m
 
 
+def _query_blocks(S: int, block_q: int, blockwise_from: int) -> list[slice]:
+    """One slice over the whole sequence, or query blocks of ``block_q``
+    above ``blockwise_from`` (when they divide S), so the [S, T] scores
+    never fully exist."""
+    if S <= blockwise_from or S % block_q != 0:
+        return [slice(0, S)]
+    return [slice(i, i + block_q) for i in range(0, S, block_q)]
+
+
 def attention(q, k, v, q_pos, k_pos, window: int = 0,
               block_q: int = 1024, blockwise_from: int = 8192) -> torch.Tensor:
     """GQA attention with torch ops.  q: [B,S,H,hd], k/v: [B,T,KV,hd] ->
-    [B,S,H,hd].  Above ``blockwise_from`` (and S % block_q == 0) the query
-    blocks run one at a time, so the [S, T] scores never fully exist.
-    Products are taken in f32 from the inputs' values and ``p`` is cast to
-    ``v.dtype`` before PV, as in the JAX package."""
+    [B,S,H,hd].  Products are taken in f32 from the inputs' values and
+    ``p`` is cast to ``v.dtype`` before PV, as in the JAX package."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -199,12 +267,45 @@ def attention(q, k, v, q_pos, k_pos, window: int = 0,
         p = torch.softmax(s, dim=-1).to(v.dtype)
         return torch.einsum("bkgqt,btkh->bqkgh", p.float(), v32)
 
-    if S <= blockwise_from or S % block_q != 0:
-        out = blk(qg, q_pos)
-    else:
-        out = torch.cat([blk(qg[:, i:i + block_q], q_pos[i:i + block_q])
-                         for i in range(0, S, block_q)], dim=1)
+    out = torch.cat([blk(qg[:, sl], q_pos[sl])
+                     for sl in _query_blocks(S, block_q, blockwise_from)], dim=1)
     return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def mla_attention(q_nope, q_rope, c_kv, k_rope, w_uk, w_uv, cfg: TransformerConfig,
+                  q_pos, k_pos, k_valid=None) -> torch.Tensor:
+    """Absorbed MLA attention over the compressed stream (the JAX
+    ``_mla_attention``):
+
+      score = ((q_nope W_uk^T) . c_kv + q_rope . k_rope) / sqrt(nope + rope)
+      out_h = softmax(score) . c_kv @ W_uv_h
+
+    q_nope [B,S,H,nope], q_rope [B,S,H,rope], c_kv [B,T,kv_lora],
+    k_rope [B,T,rope] -> [B,S,H,v_dim] in ``cfg.dtype``.  Scores and the
+    context are f32 products of the operands' values, ``q_nope W_uk^T`` is
+    rounded to ``c_kv``'s dtype first and the softmax weights before the
+    context, as in the JAX package; blockwise above ``cfg.blockwise_from``.
+    ``k_valid`` [T] masks cache slots (decode)."""
+    B, S, H, nd = q_nope.shape
+    Lr = cfg.mla_kv_lora
+    q_abs = torch.einsum("bshn,lhn->bshl", q_nope.float(), w_uk.reshape(Lr, H, nd).float())
+    scale = 1.0 / math.sqrt(nd + cfg.mla_rope_dim)
+    c32, r32 = c_kv.float(), k_rope.float()
+
+    def blk(qa, qr, qpb):
+        s = torch.einsum("bshl,btl->bhst", qa.to(c_kv.dtype).float(), c32)
+        s = (s + torch.einsum("bshr,btr->bhst", qr.float(), r32)) * scale
+        mask = _attn_mask(qpb, k_pos, cfg.sliding_window)
+        if k_valid is not None:
+            mask = mask & k_valid[None, :]
+        s = torch.where(mask, s, -1e30)
+        p = torch.softmax(s, dim=-1).to(c_kv.dtype)
+        return torch.einsum("bhst,btl->bshl", p.float(), c32)
+
+    ctx = torch.cat([blk(q_abs[:, sl], q_rope[:, sl], q_pos[sl])
+                     for sl in _query_blocks(S, cfg.attn_block_q, cfg.blockwise_from)], dim=1)
+    out = torch.einsum("bshl,lhv->bshv", ctx, w_uv.reshape(Lr, H, cfg.mla_v_dim).float())
+    return out.to(cfg.dtype)
 
 
 def swiglu(x, w1, w3, w2):
@@ -212,16 +313,109 @@ def swiglu(x, w1, w3, w2):
 
 
 # ---------------------------------------------------------------------------
+# MoE: token-choice top-k with the static-shape sort-based dispatch
+# ---------------------------------------------------------------------------
+def moe_capacity(T: int, cfg: TransformerConfig) -> int:
+    """Slots per expert for a chunk of T tokens, as the JAX package
+    computes it (in this order, in Python floats); at T <= 256 (decode,
+    tiny batches) it covers every token, so serving never drops."""
+    C = max(int(T * cfg.top_k / cfg.n_experts * cfg.capacity_factor), 1)
+    return max(C, T) if T <= 256 else C
+
+
+class DispatchPlan(NamedTuple):
+    """One chunk's routing: the T * K (token, expert) assignments sorted
+    stably by expert.  ``pos_in_e`` is an assignment's slot in its expert's
+    buffer, ``keep`` whether that slot is below ``capacity``; ``gates`` are
+    the renormalised top-k gates in the same order."""
+    e_sorted: torch.Tensor   # int64 [T*K]
+    t_sorted: torch.Tensor   # int64 [T*K]
+    pos_in_e: torch.Tensor   # int64 [T*K]
+    keep: torch.Tensor       # bool [T*K]
+    gates: torch.Tensor      # f32 [T*K]
+    capacity: int
+
+
+def moe_dispatch_plan(x: torch.Tensor, router: torch.Tensor,
+                      cfg: TransformerConfig) -> DispatchPlan:
+    """The JAX ``_moe_ffn_chunk``'s routing for x [T, d]: an f32 router,
+    softmax, top-k, the gates renormalised, then the stable sort of the
+    flat expert ids, the per-expert counts and each assignment's slot."""
+    T = x.shape[0]
+    E, K = cfg.n_experts, cfg.top_k
+    gates = torch.softmax(x.float() @ router, dim=-1)
+    top_g, top_e = torch.topk(gates, K, dim=-1)
+    top_g = top_g / top_g.sum(-1, keepdim=True).clamp_min(1e-9)
+    flat_e = top_e.reshape(-1)
+    flat_t = torch.arange(T, device=x.device).repeat_interleave(K)
+    order = torch.argsort(flat_e, stable=True)
+    e_sorted = flat_e[order]
+    counts = torch.bincount(flat_e, minlength=E)
+    starts = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(T * K, device=x.device) - starts[e_sorted]
+    C = moe_capacity(T, cfg)
+    return DispatchPlan(e_sorted, flat_t[order], pos_in_e, pos_in_e < C,
+                        top_g.reshape(-1)[order], C)
+
+
+def _moe_ffn_chunk(x: torch.Tensor, lp: nn.Module, cfg: TransformerConfig) -> torch.Tensor:
+    """x: [T, d] -> [T, d]: dispatch into the [E, C, d] buffer (overflow
+    past capacity drops), the expert SwiGLUs as batched products over all
+    E experts, the gated combine, then the shared experts."""
+    T, d = x.shape
+    K = cfg.top_k
+    plan = moe_dispatch_plan(x, lp.router, cfg)
+    keep = plan.keep
+    buf = x.new_zeros((cfg.n_experts, plan.capacity, d))
+    buf[plan.e_sorted[keep], plan.pos_in_e[keep]] = x[plan.t_sorted[keep]]
+    h = F.silu(torch.bmm(buf, lp.we1)) * torch.bmm(buf, lp.we3)
+    y_e = torch.bmm(h, lp.we2)                                      # [E, C, d]
+    contrib = y_e[torch.where(keep, plan.e_sorted, 0), torch.where(keep, plan.pos_in_e, 0)]
+    contrib = contrib * (plan.gates * keep).to(contrib.dtype)[:, None]
+    # each token's K contributions in the sorted order (ascending expert),
+    # added one at a time in their dtype: the JAX scatter-add's order
+    per_token = torch.argsort(plan.t_sorted, stable=True).view(T, K)
+    y = contrib[per_token[:, 0]]
+    for j in range(1, K):
+        y = y + contrib[per_token[:, j]]
+    if cfg.n_shared_experts:
+        y = y + swiglu(x, lp.ws1, lp.ws3, lp.ws2)
+    return y.to(x.dtype)
+
+
+def moe_ffn(x: torch.Tensor, lp: nn.Module, cfg: TransformerConfig,
+            bs: tuple[int, int] | None = None) -> torch.Tensor:
+    """x: [T, d] -> [T, d].  Above ``cfg.moe_chunk`` tokens, with ``bs`` =
+    (B, S) given and S a multiple of s_ck = max(moe_chunk // B, 1), the
+    dispatch runs on sequence chunks of s_ck (capacity per chunk), as in
+    the JAX package; ``decode_step`` passes no ``bs`` and is never chunked."""
+    T, d = x.shape
+    chunk = cfg.moe_chunk
+    if not chunk or T <= chunk or bs is None:
+        return _moe_ffn_chunk(x, lp, cfg)
+    B, S = bs
+    s_ck = max(chunk // B, 1)
+    if S % s_ck != 0:
+        return _moe_ffn_chunk(x, lp, cfg)
+    xs = x.reshape(B, S // s_ck, s_ck, d)
+    ys = [_moe_ffn_chunk(xs[:, i].reshape(B * s_ck, d), lp, cfg).reshape(B, s_ck, d)
+          for i in range(S // s_ck)]
+    return torch.stack(ys, dim=1).reshape(T, d)
+
+
+# ---------------------------------------------------------------------------
 # Modules
 # ---------------------------------------------------------------------------
 class DecoderLayer(nn.Module):
-    """One dense decoder layer; parameters named as the JAX layer stack's."""
+    """One decoder layer of ``kind`` "dense" or "moe"; parameters named as
+    the JAX layer stacks'."""
 
-    def __init__(self, cfg: TransformerConfig, device):
+    def __init__(self, cfg: TransformerConfig, device, kind: str = "dense"):
         super().__init__()
         self.cfg = cfg
-        for name, shape in layer_shapes(cfg).items():
-            self.register_parameter(name, _param(shape, cfg, device))
+        self.kind = kind
+        for name, shape in layer_shapes(cfg, kind).items():
+            self.register_parameter(name, _param(shape, param_dtype(name, cfg), device))
 
     def qkv(self, x, positions):
         """The JAX ``_qkv_gqa``: projections, optional bias, RoPE."""
@@ -237,32 +431,67 @@ class DecoderLayer(nn.Module):
         rd = int(cfg.rotary_pct * hd)
         return rope(q, positions, cfg.rope_theta, rd), rope(k, positions, cfg.rope_theta, rd), v
 
-    def mlp(self, x):
-        """x + SwiGLU(rms_norm(x)): the second half of the layer."""
-        B, S, d = x.shape
-        h = rms_norm(x, self.ln_mlp, self.cfg.norm_eps)
-        return x + swiglu(h.reshape(B * S, d), self.w1, self.w3, self.w2).reshape(B, S, d)
-
-    def forward(self, x, positions):
-        """The JAX ``layer_fwd``: one layer over the full sequence."""
+    def qkv_mla(self, x, positions):
+        """The JAX ``_qkv_mla``: (q_nope, q_rope, c_kv, k_rope); the last
+        two are the cacheable compressed stream."""
         cfg = self.cfg
         B, S, _ = x.shape
-        h = rms_norm(x, self.ln_attn, cfg.norm_eps)
+        nd, rd = cfg.mla_nope_dim, cfg.mla_rope_dim
+        q = (x @ self.w_dq) @ self.w_uq if cfg.mla_q_lora else x @ self.wq
+        q = q.reshape(B, S, cfg.n_heads, nd + rd)
+        q_rope = rope(q[..., nd:], positions, cfg.rope_theta)
+        ckv = x @ self.w_dkv
+        k_rope = rope(ckv[..., cfg.mla_kv_lora:][:, :, None, :], positions, cfg.rope_theta)
+        return q[..., :nd], q_rope, ckv[..., :cfg.mla_kv_lora], k_rope[:, :, 0]
+
+    def attend(self, h, positions, flash: bool = False):
+        """Full-sequence attention of the normed input h [B, S, d]:
+        (output [B, S, H * v_dim] before ``wo``, the layer's cache entries
+        (k, v) or (c_kv, k_rope)).  ``flash`` takes the flash_prefill
+        kernel (GQA, S % 128 == 0)."""
+        cfg = self.cfg
+        B, S, _ = h.shape
+        if cfg.is_mla:
+            qn, qr, ckv, kr = self.qkv_mla(h, positions)
+            attn = mla_attention(qn, qr, ckv, kr, self.w_uk, self.w_uv, cfg,
+                                 positions, positions)
+            return attn.reshape(B, S, -1), (ckv, kr)
         q, k, v = self.qkv(h, positions)
-        if cfg.use_flash_prefill and S % 128 == 0:
+        if flash:
             KV = cfg.n_kv_heads
             qg = q.reshape(B, S, KV, cfg.n_heads // KV, cfg.hd)
             attn = ops.flash_prefill(qg, k, v, window=cfg.sliding_window)
         else:
             attn = attention(q, k, v, positions, positions, cfg.sliding_window,
                              cfg.attn_block_q, cfg.blockwise_from)
-        return self.mlp(x + attn.reshape(B, S, -1) @ self.wo)
+        return attn.reshape(B, S, -1), (k, v)
+
+    def ffn(self, x, bs: tuple[int, int] | None = None):
+        """The JAX ``_ffn`` on normed tokens x [T, d]."""
+        if self.kind == "moe":
+            return moe_ffn(x, self, self.cfg, bs)
+        return swiglu(x, self.w1, self.w3, self.w2)
+
+    def mlp(self, x):
+        """x + FFN(rms_norm(x)) over a full sequence x [B, S, d]."""
+        B, S, d = x.shape
+        h = rms_norm(x, self.ln_mlp, self.cfg.norm_eps)
+        return x + self.ffn(h.reshape(B * S, d), (B, S)).reshape(B, S, d)
+
+    def forward(self, x, positions):
+        """The JAX ``layer_fwd``: one layer over the full sequence."""
+        cfg = self.cfg
+        h = rms_norm(x, self.ln_attn, cfg.norm_eps)
+        flash = cfg.use_flash_prefill and not cfg.is_mla and x.shape[1] % 128 == 0
+        attn, _ = self.attend(h, positions, flash)
+        return self.mlp(x + attn @ self.wo)
 
 
 class Transformer(nn.Module):
-    """The dense LM.  ``device`` defaults to CUDA and raises without a card
+    """The LM.  ``device`` defaults to CUDA and raises without a card
     unless ``"cpu"`` is asked for; ``generator`` (a ``torch.Generator`` on
-    that device) draws the random init, a generator seeded 0 when None."""
+    that device) draws the random init, a generator seeded 0 when None.
+    ``layers`` holds every layer, a MoE model's dense ones first."""
 
     def __init__(self, cfg: TransformerConfig, device=None,
                  generator: torch.Generator | None = None):
@@ -271,8 +500,8 @@ class Transformer(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         for name, shape in top_shapes(cfg).items():
-            self.register_parameter(name, _param(shape, cfg, dev))
-        self.layers = nn.ModuleList(DecoderLayer(cfg, dev) for _ in range(cfg.n_layers))
+            self.register_parameter(name, _param(shape, cfg.dtype, dev))
+        self.layers = nn.ModuleList(DecoderLayer(cfg, dev, kind) for kind in cfg.layer_kinds())
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         init_params(self, generator)
@@ -297,7 +526,7 @@ class Transformer(nn.Module):
         return (self.hidden_states(tokens, positions) @ self.lm_head).float()
 
     def prefill(self, tokens, max_len: int):
-        """Run the prompt ``tokens`` [B, S], building the KV cache.
+        """Run the prompt ``tokens`` [B, S], building the cache.
 
         Returns (cache, logits f32 [B, vocab] of the last position).  Under
         a sliding window the cache keeps the last min(window, max_len)
@@ -307,34 +536,35 @@ class Transformer(nn.Module):
         x = self._embed(tokens)
         pos = torch.arange(S, device=x.device)
         win = cfg.sliding_window
-        cache = cache_init(cfg, B, max_len, x.device)
-        eff = cache["k"].shape[2]
+        eff = min(win, max_len) if win > 0 else max_len
+        cache = _cache_alloc(cfg, B, eff, x.device)
+        bufs = (cache["c_kv"], cache["k_rope"]) if cfg.is_mla else (cache["k"], cache["v"])
         take = min(S, eff)
         roll = S % eff if S >= eff else 0
         for i, layer in enumerate(self.layers):
             h = rms_norm(x, layer.ln_attn, cfg.norm_eps)
-            q, k, v = layer.qkv(h, pos)
-            attn = attention(q, k, v, pos, pos, win, cfg.attn_block_q, cfg.blockwise_from)
-            for buf, full in ((cache["k"][i], k), (cache["v"][i], v)):
+            attn, stash = layer.attend(h, pos)
+            for buf, full in zip((bufs[0][i], bufs[1][i]), stash):
                 buf[:, :take] = full[:, S - take:]
                 if roll:
                     buf.copy_(torch.roll(buf, roll, dims=1))
-            x = layer.mlp(x + attn.reshape(B, S, -1) @ layer.wo)
+            x = layer.mlp(x + attn @ layer.wo)
         cache["index"] = S
         return cache, self._logits(x[:, -1])
 
     def decode_step(self, cache: dict, tokens):
         """One-token decode: ``tokens`` [B] -> (cache, logits f32 [B, vocab]).
 
-        Writes the new K/V into ``cache`` in place at the ring slot
-        (index % cache length), attends over the slots whose global
-        position is valid (and inside the window), and advances
-        ``cache["index"]``."""
+        Writes the new cache entries in place at the ring slot (index %
+        cache length), attends over the slots whose global position is
+        valid (and inside the window), and advances ``cache["index"]``.  A
+        MoE layer dispatches the B tokens unchunked (capacity >= B at
+        B <= 256)."""
         cfg = self.cfg
         B = tokens.shape[0]
         x = self._embed(tokens)[:, None, :]
         idx = cache["index"]
-        T = cache["k"].shape[2]
+        T = (cache["c_kv"] if cfg.is_mla else cache["k"]).shape[2]
         slot = idx % T
         dev = x.device
         pos_now = torch.full((B, 1), idx, dtype=torch.int32, device=dev)
@@ -346,50 +576,82 @@ class Transformer(nn.Module):
         KV, G, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
         for i, layer in enumerate(self.layers):
             h = rms_norm(x, layer.ln_attn, cfg.norm_eps)
-            q, k_new, v_new = layer.qkv(h, pos_now)
-            k_l, v_l = cache["k"][i], cache["v"][i]
-            k_l[:, slot] = k_new[:, 0]
-            v_l[:, slot] = v_new[:, 0]
-            qg = q.reshape(B, 1, KV, G, hd)
-            s = torch.einsum("bqkgh,btkh->bkgqt", qg.float(), k_l.float()) / math.sqrt(hd)
-            s = torch.where(k_valid, s, -1e30)
-            p = torch.softmax(s, dim=-1).to(v_l.dtype)
-            o = torch.einsum("bkgqt,btkh->bqkgh", p.float(), v_l.float())
-            x = layer.mlp(x + o.to(cfg.dtype).reshape(B, 1, -1) @ layer.wo)
+            if cfg.is_mla:
+                qn, qr, c_new, r_new = layer.qkv_mla(h, pos_now)
+                c_l, r_l = cache["c_kv"][i], cache["k_rope"][i]
+                c_l[:, slot] = c_new[:, 0]
+                r_l[:, slot] = r_new[:, 0]
+                attn = mla_attention(qn, qr, c_l, r_l, layer.w_uk, layer.w_uv, cfg,
+                                     pos_now[0], k_pos, k_valid)
+            else:
+                q, k_new, v_new = layer.qkv(h, pos_now)
+                k_l, v_l = cache["k"][i], cache["v"][i]
+                k_l[:, slot] = k_new[:, 0]
+                v_l[:, slot] = v_new[:, 0]
+                qg = q.reshape(B, 1, KV, G, hd)
+                s = torch.einsum("bqkgh,btkh->bkgqt", qg.float(), k_l.float()) / math.sqrt(hd)
+                s = torch.where(k_valid, s, -1e30)
+                p = torch.softmax(s, dim=-1).to(v_l.dtype)
+                attn = torch.einsum("bkgqt,btkh->bqkgh", p.float(), v_l.float()).to(cfg.dtype)
+            x = x + attn.reshape(B, 1, -1) @ layer.wo
+            h2 = rms_norm(x, layer.ln_mlp, cfg.norm_eps)
+            x = x + layer.ffn(h2.reshape(B, -1)).reshape(B, 1, -1)
         cache["index"] = idx + 1
         return cache, self._logits(x[:, 0])
 
 
+def _cache_alloc(cfg: TransformerConfig, batch: int, slots: int, dev) -> dict:
+    L = cfg.n_layers
+
+    def zeros(*shape):
+        return torch.zeros((L, batch, slots, *shape), dtype=cfg.dtype, device=dev)
+
+    if cfg.is_mla:
+        return {"c_kv": zeros(cfg.mla_kv_lora), "k_rope": zeros(cfg.mla_rope_dim), "index": 0}
+    return {"k": zeros(cfg.n_kv_heads, cfg.hd), "v": zeros(cfg.n_kv_heads, cfg.hd), "index": 0}
+
+
 def cache_init(cfg: TransformerConfig, batch: int, max_len: int, device=None) -> dict:
-    """Zeroed KV cache: k, v [L, B, min(window, max_len) or max_len, KV, hd]
-    in ``cfg.dtype``, and ``index`` (the next position) 0."""
+    """Zeroed cache in ``cfg.dtype`` with ``index`` (the next position) 0,
+    shaped as the JAX ``cache_shapes``: GQA k, v [L, B, min(window, max_len)
+    or max_len, KV, hd]; MLA c_kv [L, B, max_len, kv_lora] and k_rope
+    [L, B, max_len, rope].  Layer i runs across both stacks, dense first."""
     dev = resolve_device(device)
-    eff = min(cfg.sliding_window, max_len) if cfg.sliding_window else max_len
-    shape = (cfg.n_layers, batch, eff, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev), "index": 0}
+    win = cfg.sliding_window
+    slots = min(win, max_len) if win and not cfg.is_mla else max_len
+    return _cache_alloc(cfg, batch, slots, dev)
 
 
 @torch.no_grad()
 def load_jax_params(model: Transformer, params: dict) -> None:
     """Load a JAX parameter tree (numpy leaves, e.g.
     ``jax.tree.map(np.asarray, repro.models.transformer.init(cfg, key))``)
-    into ``model``, unstacking the ``[L, ...]`` layer stacks.  Leaves go
-    through f32, which holds every bf16 value exactly (``torch.from_numpy``
-    rejects numpy's bf16 type)."""
+    into ``model``, unstacking the ``[L, ...]`` stacks (``dense_layers``
+    then ``layers``) into ``model.layers`` in order.  Leaves go through
+    f32, which holds every bf16 value exactly (``torch.from_numpy`` rejects
+    numpy's bf16 type); each parameter keeps its dtype (the router f32)."""
     def tensor(a):
         return torch.from_numpy(np.array(a, dtype=np.float32))
 
-    top = set(top_shapes(model.cfg))
-    stacked = set(layer_shapes(model.cfg))
-    if set(params) != top | {"layers"} or set(params["layers"]) != stacked:
-        raise ValueError(f"parameter tree {sorted(params)} / {sorted(params.get('layers', {}))} "
-                         f"does not match the dense config's {sorted(top)} / {sorted(stacked)}")
+    cfg = model.cfg
+    nd = cfg.n_dense_layers if cfg.is_moe else 0
+    stacks = {}  # JAX stack name -> (layer kind, its layers in model.layers)
+    if nd:
+        stacks["dense_layers"] = ("dense", model.layers[:nd])
+    stacks["layers"] = ("moe" if cfg.is_moe else "dense", model.layers[nd:])
+    top = set(top_shapes(cfg))
+    want = {key: set(layer_shapes(cfg, kind)) for key, (kind, _) in stacks.items()}
+    if set(params) != top | set(want) or any(set(params[k]) != v for k, v in want.items()):
+        got = {k: sorted(v) if isinstance(v, dict) else "leaf" for k, v in params.items()}
+        raise ValueError(f"parameter tree {got} does not match the config's "
+                         f"{sorted(top)} + {({k: sorted(v) for k, v in want.items()})}")
     for name in top:
         getattr(model, name).copy_(tensor(params[name]))
-    for name in stacked:
-        stack = tensor(params["layers"][name])
-        if stack.shape[0] != len(model.layers):
-            raise ValueError(f"{name}: {stack.shape[0]} layers, model has {len(model.layers)}")
-        for layer, w in zip(model.layers, stack):
-            getattr(layer, name).copy_(w)
+    for key, (_, layers) in stacks.items():
+        for name in want[key]:
+            stack = tensor(params[key][name])
+            if stack.shape[0] != len(layers):
+                raise ValueError(f"{key}.{name}: {stack.shape[0]} layers, the model has "
+                                 f"{len(layers)}")
+            for layer, w in zip(layers, stack):
+                getattr(layer, name).copy_(w)

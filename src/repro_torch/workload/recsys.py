@@ -28,6 +28,12 @@ from repro_torch.workload.analyzer import batched, materialize
 TENANT = TenantSpec("recsys", t_q=0)
 
 
+def zipf_rows(rng: np.random.Generator, n: int, size, a: float = 1.3) -> np.ndarray:
+    """Row ids in [0, n) of zipf(``a``) popularity, the draw behind every
+    request's behaviours and candidates in :func:`recsys_workload`."""
+    return rng.zipf(a, size=size) % n
+
+
 def recsys_request_paths(
     user_row: int,
     behavior_rows: np.ndarray,
@@ -61,8 +67,8 @@ def recsys_workload(
     users = rng.integers(0, n_users, size=n_requests)
 
     def paths_fn(user: int) -> list[list[int]]:
-        beh = n_users + (rng.zipf(zipf_a, size=behaviors_per_req) % n_items)
-        cand = n_users + (rng.zipf(zipf_a, size=candidates_per_req) % n_items)
+        beh = n_users + zipf_rows(rng, n_items, behaviors_per_req, zipf_a)
+        cand = n_users + zipf_rows(rng, n_items, candidates_per_req, zipf_a)
         return recsys_request_paths(user, np.unique(beh), np.unique(cand))
 
     return batched(paths_fn, users, batch_queries)

@@ -20,9 +20,10 @@ import repro_torch.core as T
 import repro_torch.distsys as TD
 import repro_torch.serve as TS
 import repro_torch.workload as TW
-from repro_torch.configs import qwen2_7b
+from repro_torch.configs import deepseek_v2_236b, mind, qwen2_7b, qwen3_moe_235b_a22b
 from repro_torch.engine import LatencyEngine, PackedScheme, resolve_backend
 from repro_torch.kernels import decode_attention, embedding_bag, flash_prefill, ops
+from repro_torch.models import recsys as TR
 from repro_torch.models import transformer as TM
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -82,6 +83,10 @@ ENTRY_POINTS = {
     "ops.path_latency": lambda ps, shard, sc: ops.path_latency(ps, sc),
     "Transformer": lambda ps, shard, sc: TM.Transformer(qwen2_7b.SMOKE),
     "cache_init": lambda ps, shard, sc: TM.cache_init(qwen2_7b.SMOKE, 1, 8),
+    "Transformer (MoE)": lambda ps, shard, sc: TM.Transformer(qwen3_moe_235b_a22b.SMOKE),
+    "Transformer (MLA + MoE)": lambda ps, shard, sc: TM.Transformer(deepseek_v2_236b.SMOKE),
+    "cache_init (MLA)": lambda ps, shard, sc: TM.cache_init(deepseek_v2_236b.SMOKE, 1, 8),
+    "MIND": lambda ps, shard, sc: TR.MIND(mind.SMOKE),
     "execute_workload": lambda ps, shard, sc: TD.execute_workload(TD.Cluster(sc), ps),
     "trace_paths": lambda ps, shard, sc: TD.trace_paths(ps, sc, np.ones(3, bool)),
     "evaluate_baseline": lambda ps, shard, sc: T.evaluate_baseline(ps, sc),
@@ -128,7 +133,11 @@ def test_backend_resolves_from_device():
 
 
 def test_unported_options_raise():
-    """``mesh=`` stays refused with its reason (one card, no mesh type)."""
+    """``mesh=`` stays refused with its reason (one card, no mesh type),
+    and it is the port's only ``NotImplementedError``."""
+    raising = [str(p.relative_to(ROOT)) for p in PORT_FILES
+               if "raise NotImplementedError" in p.read_text()]
+    assert raising == ["src/repro_torch/core/greedy.py"]
     ps, shard, sc = _small_case()
     for kw in ({"mesh": object()}, {"fused": True, "mesh": object()}):
         with pytest.raises(NotImplementedError, match="one card"):
@@ -183,6 +192,10 @@ def test_kernel_ops_dispatch_by_tensor_device(name):
 
 
 def test_model_runs_on_the_cpu_when_asked():
+    for cfg in (qwen3_moe_235b_a22b.SMOKE, deepseek_v2_236b.SMOKE):
+        lay = TM.Transformer(cfg, device="cpu").layers[-1]
+        assert lay.router.device.type == "cpu" and lay.router.dtype == torch.float32
+    assert TR.MIND(mind.SMOKE, device="cpu").item_embed.device.type == "cpu"
     m = TM.Transformer(qwen2_7b.SMOKE, device="cpu")
     assert m.embed.device.type == "cpu" and m.layers[0].wq.device.type == "cpu"
     assert TM.cache_init(qwen2_7b.SMOKE, 1, 8, device="cpu")["k"].device.type == "cpu"

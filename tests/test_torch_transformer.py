@@ -4,7 +4,9 @@ The weights are the JAX package's own init (``repro.models.transformer.init``)
 carried across with ``load_jax_params``; tokens come from a seeded numpy
 generator.  Configs are the dense ``LM_VARIANTS`` of ``tests/test_models.py``
 (dense, bias, swa, partial_rope) and the SMOKE configs of qwen2-7b,
-h2o-danube-3-4b and chatglm3-6b.  Tolerances: ``forward`` 1e-4 in f32 with
+h2o-danube-3-4b, chatglm3-6b, qwen3-moe-235b-a22b and deepseek-v2-236b
+(the MoE / MLA variants in depth: ``tests/test_torch_moe_mla.py``).
+Tolerances: ``forward`` 1e-4 in f32 with
 and without ``use_flash_prefill``; prefill and decode logits 2e-3 (those of
 ``tests/test_models.py``); bf16 as stated in its test.
 """
@@ -18,8 +20,10 @@ import pytest
 import torch
 
 from repro.configs import chatglm3_6b as j_chatglm
+from repro.configs import deepseek_v2_236b as j_deepseek
 from repro.configs import h2o_danube_3_4b as j_danube
 from repro.configs import qwen2_7b as j_qwen2
+from repro.configs import qwen3_moe_235b_a22b as j_qwen3_moe
 from repro.models import transformer as JT
 from repro_torch import configs as C
 from repro_torch.models import transformer as T
@@ -153,7 +157,8 @@ def test_bf16_forward_matches_jax(rng):
     _close(got_f, got, 0.1)
 
 
-JAX_CONFIGS = {"qwen2-7b": j_qwen2, "h2o-danube-3-4b": j_danube, "chatglm3-6b": j_chatglm}
+JAX_CONFIGS = {"qwen2-7b": j_qwen2, "h2o-danube-3-4b": j_danube, "chatglm3-6b": j_chatglm,
+               "qwen3-moe-235b-a22b": j_qwen3_moe, "deepseek-v2-236b": j_deepseek}
 
 
 @pytest.mark.parametrize("arch", list(JAX_CONFIGS))
@@ -222,10 +227,21 @@ def test_cache_init_matches_jax_shapes():
          mla_nope_dim=16, mla_v_dim=16, n_kv_heads=4),
     dict(mla_kv_lora=32, mla_rope_dim=8, mla_nope_dim=16, mla_v_dim=16),
 ], ids=["moe", "mla_moe", "mla"])
-def test_moe_and_mla_raise(kw):
-    _, tcfg = _cfgs(**kw)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        T.Transformer(tcfg, device="cpu")
+def test_moe_and_mla_raise(kw, rng):
+    """MoE and MLA configs raise only where the JAX package's validate
+    rules refuse them (ValueError; until the port had these layers they
+    raised NotImplementedError): each builds, loads JAX's weights and
+    matches JAX's forward at 1e-4, and the same config with a top_k past
+    n_experts (or, MLA only, 3 kv heads for 4 heads) raises ValueError.
+    The full MoE / MLA parity suite is tests/test_torch_moe_mla.py."""
+    jcfg, tcfg = _cfgs(**kw)
+    params, model = _carried(jcfg, tcfg, seed=4)
+    tj, tt = _tokens(rng, tcfg.vocab, (2, 32))
+    with torch.no_grad():
+        _close(model(tt), JT.forward(params, tj, jcfg), 1e-4)
+    bad = dict(top_k=9) if "n_experts" in kw else dict(n_kv_heads=3)
+    with pytest.raises(ValueError):
+        T.Transformer(dataclasses.replace(tcfg, **bad), device="cpu")
 
 
 def test_load_rejects_a_mismatched_tree():
