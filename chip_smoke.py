@@ -198,6 +198,29 @@ Phases (each prints one JSON line; any failed check exits non-zero):
           (262,144 x 100), ``retrieval_score`` at ``retrieval_cand`` (1 x
           2^20), each against the same port code on the CPU for the first
           64 users at 1e-4, and timed.
+  train   (run right after build, while the card's memory is
+          unfragmented) the training path.  qwen2-7b at full width in bf16
+          with 4 layers (remat blocks of 4 with the inner per-layer
+          checkpoint, the head in two 16,384-token chunks) on lm_family's
+          train_4k sequence at batch 8: 3 steps of lm_family's optimizer
+          (counters zeroed just before, read just after: no flash_prefill
+          launch), then 8 steps at a constant rate of 1e-4 on one batch;
+          each step's loss, grad norm, seconds, tokens/s, peak memory and
+          FLOPs against 989 TFLOP/s; the first loss within 0.05 of ln V +
+          1/2, the repeated batch's loss falling, the flash branch refused
+          under grad.  In f32 (TF32 off) qwen2 at 2 layers and d_model 448
+          and the SMOKE qwen3-moe and deepseek-v2: loss and every gradient
+          on the card against the CPU within 1e-4 of each leaf's largest,
+          and equal with remat off and with the head unchunked.  The four
+          GNNs on gnn_family's cells at FULL widths (graphsage-reddit on
+          minibatch_lg over ogb_like(232,965, mean degree 50), graphcast
+          on full_graph_sm, egnn and schnet on molecule): card = CPU on
+          loss and gradients (graphcast in f64, its f32 gap printed: see
+          GNN_F64_CHECK), then one optimizer step timed.  MIND at
+          train_batch (B = 65,536, the item table cut to 2^24 rows) one
+          step timed, and card = CPU at B = 1,024 over 2^20 items.
+          train_lm on qwen2-7b's SMOKE config: a failure injected after
+          step 5, the restart's losses equal to an uninterrupted run's.
 The last two lines are the kernels' JSON summary (kernels 1-4 timed at
 the sweep's shapes, and under "main_shape_*" at their paths' median
 rows per launch; ``fused_update`` also under "class_*", the whole-class
@@ -212,10 +235,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -3489,6 +3514,404 @@ def phase_recsys(RM, mind, zipf_rows, counters, dev) -> dict:
     return out
 
 
+# --- train -------------------------------------------------------------------
+# the optimizers of the JAX package's family bundles (the port's bundles
+# are a later slice): lm_family.py:23, gnn_family.py:27, recsys_family.py:21
+def lm_opt(O):
+    return O.AdamW(lr=O.cosine_schedule(3e-4, 2000, 100_000), weight_decay=0.1)
+
+
+def gnn_opt(O):
+    return O.AdamW(lr=O.cosine_schedule(1e-3, 100, 10_000), weight_decay=0.0)
+
+
+def recsys_opt(O):
+    return O.AdamW(lr=O.cosine_schedule(1e-3, 500, 50_000), weight_decay=0.0)
+
+
+# qwen2-7b at full width: lm_family's train_4k sequence, depth and batch cut
+# to fit one card (28 layers' parameters, gradients and AdamW state ~122 GB)
+TRAIN_LM_DEPTH, TRAIN_LM_BATCH, TRAIN_LM_SEQ = 4, 8, 4096
+TRAIN_LM_STEPS, TRAIN_LM_REPEAT_STEPS, TRAIN_LM_REPEAT_LR = 3, 8, 1e-4
+# a rms-normed hidden state against an lm_head of N(0, 1/d) entries gives
+# logits N(0, 1) over the vocabulary, so the first loss is ln V + 1/2
+TRAIN_FIRST_LOSS_TOL = 0.05
+TRAIN_REL_TOL = 1e-4          # card against CPU, f32 with TF32 off, per leaf
+# gnn_family's cells (src/repro/configs/gnn_family.py:29-43) at FULL widths
+GNN_TRAIN_CELLS = {"graphsage-reddit": "minibatch_lg", "graphcast": "full_graph_sm",
+                   "egnn": "molecule", "schnet": "molecule"}
+MIND_TRAIN_BATCH, MIND_TRAIN_ITEMS = 65_536, 1 << 24     # train_batch; table 2^26 -> 2^24
+MIND_TRAIN_CHECK = (1_024, 1 << 20)                       # card = CPU at (B, items)
+
+
+def lm_train_flops(TM, cfg, B: int, S: int) -> dict:
+    """The step's operations: 6 x the matmul parameters x T (lm_head
+    included, the embedding gather not), attention at full S^2 (QK and PV,
+    forward and twice in the backward), plus the recompute: with remat one
+    more forward of the layers per checkpoint level (two for blocks of
+    more than one layer) and with a chunked head one more head forward."""
+    T = B * S
+    n = cfg.n_layers
+    per_layer = sum(math.prod(s) for s in TM.layer_shapes(cfg).values() if len(s) == 2)
+    head = cfg.d_model * cfg.vocab
+    attn = 4.0 * B * S * S * cfg.n_heads * cfg.hd * n
+    layers_fwd = 2.0 * per_layer * n * T + attn
+    bk = max(k for k in range(1, min(cfg.remat_block, n) + 1) if n % k == 0)
+    levels = (2 if bk > 1 else 1) if cfg.remat else 0
+    chunked = bool(cfg.loss_chunk) and T > cfg.loss_chunk and T % cfg.loss_chunk == 0
+    model = 3.0 * (layers_fwd + 2.0 * head * T)
+    recompute = levels * layers_fwd + (2.0 * head * T if chunked else 0.0)
+    return {"flops": model + recompute, "model_flops": model, "recompute_flops": recompute,
+            "matmul_params": per_layer * n + head, "remat_levels": levels,
+            "loss_chunks": T // cfg.loss_chunk if chunked else 1}
+
+
+def leaf_errs(got: dict, want: dict) -> dict:
+    """Per leaf max |got - want| over max |want| (both dict trees)."""
+    out = {}
+    for k, w in want.items():
+        if isinstance(w, dict):
+            out.update({f"{k}.{kk}": v for kk, v in leaf_errs(got[k], w).items()})
+        else:
+            w = w.detach().float().cpu()
+            d = (got[k].detach().float().cpu() - w).abs().max()
+            out[k] = float(d / w.abs().max().clamp_min(1e-30))
+    return out
+
+
+def loss_and_grads(O, loss_fn, params: dict):
+    """(loss, gradient tree) of ``loss_fn()`` with respect to the leaves of
+    the dict tree ``params``; a leaf the loss misses gets zeros."""
+    leaves = O.adamw.tree_leaves(params)
+    loss = loss_fn()
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    it = iter(torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads))
+    return loss.detach(), O.adamw.tree_map(lambda _: next(it), params)
+
+
+def card_vs_cpu(O, card: tuple, cpu: tuple, what: str, tol: float | None = TRAIN_REL_TOL) -> dict:
+    """``card`` and ``cpu``: (loss closure, its parameter tree) of the same
+    code on the two devices; the loss and every gradient within ``tol`` of
+    its largest entry (``None``: reported, not checked)."""
+    loss_c, g_c = loss_and_grads(O, *card)
+    loss_h, g_h = loss_and_grads(O, *cpu)
+    errs = leaf_errs(g_c, g_h)
+    loss_err = float((loss_c.cpu() - loss_h).abs() / loss_h.abs().clamp_min(1e-30))
+    worst = max(errs, key=errs.get)
+    check(torch.isfinite(loss_c).item(), f"{what}: non-finite loss")
+    check(tol is None or (loss_err <= tol and errs[worst] <= tol),
+          f"{what}: card vs CPU loss {loss_err}, gradient {worst} {errs[worst]} beyond {tol}")
+    return {"loss": float(loss_c), "loss_rel_err": loss_err, "grad_rel_err_max": errs[worst],
+            "worst_leaf": worst, "leaves": len(errs)}
+
+
+def model_twin(build, model, dev):
+    """A copy of ``model`` built by ``build(device)`` on ``dev`` holding
+    the same weights."""
+    twin = build(dev)
+    twin.load_state_dict(model.state_dict())
+    return twin
+
+
+def train_lm_full(TM, qwen2, O, make_train_step, lm_batch_fn, shard_batch, counters,
+                  dev) -> dict:
+    """qwen2-7b at full width in bf16, TRAIN_LM_DEPTH layers, remat blocks
+    of 4 with the inner per-layer checkpoint, the head in two 16,384-token
+    chunks: TRAIN_LM_STEPS steps of lm_family's optimizer on the seeded
+    batches, then TRAIN_LM_REPEAT_STEPS at a constant rate on one batch;
+    per step the loss, norm, seconds, tokens/s, peak memory and FLOPs."""
+    cfg = dataclasses.replace(qwen2.FULL, n_layers=TRAIN_LM_DEPTH)
+    B, S = TRAIN_LM_BATCH, TRAIN_LM_SEQ
+    model = TM.Transformer(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    params = dict(model.named_parameters())
+    flops = lm_train_flops(TM, cfg, B, S)
+    out = {"config": cfg.name, "layers": cfg.n_layers, "batch": [B, S], "dtype": str(cfg.dtype),
+           "remat_block": cfg.remat_block, "loss_chunk": cfg.loss_chunk,
+           "params": sum(p.numel() for p in params.values()), **flops,
+           "bound_s": flops["flops"] / BF16_FLOPS_PER_S,
+           "first_loss_want": math.log(cfg.vocab) + 0.5, "ln_vocab": math.log(cfg.vocab)}
+    make = lm_batch_fn(cfg.vocab, B, S)
+
+    # one set of AdamW moments for both runs, zeroed in place between them:
+    # freeing and re-allocating 16 GB of f32 state fragments the allocator
+    # enough that the next step's 3.5 GiB score block finds no room
+    moments = lm_opt(O).init(params)
+
+    def run(opt, batches, key):
+        for t in (*moments.m.values(), *moments.v.values()):
+            t.zero_()
+        state = moments._replace(step=torch.zeros_like(moments.step))
+        step = make_train_step(lambda p, b: TM.loss_fn(model, b["tokens"], b["labels"]), opt)
+        rows = []
+        for b in batches:
+            batch = shard_batch(make(b), dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ts = time.perf_counter()
+            _, state, m = step(params, state, batch)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            sec = time.perf_counter() - ts
+            rows.append({"step": b, "loss": loss, "grad_norm": gnorm, "seconds": sec,
+                         "tokens_per_s": B * S / sec, "tflops_per_s": flops["flops"] / sec / 1e12,
+                         "bound_share": flops["flops"] / BF16_FLOPS_PER_S / sec,
+                         "max_memory_allocated": torch.cuda.max_memory_allocated()})
+            check(math.isfinite(loss) and math.isfinite(gnorm),
+                  f"{key} step {b}: loss {loss}, grad norm {gnorm}")
+        return rows
+
+    # the main path: counters zeroed just before, read just after
+    zero_counts(counters)
+    out["steps"] = run(lm_opt(O), range(TRAIN_LM_STEPS), "lm_family optimizer")
+    out["launches"] = read_counts(counters)
+    check(out["launches"]["flash_prefill"] == 0, "flash_prefill launched on the training path")
+    first = out["steps"][0]["loss"]
+    check(abs(first - out["first_loss_want"]) <= TRAIN_FIRST_LOSS_TOL,
+          f"first loss {first}: not within {TRAIN_FIRST_LOSS_TOL} of ln V + 1/2 = "
+          f"{out['first_loss_want']}")
+    out["repeat"] = run(O.AdamW(lr=TRAIN_LM_REPEAT_LR, weight_decay=0.1),
+                        [0] * TRAIN_LM_REPEAT_STEPS, f"constant lr {TRAIN_LM_REPEAT_LR}")
+    check(out["repeat"][-1]["loss"] < out["repeat"][0]["loss"],
+          f"repeated batch: loss {out['repeat'][0]['loss']} -> {out['repeat'][-1]['loss']}")
+    del moments
+    # the flash kernel has no backward: under grad the model refuses it
+    set_cfg(model, use_flash_prefill=True)
+    small = shard_batch(lm_batch_fn(cfg.vocab, 1, 128)(0), dev)
+    try:
+        TM.loss_fn(model, small["tokens"], small["labels"])
+        out["flash_under_grad"] = "ran"
+    except RuntimeError as err:
+        out["flash_under_grad"] = f"raised: {err}"
+    check(out["flash_under_grad"].startswith("raised") and "no backward" in out["flash_under_grad"],
+          f"flash_prefill under grad: {out['flash_under_grad']}")
+    del model, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_lm_parity(TM, C, O, dev) -> dict:
+    """f32 with TF32 off: qwen2 at 2 layers and d_model 448 (its other
+    widths full; remat blocks of 2, blockwise attention, a chunked head)
+    and the SMOKE qwen3-moe and deepseek-v2 (MoE, MLA): loss and every
+    gradient on the card against the CPU within TRAIN_REL_TOL; on the card,
+    the loss and gradients with remat off and with the head unchunked."""
+    out = {}
+    narrow = dataclasses.replace(C.qwen2_7b.FULL, n_layers=2, d_model=448, dtype=torch.float32,
+                                 remat_block=2, blockwise_from=256, attn_block_q=256,
+                                 loss_chunk=512)
+    cases = {"qwen2-narrow": (narrow, (2, 512)),
+             "qwen3-moe-smoke": (C.qwen3_moe_235b_a22b.SMOKE, (4, 128)),
+             "deepseek-v2-smoke": (C.deepseek_v2_236b.SMOKE, (4, 128))}
+    for name, (cfg, (B, S)) in cases.items():
+        cpu = TM.Transformer(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+        card = model_twin(lambda d: TM.Transformer(cfg, device=d), cpu, dev)
+        rng = np.random.default_rng(4)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(np.int32))
+        labels = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(np.int32))
+        labels[0, :5] = -1
+
+        def case(model):
+            d = next(model.parameters()).device
+            return (lambda: TM.loss_fn(model, toks.to(d), labels.to(d)),
+                    dict(model.named_parameters()))
+
+        res = card_vs_cpu(O, case(card), case(cpu), name)
+        ref_loss, ref_g = loss_and_grads(O, *case(card))
+        for variant, change in (("remat_off", dict(remat=False)),
+                                ("unchunked", dict(loss_chunk=0))):
+            other = model_twin(lambda d: TM.Transformer(dataclasses.replace(cfg, **change),
+                                                        device=d), card, dev)
+            loss_o, g_o = loss_and_grads(O, *case(other))
+            errs = leaf_errs(g_o, ref_g)
+            loss_err = float((loss_o - ref_loss).abs() / ref_loss.abs())
+            check(loss_err <= TRAIN_REL_TOL and max(errs.values()) <= TRAIN_REL_TOL,
+                  f"{name} {variant}: loss {loss_err}, gradients {max(errs.values())}")
+            res[variant] = {"loss_rel_err": loss_err, "grad_rel_err_max": max(errs.values())}
+            del other
+        out[name] = {"layers": cfg.n_layers, "d_model": cfg.d_model, "tokens": [B, S], **res}
+        del cpu, card
+        torch.cuda.empty_cache()
+    return out
+
+
+def gnn_train_batch(cfg, cell: str, rng, graph=None, gnn_batch_fn=None) -> dict:
+    """A host batch of ``cell`` (gnn_family's shapes) from the numpy
+    generator ``rng``: the fan-out blocks of the port's sampler for
+    minibatch_lg, a random graph for full_graph_sm (cora-sized), 128
+    graphs of 30 nodes and 64 edges with float targets for molecule."""
+    if cell == "minibatch_lg":
+        return gnn_batch_fn(graph, (15, 10), 1024, cfg.d_in, cfg.n_classes)(0)
+    if cell == "full_graph_sm":
+        N, E = 2708, 10556
+        return {"x": rng.standard_normal((N, cfg.d_in), dtype=np.float32),
+                "senders": rng.integers(0, N, E).astype(np.int32),
+                "receivers": rng.integers(0, N, E).astype(np.int32),
+                "edge_feat": rng.standard_normal((E, 4), dtype=np.float32),
+                "labels": rng.integers(0, cfg.n_classes, N).astype(np.int32)}
+    B, n, e = 128, 30, 64
+    return {"x": rng.standard_normal((B, n, cfg.d_in), dtype=np.float32),
+            "senders": rng.integers(0, n, (B, e)).astype(np.int32),
+            "receivers": rng.integers(0, n, (B, e)).astype(np.int32),
+            "pos": rng.standard_normal((B, n, 3), dtype=np.float32),
+            "labels": rng.standard_normal(B, dtype=np.float32)}
+
+
+# gnn_family's cell widths: (input features, classes), as cfg_for_cell sets them
+GNN_CELL_WIDTHS = {"minibatch_lg": (602, 41), "full_graph_sm": (1433, 7), "molecule": (32, 1)}
+# graphcast's 16 residual interaction layers with sum aggregation grow the
+# random-init activations to a loss ~1e5 and a gradient norm ~1e7; in f32
+# the card's and the CPU's summation orders then differ by up to ~5e-3 of
+# a leaf's largest gradient.  Its card = CPU check runs in f64, where the
+# same code must agree within TRAIN_REL_TOL; the f32 errors are printed
+GNN_F64_CHECK = ("graphcast",)
+
+
+def train_gnn(G, GNN_CONFIGS, O, make_train_step, gnn_batch_fn, ogb_like, shard_batch,
+              dev) -> dict:
+    """One step of each GNN arch on its gnn_family cell at FULL widths
+    (d_in and n_classes from the cell): loss, seconds, peak memory; the
+    loss and every gradient on the card against the CPU first."""
+    out = {}
+    rng = np.random.default_rng(41)
+    ts = time.perf_counter()
+    graph = ogb_like(232_965, mean_deg=50)
+    out["reddit_graph_s"] = time.perf_counter() - ts
+    for name, cell in GNN_TRAIN_CELLS.items():
+        d_in, classes = GNN_CELL_WIDTHS[cell]
+        cfg = dataclasses.replace(GNN_CONFIGS[name].FULL, d_in=d_in, n_classes=classes)
+        host = gnn_train_batch(cfg, cell, rng, graph, gnn_batch_fn)
+        batch = shard_batch(host, dev)
+        params = G.init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        f64 = name in GNN_F64_CHECK
+
+        def on_both(cfg, card_params, tol):
+            cpu_params = O.adamw.tree_map(lambda t: t.detach().cpu().requires_grad_(),
+                                          card_params)
+            return card_vs_cpu(O, (lambda: G.loss_fn(card_params, batch, cfg), card_params),
+                               (lambda: G.loss_fn(cpu_params, host, cfg), cpu_params),
+                               f"{name} {cell} {cfg.dtype}", tol)
+
+        res = on_both(cfg, params, None if f64 else TRAIN_REL_TOL)
+        if f64:
+            p64 = O.adamw.tree_map(lambda t: t.detach().double().requires_grad_(), params)
+            res["f64"] = on_both(dataclasses.replace(cfg, dtype=torch.float64), p64,
+                                 TRAIN_REL_TOL)
+            del p64
+        step = make_train_step(lambda p, b: G.loss_fn(p, b, cfg), gnn_opt(O))
+        state = gnn_opt(O).init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, state, m = step(params, state, batch)
+        loss = float(m["loss"])
+        sec = time.perf_counter() - t0
+        check(math.isfinite(loss), f"{name} {cell}: loss {loss}")
+        out[name] = {"cell": cell, "layers": cfg.n_layers, "d_hidden": cfg.d_hidden,
+                     "d_in": d_in, "classes": classes, "loss": loss,
+                     "grad_norm": float(m["grad_norm"]), "step_s": sec,
+                     "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                     "params": sum(x.numel() for v in params.values() for x in v.values()),
+                     "card_vs_cpu": res}
+        del params, state, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def mind_train_batch(cfg, B: int, g, rng, zipf_rows, dev) -> dict:
+    batch = mind_batch(cfg, B, g, rng, zipf_rows, dev)
+    batch["target"] = torch.from_numpy(zipf_rows(rng, cfg.n_items, (B,))).to(dev, torch.int32)
+    return batch
+
+
+def train_mind(RM, mind, O, make_train_step, zipf_rows, dev) -> dict:
+    """One step of recsys_family's optimizer at train_batch (B = 65,536,
+    FULL widths, the item table cut to 2^24 rows), targets and histories
+    by zipf_rows: seconds and peak memory; then card = CPU on loss and
+    gradients at B = 1,024 over 2^20 items."""
+    g = torch.Generator(device=dev).manual_seed(51)
+    rng = np.random.default_rng(51)
+    cfg = dataclasses.replace(mind.FULL, n_items=MIND_TRAIN_ITEMS)
+    torch.cuda.reset_peak_memory_stats()
+    model = RM.MIND(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    batch = mind_train_batch(cfg, MIND_TRAIN_BATCH, g, rng, zipf_rows, dev)
+    params = dict(model.named_parameters())
+    opt = recsys_opt(O)
+    state = opt.init(params)
+    step = make_train_step(lambda p, b: RM.loss_fn(model, b), opt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, state, m = step(params, state, batch)
+    loss = float(m["loss"])
+    sec = time.perf_counter() - t0
+    check(math.isfinite(loss), f"MIND train_batch: loss {loss}")
+    out = {"config": cfg.name, "items": [cfg.n_items, cfg.embed_dim], "batch": MIND_TRAIN_BATCH,
+           "loss": loss, "ln_batch": math.log(MIND_TRAIN_BATCH), "grad_norm": float(m["grad_norm"]),
+           "step_s": sec, "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    del model, batch, params, state
+    torch.cuda.empty_cache()
+    B, items = MIND_TRAIN_CHECK
+    small = dataclasses.replace(mind.FULL, n_items=items)
+    cpu = RM.MIND(small, device="cpu", generator=torch.Generator().manual_seed(5))
+    card = model_twin(lambda d: RM.MIND(small, device=d), cpu, dev)
+    batch = mind_train_batch(small, B, g, rng, zipf_rows, dev)
+    host = {k: v.cpu() for k, v in batch.items()}
+    out["card_vs_cpu"] = card_vs_cpu(
+        O, (lambda: RM.loss_fn(card, batch), dict(card.named_parameters())),
+        (lambda: RM.loss_fn(cpu, host), dict(cpu.named_parameters())),
+        f"MIND B={B} items={items}")
+    out["card_vs_cpu"].update(batch=B, items=items)
+    del cpu, card, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_restart(train_lm, dev) -> dict:
+    """train_lm on qwen2-7b's SMOKE config on the card: uninterrupted, then
+    with checkpoints every 2 steps and a failure after step 5, then
+    restarted from the latest checkpoint: its losses must equal the
+    uninterrupted run's from the restored step on, exactly."""
+    kw = dict(steps=10, batch=8, seq=32, log_every=100, device=dev)
+    full = train_lm("qwen2-7b", **kw)
+    build_dir = pathlib.Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as ck:
+        try:
+            train_lm("qwen2-7b", ckpt_dir=ck, ckpt_every=2, fail_at=5, **kw)
+            failed = False
+        except RuntimeError as err:
+            failed = "injected failure" in str(err)
+        again = train_lm("qwen2-7b", ckpt_dir=ck, ckpt_every=2, **kw)
+    start = again["restored_from"]
+    check(failed and start == 4, f"train_lm drill: failed {failed}, restored from {start}")
+    check(again["losses"] == full["losses"][start:],
+          f"train_lm restart: losses {again['losses']} vs {full['losses'][start:]}")
+    return {"losses": full["losses"], "restored_from": start,
+            "restarted_losses": again["losses"], "equal": True}
+
+
+def phase_train(TM, RM, G, C, O, make_train_step, train_lm, lm_batch_fn, gnn_batch_fn,
+                shard_batch, ogb_like, zipf_rows, counters, dev) -> dict:
+    """The training path: qwen2-7b at full width, card = CPU at narrow f32
+    widths (dense, MoE, MLA) with the remat and loss_chunk equivalences,
+    the four GNNs on their cells, MIND's train_batch, and train_lm's
+    failure drill."""
+    t0 = time.perf_counter()
+    out = {"phase": "train"}
+    parts = {}
+    for key, fn in (("lm", lambda: train_lm_full(TM, C.qwen2_7b, O, make_train_step,
+                                                   lm_batch_fn, shard_batch, counters, dev)),
+                    ("lm_parity", lambda: train_lm_parity(TM, C, O, dev)),
+                    ("gnn", lambda: train_gnn(G, C.GNN_CONFIGS, O, make_train_step,
+                                              gnn_batch_fn, ogb_like, shard_batch, dev)),
+                    ("mind", lambda: train_mind(RM, C.mind, O, make_train_step, zipf_rows, dev)),
+                    ("restart", lambda: train_restart(train_lm, dev))):
+        ts = time.perf_counter()
+        out[key] = fn()
+        parts[key] = time.perf_counter() - ts
+    out.update(seconds=time.perf_counter() - t0, part_s=parts)
+    emit(out)
+    return out
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int, err, timing,
                  main_shape: dict | None = None) -> dict:
     """One kernel of the kernels line: "ms", "plain_ms" and "library_ms" time
@@ -3529,7 +3952,13 @@ def main() -> int:
     from repro_torch.engine import engine as engine_core
     import torch.nn.functional as F
 
+    from repro_torch import configs as C
+    from repro_torch import optim as O
     from repro_torch.configs import deepseek_v2_236b, mind, qwen2_7b, qwen3_moe_235b_a22b
+    from repro_torch.data import gnn_batch_fn, lm_batch_fn, shard_batch
+    from repro_torch.graph import ogb_like
+    from repro_torch.launch import train_lm
+    from repro_torch.launch.train import make_train_step
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import embedding_bag as eb
@@ -3539,6 +3968,7 @@ def main() -> int:
     from repro_torch.kernels import provision_update as pu
     from repro_torch.kernels import prune_walk as pw
     from repro_torch.kernels import routed_walk as rw
+    from repro_torch.models import gnn as G
     from repro_torch.models import recsys as RM
     from repro_torch.models import transformer as TM
     from repro_torch.workload.recsys import zipf_rows
@@ -3550,6 +3980,11 @@ def main() -> int:
     targets = row_targets(backends, greedy)
     t_all = time.perf_counter()
     b = phase_build(build)
+    # first, while the card's memory is unfragmented: qwen2-7b's step peaks
+    # at ~73 GB, and after the other phases the cache's free gaps (~17 GB
+    # in all) hold no 3.5 GiB block
+    phase_train(TM, RM, G, C, O, make_train_step, train_lm, lm_batch_fn, gnn_batch_fn,
+                shard_batch, ogb_like, zipf_rows, counters, dev)
     par = phase_parity(pl, rw, pu, backends, routing, combi, dev, P=1_000_000)
     ts = time.perf_counter()
     case = snb_case(graph_mod, workload_mod, scale=10, n_queries=20_000, n_srv=6)

@@ -1,0 +1,7 @@
+"""egnn  [arXiv:2102.09844] — E(n)-equivariant GNN: 4L d_hidden=64."""
+from repro_torch.models.gnn import GNNConfig
+
+FULL = GNNConfig(name="egnn", arch="egnn", n_layers=4, d_hidden=64,
+                 d_in=32, n_classes=7)
+SMOKE = GNNConfig(name="egnn-smoke", arch="egnn", n_layers=2, d_hidden=16,
+                  d_in=8, n_classes=4)

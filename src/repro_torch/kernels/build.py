@@ -131,3 +131,14 @@ def load_library() -> ctypes.CDLL:
 def check_launch(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def refuse_grad(name: str, *inputs: torch.Tensor) -> None:
+    """The kernels have no backward (nor do the Pallas kernels they
+    replace: JAX refuses to differentiate them).  Under grad mode an input
+    that requires grad would get no gradient through the kernel's output,
+    so raise, on every device, instead of training silently wrong."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad() or on inputs "
+            "that do not require grad (training takes the torch-op path)")

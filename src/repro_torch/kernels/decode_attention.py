@@ -28,7 +28,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels.build import DTYPE_CODES, check_launch, load_library
+from repro_torch.kernels.build import DTYPE_CODES, check_launch, load_library, refuse_grad
 
 LAUNCHES = 0     # wrapper calls that launched the kernels (two launches each)
 MAX_HD = 128     # one thread per dim in the P V step
@@ -117,6 +117,7 @@ def decode_attention(q, k, v, lengths) -> torch.Tensor:
     :func:`decode_attention_plain`."""
     global LAUNCHES
     _check(q, k, v, lengths)
+    refuse_grad("decode_attention", q, k, v)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, lengths)
     if q.device.type != "cuda":

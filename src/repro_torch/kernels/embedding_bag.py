@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import DTYPE_CODES, check_launch, load_library
+from repro_torch.kernels.build import DTYPE_CODES, check_launch, load_library, refuse_grad
 
 LAUNCHES = 0
 MODES = ("mean", "sum")
@@ -56,6 +56,7 @@ def embedding_bag(table, ids, mode: str = "mean") -> torch.Tensor:
     version on a CPU tensor.  See :func:`embedding_bag_plain`."""
     global LAUNCHES
     _check(table, ids, mode)
+    refuse_grad("embedding_bag", table)
     if table.device.type == "cpu":
         return embedding_bag_plain(table, ids, mode)
     if table.device.type != "cuda":

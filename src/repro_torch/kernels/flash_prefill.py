@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import DTYPE_CODES, check_launch, load_library
+from repro_torch.kernels.build import DTYPE_CODES, check_launch, load_library, refuse_grad
 
 LAUNCHES = 0     # kernel launches, both routes
 TC_LAUNCHES = 0  # of them, the tensor-core (wgmma) route's
@@ -96,6 +96,7 @@ def flash_prefill(q, k, v, window: int = 0) -> torch.Tensor:
     See :func:`flash_prefill_plain`."""
     global LAUNCHES, TC_LAUNCHES
     _check(q, k, v)
+    refuse_grad("flash_prefill", q, k, v)
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, window)
     if q.device.type != "cuda":

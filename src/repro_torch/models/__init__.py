@@ -1,9 +1,6 @@
-"""Model definitions (torch): the transformer LM family (dense, MoE, MLA)
-and the serving half of the MIND recsys model.
+"""Model definitions (torch): the transformer LM family (dense, MoE, MLA),
+the MIND recsys model and the GNN family (EGNN, SchNet, GraphSAGE,
+GraphCast), each with its training loss."""
+from repro_torch.models import gnn, recsys, transformer
 
-MIND's training loss and the GNN family of the JAX package are a later
-slice of the port.
-"""
-from repro_torch.models import recsys, transformer
-
-__all__ = ["recsys", "transformer"]
+__all__ = ["gnn", "recsys", "transformer"]

@@ -26,10 +26,21 @@ ops whatever the flag says, as the JAX package's versions do.  A MoE
 layer's combine sums each token's K expert contributions in ascending
 expert order in the activations' dtype, the order of the JAX package's
 scatter-add, so results do not depend on atomics.  Sharding constraints
-(``_wsc``), rematerialisation and the chunk checkpoint have no meaning on
-one card and are not ported; the config keeps their fields.
+(``_wsc``) have no meaning on one card and are not ported; the config
+keeps their fields.
 
-The parameters do not require gradients: this slice serves only.
+Training: the parameters are ordinary trainable ``nn.Parameter``s and
+``forward`` is differentiable, as the JAX package's is.  :func:`loss_fn`
+is the JAX ``loss_fn``: the next-token cross entropy, its head chunked
+by ``cfg.loss_chunk`` with each chunk checkpointed (the backward
+recomputes its ``[chunk, V]`` logits), and with ``cfg.remat`` the layer
+stack rematerialised as the JAX ``_scan_stack`` does it (one checkpoint
+per block of ``remat_block`` layers, and one per layer inside a block of
+more than one).  The flash kernel has no backward: under grad it raises,
+as JAX does differentiating its Pallas kernel, so a training forward
+keeps ``use_flash_prefill`` off.  ``prefill`` and ``decode_step`` run
+under ``torch.no_grad()`` (JAX never differentiates them; they write
+their caches in place).
 """
 from __future__ import annotations
 
@@ -41,6 +52,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.engine.streaming import resolve_device
 from repro_torch.kernels import ops
@@ -79,18 +91,18 @@ class TransformerConfig:
     rope_theta: float = 1e4
     # --- numerics / execution ---
     dtype: Any = torch.bfloat16
-    # training and multi-device fields of the JAX config, kept so configs
-    # carry over field for field; the serving path does not read them
-    remat: bool = True
+    remat: bool = True               # rematerialise the layer stack under grad
+    remat_block: int = 1             # layers per remat block
+    # multi-device fields of the JAX config, kept so configs carry over
+    # field for field; one card does not read them
     scan_unroll: int = 1
-    remat_block: int = 1
     act_dp: tuple = ()
     act_tp: str = "model"
     act_seq: bool = False
     tp_size: int = 16
     attn_block_q: int = 1024         # blockwise attention chunk
     blockwise_from: int = 8192       # use blockwise attention above this S
-    loss_chunk: int = 0
+    loss_chunk: int = 0              # tokens per checkpointed head chunk (0: one)
     use_flash_prefill: bool = False  # the flash_prefill kernel for full-seq GQA attention
     norm_eps: float = 1e-6
 
@@ -185,7 +197,7 @@ def top_shapes(cfg: TransformerConfig) -> dict[str, tuple[int, ...]]:
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 @torch.no_grad()
@@ -513,18 +525,21 @@ class Transformer(nn.Module):
         return (rms_norm(x, self.ln_f, self.cfg.norm_eps) @ self.lm_head).float()
 
     def hidden_states(self, tokens, positions=None) -> torch.Tensor:
-        """Final-norm hidden states [B, S, d] (the pre-lm_head forward)."""
+        """Final-norm hidden states [B, S, d] (the pre-lm_head forward):
+        the dense stack, then the MoE stack, each as :func:`_run_stack`."""
         S = tokens.shape[1]
         x = self._embed(tokens)
         pos = positions if positions is not None else torch.arange(S, device=x.device)
-        for layer in self.layers:
-            x = layer(x, pos)
+        nd = self.cfg.n_dense_layers if self.cfg.is_moe else 0
+        for stack in (self.layers[:nd], self.layers[nd:]):
+            x = _run_stack(x, list(stack), self.cfg, pos)
         return rms_norm(x, self.ln_f, self.cfg.norm_eps)
 
     def forward(self, tokens, positions=None) -> torch.Tensor:
         """Logits f32 [B, S, vocab]."""
         return (self.hidden_states(tokens, positions) @ self.lm_head).float()
 
+    @torch.no_grad()
     def prefill(self, tokens, max_len: int):
         """Run the prompt ``tokens`` [B, S], building the cache.
 
@@ -552,6 +567,7 @@ class Transformer(nn.Module):
         cache["index"] = S
         return cache, self._logits(x[:, -1])
 
+    @torch.no_grad()
     def decode_step(self, cache: dict, tokens):
         """One-token decode: ``tokens`` [B] -> (cache, logits f32 [B, vocab]).
 
@@ -598,6 +614,74 @@ class Transformer(nn.Module):
             x = x + layer.ffn(h2.reshape(B, -1)).reshape(B, 1, -1)
         cache["index"] = idx + 1
         return cache, self._logits(x[:, 0])
+
+
+def remat(fn, *args):
+    """``fn(*args)`` under a checkpoint when grad mode is on (the backward
+    recomputes it; nothing inside is saved), else a plain call."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _run_stack(x, layers: list, cfg: TransformerConfig, positions) -> torch.Tensor:
+    """The JAX ``_scan_stack`` over ``layers``: blocks of ``bk`` layers
+    (the largest divisor of the stack's depth up to ``cfg.remat_block``).
+    With ``cfg.remat`` each block is one checkpoint, so the backward keeps
+    one activation per block, and a block of more than one layer also
+    checkpoints each layer, so its recompute holds one layer's
+    intermediates at a time."""
+    n = len(layers)
+    if not n or not cfg.remat:
+        for layer in layers:
+            x = layer(x, positions)
+        return x
+    bk = max(k for k in range(1, min(cfg.remat_block, n) + 1) if n % k == 0)
+
+    def block(x, i):
+        for layer in layers[i:i + bk]:
+            x = remat(layer, x, positions) if bk > 1 else layer(x, positions)
+        return x
+
+    for i in range(0, n, bk):
+        x = remat(block, x, i)
+    return x
+
+
+def _ce_terms(logits: torch.Tensor, labels: torch.Tensor):
+    """(sum of the nll, count) for one block of f32 logits [N, V] (the JAX
+    ``_ce_terms``): the gold logit by a masked reduction over the
+    vocabulary; labels below 0 are masked out."""
+    logz = torch.logsumexp(logits, dim=-1)
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    sel = vocab == labels.clamp_min(0)[..., None]
+    gold = torch.where(sel, logits, 0.0).sum(dim=-1)
+    mask = labels >= 0
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def loss_fn(model: Transformer, tokens, labels) -> torch.Tensor:
+    """Mean next-token cross entropy of ``model`` on ``tokens`` [B, S]
+    against ``labels`` [B, S] (the JAX ``loss_fn``).  When
+    ``cfg.loss_chunk`` divides T = B * S and T exceeds it, the head runs
+    chunk by chunk, each checkpointed, so the live logits are [chunk, V]
+    and the backward recomputes them."""
+    cfg = model.cfg
+    x = model.hidden_states(tokens)
+    B, S, d = x.shape
+    T = B * S
+    xt, lt = x.reshape(T, d), labels.reshape(T)
+    ck = cfg.loss_chunk
+    if ck and T > ck and T % ck == 0:
+        def chunk_terms(xc, lc):
+            return _ce_terms((xc @ model.lm_head).float(), lc)
+
+        terms = [remat(chunk_terms, xt[i:i + ck], lt[i:i + ck]) for i in range(0, T, ck)]
+        nll = torch.stack([t[0] for t in terms]).sum()
+        cnt = torch.stack([t[1] for t in terms]).sum()
+        return nll / cnt.clamp_min(1)
+    nll, cnt = _ce_terms((xt @ model.lm_head).float(), lt)
+    return nll / cnt.clamp_min(1)
 
 
 def _cache_alloc(cfg: TransformerConfig, batch: int, slots: int, dev) -> dict:

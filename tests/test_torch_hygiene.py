@@ -20,9 +20,13 @@ import repro_torch.core as T
 import repro_torch.distsys as TD
 import repro_torch.serve as TS
 import repro_torch.workload as TW
-from repro_torch.configs import deepseek_v2_236b, mind, qwen2_7b, qwen3_moe_235b_a22b
+from repro_torch.configs import (GNN_CONFIGS, deepseek_v2_236b, mind, qwen2_7b,
+                                 qwen3_moe_235b_a22b)
+from repro_torch.data import shard_batch
 from repro_torch.engine import LatencyEngine, PackedScheme, resolve_backend
 from repro_torch.kernels import decode_attention, embedding_bag, flash_prefill, ops
+from repro_torch.launch import train_lm
+from repro_torch.models import gnn as TG
 from repro_torch.models import recsys as TR
 from repro_torch.models import transformer as TM
 
@@ -55,7 +59,8 @@ def test_port_import_leaves_jax_unloaded():
         "import sys, repro_torch, repro_torch.core.greedy, repro_torch.workload,"
         " repro_torch.models, repro_torch.configs, repro_torch.kernels.ops,"
         " repro_torch.distsys, repro_torch.graph, repro_torch.obs, repro_torch.serve,"
-        " repro_torch.engine.incremental, repro_torch.engine.resilience;"
+        " repro_torch.engine.incremental, repro_torch.engine.resilience, repro_torch.optim,"
+        " repro_torch.data, repro_torch.launch, repro_torch.models.gnn;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')];"
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -87,6 +92,9 @@ ENTRY_POINTS = {
     "Transformer (MLA + MoE)": lambda ps, shard, sc: TM.Transformer(deepseek_v2_236b.SMOKE),
     "cache_init (MLA)": lambda ps, shard, sc: TM.cache_init(deepseek_v2_236b.SMOKE, 1, 8),
     "MIND": lambda ps, shard, sc: TR.MIND(mind.SMOKE),
+    "gnn.init": lambda ps, shard, sc: TG.init(GNN_CONFIGS["egnn"].SMOKE),
+    "train_lm": lambda ps, shard, sc: train_lm("qwen2-7b", steps=1),
+    "shard_batch": lambda ps, shard, sc: shard_batch({"x": np.zeros(3, np.float32)}),
     "execute_workload": lambda ps, shard, sc: TD.execute_workload(TD.Cluster(sc), ps),
     "trace_paths": lambda ps, shard, sc: TD.trace_paths(ps, sc, np.ones(3, bool)),
     "evaluate_baseline": lambda ps, shard, sc: T.evaluate_baseline(ps, sc),
@@ -189,6 +197,33 @@ def test_kernel_ops_dispatch_by_tensor_device(name):
     assert mod.LAUNCHES == before
     with pytest.raises(ValueError, match="unsupported device"):
         _kernel_calls("meta")[name]()
+
+
+@pytest.mark.parametrize("name", ["flash_prefill", "decode_attention", "embedding_bag"])
+def test_kernel_ops_refuse_grad(name):
+    """No kernel has a backward, so under grad mode an input that requires
+    grad raises, on the CPU as on a card (JAX refuses to differentiate the
+    Pallas kernels); under no_grad, or on inputs without grad, it runs."""
+    k = torch.zeros(1, 128, 1, 32, requires_grad=True)
+    table = torch.zeros(4, 8, requires_grad=True)
+    with_grad = {
+        "flash_prefill": lambda: ops.flash_prefill(torch.zeros(1, 128, 1, 2, 32), k, k),
+        "decode_attention": lambda: ops.decode_attention(
+            torch.zeros(1, 1, 2, 32), k, k, torch.ones(1, dtype=torch.int32)),
+        "embedding_bag": lambda: ops.embedding_bag(table, torch.zeros(2, 3, dtype=torch.int32)),
+    }[name]
+    with pytest.raises(RuntimeError, match="no backward"):
+        with_grad()
+    with torch.no_grad():
+        assert torch.isfinite(with_grad()).all()
+    assert torch.isfinite(_kernel_calls("cpu")[name]()).all()
+
+
+def test_training_entry_points_run_on_the_cpu_when_asked():
+    params = TG.init(GNN_CONFIGS["graphcast"].SMOKE, device="cpu")
+    assert params["layers"]["edge_mlp/w0"].device.type == "cpu"
+    assert shard_batch({"x": [np.ones(2, np.float32)]}, "cpu")["x"][0].device.type == "cpu"
+    assert train_lm("qwen2-7b", steps=2, batch=1, seq=4, device="cpu")["steps"] == 2
 
 
 def test_model_runs_on_the_cpu_when_asked():

@@ -1,11 +1,12 @@
-"""The port's MIND model (serving half) against the JAX package, on the CPU.
+"""The port's MIND model against the JAX package, on the CPU.
 
 The weights are the JAX package's own init (``repro.models.recsys.init``)
 carried across with ``load_jax_params``; batches come from seeded numpy
 generators in ``repro.configs.recsys_family``'s layout (``hist``,
 ``hist_mask``, ``user_feats``, ``candidates`` / ``candidate_ids``), with
-users whose history mask is all False.  Configs: MIND's SMOKE and a mid
-size (FULL's widths, 2^16 items).  Tolerance: f32 at 1e-5 (the largest
+users whose history mask is all False; the training loss and its
+gradients too.  Configs: MIND's SMOKE and a mid size (FULL's widths,
+2^16 items).  Tolerance: f32 at 1e-5 (the largest
 difference seen is ~3e-8).  Each JAX reference is computed once per module.
 
 The test marked ``cuda`` holds the model on the card against the same
@@ -62,7 +63,7 @@ def _torch_batch(batch):
 
 
 def _close(got, want, tol=TOL):
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=tol, rtol=tol)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=tol, rtol=tol)
 
 
 @pytest.fixture(scope="module")
@@ -163,7 +164,7 @@ def test_configs_and_shapes_match_jax(jx):
 def test_init_follows_the_jax_rule_and_load_checks_the_tree(jx):
     cfg = dataclasses.replace(M.SMOKE, n_items=4000, embed_dim=64, d_hidden=128)
     m = R.MIND(cfg, device="cpu", generator=torch.Generator().manual_seed(2))
-    assert not m.item_embed.requires_grad and torch.all(m.b_hidden == 0)
+    assert m.item_embed.requires_grad and torch.all(m.b_hidden == 0)
     for w, std in ((m.item_embed, 0.1), (m.user_embed, 0.1), (m.bilinear, 64 ** -0.5),
                    (m.w_hidden, 128 ** -0.5), (m.w_out, 128 ** -0.5)):
         assert abs(float(w.std()) / std - 1.0) < 0.1
@@ -172,6 +173,25 @@ def test_init_follows_the_jax_rule_and_load_checks_the_tree(jx):
         R.load_jax_params(m, params)
     with pytest.raises(ValueError):
         R.MIND(dataclasses.replace(M.SMOKE, capsule_iters=0), device="cpu")
+
+
+@pytest.mark.parametrize("size", list(CONFIGS))
+def test_loss_and_gradients_match_jax(jx, case, size):
+    """loss_fn (label-aware attention against the target, then the sampled
+    softmax over the batch's targets) and every gradient against
+    ``jax.value_and_grad`` of the JAX ``loss_fn``, users without history
+    included, at 1e-5."""
+    c = case(size)
+    batch = dict(c.batch, target=np.random.default_rng(11).integers(
+        0, c.cfg.n_items, c.batch["hist"].shape[0]).astype(np.int32))
+    loss_j, grads_j = jx.jax.value_and_grad(jx.JR.loss_fn)(
+        c.params, {k: jx.jnp.asarray(v) for k, v in batch.items()}, c.jcfg)
+    named = dict(c.model.named_parameters())
+    loss = R.loss_fn(c.model, _torch_batch(batch))
+    grads = torch.autograd.grad(loss, list(named.values()))
+    _close(loss.detach(), loss_j)
+    for (name, _), g in zip(named.items(), grads):
+        _close(g, grads_j[name])
 
 
 # --- on the card ---------------------------------------------------------------

@@ -77,9 +77,10 @@ def test_forward_matches_jax(name, flash, rng):
     want = JT.forward(params, tj, jcfg)
     with torch.no_grad():
         got = model(tt)
+        hidden = model.hidden_states(tt)
     assert got.dtype == torch.float32 and got.shape == (2, 128, tcfg.vocab)
     _close(got, want, 1e-4)
-    _close(model.hidden_states(tt), JT.hidden_states(params, tj, jcfg), 1e-4)
+    _close(hidden, JT.hidden_states(params, tj, jcfg), 1e-4)
 
 
 @pytest.mark.parametrize("name", list(VARIANTS))
@@ -201,7 +202,7 @@ def test_init_follows_the_jax_rule():
     lay = m.layers[1]
     assert torch.all(lay.ln_attn == 1) and torch.all(m.ln_f == 1)
     assert torch.all(lay.bq == 0) and torch.all(lay.bv == 0)
-    assert lay.w2.dtype == torch.bfloat16 and not lay.w2.requires_grad
+    assert lay.w2.dtype == torch.bfloat16 and lay.w2.requires_grad
     for w, fan_in in ((lay.wq, 64), (lay.w2, 128), (m.embed, 300), (m.lm_head, 64)):
         assert abs(float(w.float().std()) * fan_in ** 0.5 - 1.0) < 0.1
     assert torch.equal(m.layers[0].wk, again.layers[0].wk)
