@@ -221,6 +221,22 @@ Phases (each prints one JSON line; any failed check exits non-zero):
           step timed, and card = CPU at B = 1,024 over 2^20 items.
           train_lm on qwen2-7b's SMOKE config: a failure injected after
           step 5, the restart's losses equal to an uninterrupted run's.
+  launch  the last modules.  From the phase's start, DRYRUN_WORKERS host
+          processes count the one-card dry-run's 36 cells on ``meta``
+          tensors (``launch.dryrun.cell_row``), while the card runs:
+          (a) ``launch.serve.serve`` at the main cell (SNB-like scale 10,
+          20,000 queries, 6 hash-sharded servers), t = 1 and t = 2 with
+          the server-0 drill and t = 1 with ``hedge``, each on the kernel
+          and the torch backend, reports equal field by field and masks
+          equal, launches per kernel (counters zeroed just before each
+          kernel-backend drive, read just after); (b) every bundle's
+          ``smoke_step`` on the card and on the CPU, f32 losses within
+          1e-4 relative; (d) ``launch.elastic.elastic_drill`` on qwen2-7b at
+          full width with 2 layers, 2 x 512 tokens, bf16, 3 + 3 steps,
+          bit-exact.  Then each dry-run row is printed, and every cell
+          whose counted peak is under 70 GiB runs one real step on the
+          card: ``FlopCounterMode`` equal to the ``meta`` count exactly, 0
+          kernel launches, ``max_memory_allocated`` beside the peak.
 The last two lines are the kernels' JSON summary (kernels 1-4 timed at
 the sweep's shapes, and under "main_shape_*" at their paths' median
 rows per launch; ``fused_update`` also under "class_*", the whole-class
@@ -3239,6 +3255,55 @@ def serve_timed(model, prompts, steps: int, log: RouteLog) -> dict:
             "tokens_per_s": prompts.shape[0] * steps / sum(decode_s)}
 
 
+def boolean_moe_chunk(TM):
+    """``_moe_ffn_chunk`` with the dispatch it had before the sync-free
+    form: a store at the boolean-indexed kept assignments (``e_sorted[keep]``,
+    ``pos_in_e[keep]``, ``x[t_sorted[keep]]``: a ``nonzero`` and a
+    device-to-host sync each).  Kept here to time the two in one call."""
+    def chunk(x, lp, cfg):
+        T_, d = x.shape
+        plan = TM.moe_dispatch_plan(x, lp.router, cfg)
+        keep = plan.keep
+        buf = x.new_zeros((cfg.n_experts, plan.capacity, d))
+        buf[plan.e_sorted[keep], plan.pos_in_e[keep]] = x[plan.t_sorted[keep]]
+        h = torch.nn.functional.silu(torch.bmm(buf, lp.we1)) * torch.bmm(buf, lp.we3)
+        y_e = torch.bmm(h, lp.we2)
+        contrib = y_e[torch.where(keep, plan.e_sorted, 0), torch.where(keep, plan.pos_in_e, 0)]
+        contrib = contrib * (plan.gates * keep).to(contrib.dtype)[:, None]
+        per_token = torch.argsort(plan.t_sorted, stable=True).view(T_, cfg.top_k)
+        y = contrib[per_token[:, 0]]
+        for j in range(1, cfg.top_k):
+            y = y + contrib[per_token[:, j]]
+        if cfg.n_shared_experts:
+            y = y + TM.swiglu(x, lp.ws1, lp.ws3, lp.ws2)
+        return y.to(x.dtype)
+
+    return chunk
+
+
+def dispatch_ab(TM, model, prompts, steps: int, log: RouteLog) -> dict:
+    """The serve pass timed with the sync-free MoE dispatch and with the
+    boolean-index form it replaced, in turns (new, old, old, new): each
+    pass's median decode step and its last step's logits, equal between
+    the two forms."""
+    new_fn, old_fn = TM._moe_ffn_chunk, boolean_moe_chunk(TM)
+    out = {"sync_free": [], "boolean_index": []}
+    last = {}
+    for name in ("sync_free", "boolean_index", "boolean_index", "sync_free"):
+        TM._moe_ffn_chunk = new_fn if name == "sync_free" else old_fn
+        try:
+            r = serve_timed(model, prompts, steps, log)
+            with log.paused():
+                cache, lg = model.prefill(prompts, max_len=prompts.shape[1] + 1)
+                last[name] = model.decode_step(cache, lg.argmax(-1))[1]
+        finally:
+            TM._moe_ffn_chunk = new_fn
+        out[name].append(statistics.median(r["decode_step_s"]))
+    check(torch.equal(last["sync_free"], last["boolean_index"]),
+          "sync-free MoE dispatch: decode logits differ from the boolean-index form")
+    return out
+
+
 def decode_bound(model, cache_bytes: int) -> dict:
     """A decode step's least time: every layer's weights (all E experts:
     the step's products run over every expert, trap j), ``lm_head`` and the
@@ -3376,6 +3441,8 @@ def phase_lm_moe(TM, arch, fp, F, counters, dev) -> dict:
         out["serve_no_drop"] = serve_vs_forward(model, serve_prompts, MOE_SERVE_STEPS, log)
         out["serve_no_drop"]["capacity_factor"] = model.cfg.capacity_factor
         timed_s["serve_no_drop"] = serve_timed(model, serve_prompts, MOE_SERVE_STEPS, log)
+        timed_s["decode_dispatch_ab"] = dispatch_ab(TM, model, serve_prompts, MOE_SERVE_STEPS,
+                                                    log)
         B, St = MOE_SERVE_PROMPTS[0], MOE_SERVE_PROMPTS[1] + MOE_SERVE_STEPS
         width = cfg.mla_kv_lora + cfg.mla_rope_dim if cfg.is_mla else 2 * cfg.n_kv_heads * cfg.hd
         per_token = width * model.embed.element_size() * cfg.n_layers
@@ -3912,6 +3979,184 @@ def phase_train(TM, RM, G, C, O, make_train_step, train_lm, lm_batch_fn, gnn_bat
     return out
 
 
+# the launch phase: host processes counting the dry-run's cells (on meta)
+# while the card runs the serve drives, the smoke steps and the drill
+DRYRUN_WORKERS = 6
+# a dry-run cell is run for real on the card below this peak (GiB)
+REAL_STEP_MAX_GB = 70.0
+# each bundle's SMOKE step, card against CPU: the f32 losses
+SMOKE_LOSS_REL = 1e-4
+
+
+def dryrun_order(C) -> list:
+    """The 36 cells, the slowest to count first (MoE train and prefill run
+    every layer's dispatch chunks), so the pool's wall time is the slowest
+    cell's."""
+    cells = [(a, s) for a in C.arch_ids() for s in C.get_arch(a).shape_ids()]
+
+    def cost(cell):
+        b = C.get_arch(cell[0])
+        kind = b.cells[cell[1]].kind
+        moe = b.family == "lm" and b.config.is_moe
+        return (not moe, kind not in ("train", "prefill"), b.family != "lm", kind != "train")
+
+    return sorted(cells, key=cost)
+
+
+def launch_serve(serve_mod, counters, dev, scale: int = 10, n_queries: int = 20_000) -> dict:
+    """(a) ``launch.serve.serve`` at the main cell (SNB-like scale 10, 20,000
+    queries, 6 hash-sharded servers): t = 1 and t = 2 with the server-0
+    drill, and t = 1 with ``hedge``, each on the kernel and the torch
+    backend; the two reports equal field by field and their masks."""
+    runs = {}
+    for t, hedge in ((1, False), (2, False), (1, True)):
+        key = f"t{t}" + ("_hedge" if hedge else "")
+        got = {}
+        for backend in ("kernel", "torch"):
+            zero_counts(counters)
+            ts = time.perf_counter()
+            rep, scheme = serve_mod.serve(t, 6, scale, n_queries, "hash", 0, hedge, device=dev,
+                                          backend=backend, return_scheme=True)
+            torch.cuda.synchronize()
+            got[backend] = (rep, scheme, time.perf_counter() - ts, read_counts(counters))
+        (rk, sk, sec_k, launches), (rt, st, sec_t, _) = got["kernel"], got["torch"]
+        check(dataclasses.astuple(rk) == dataclasses.astuple(rt),
+              f"serve {key}: kernel and torch reports differ: {rk} / {rt}")
+        check(np.array_equal(sk.mask, st.mask), f"serve {key}: kernel and torch masks differ")
+        check(rk.feasible, f"serve {key}: scheme not feasible")
+        check(all(math.isfinite(v) for v in (rk.overhead, rk.mean_us, rk.p99_us, rk.qps)),
+              f"serve {key}: non-finite report")
+        check(launches["path_latency"] > 0 and launches["routed_walk"] > 0,
+              f"serve {key}: the walk kernels were not launched: {launches}")
+        runs[key] = {"report": dataclasses.asdict(rk), "launches": launches,
+                     "kernel_s": sec_k, "torch_s": sec_t}
+        print(f"launch serve {key}: {runs[key]}", flush=True)
+    return runs
+
+
+def launch_smoke(C, dev) -> dict:
+    """(b) every bundle's ``smoke_step`` on the card and on the CPU from the
+    same seed: the f32 losses within 1e-4 relative, every output finite."""
+    out = {}
+    for arch in C.arch_ids():
+        b = C.get_arch(arch)
+        res = {}
+        for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            r = b.smoke_step()(b.smoke_batch(np.random.default_rng(0), device=d))
+            check(all(bool(torch.isfinite(v).all()) for v in r.values()),
+                  f"smoke {arch} on {d}: non-finite output")
+            res[side] = float(r["loss"])
+        rel = abs(res["card"] - res["cpu"]) / max(abs(res["cpu"]), 1e-30)
+        check(rel <= SMOKE_LOSS_REL, f"smoke {arch}: card loss {res['card']} vs cpu {res['cpu']}")
+        out[arch] = {"loss_card": res["card"], "loss_cpu": res["cpu"], "rel": rel}
+    print(f"launch smoke: {out}", flush=True)
+    return out
+
+
+def launch_real_steps(C, rows: list, counters, dev) -> dict:
+    """(c) one real step on the card for each dry-run cell whose counted
+    peak is under REAL_STEP_MAX_GB: seeded arguments (``real_args``), the
+    step under ``FlopCounterMode`` equal to the ``meta`` count exactly (no
+    kernel is on a bundle's path: 0 launches), its seconds and
+    ``max_memory_allocated`` beside the counted peak."""
+    from torch.utils._pytree import tree_flatten
+    from torch.utils.flop_counter import FlopCounterMode
+
+    out = {}
+    for row in rows:
+        if row["peak_mem_gb"] >= REAL_STEP_MAX_GB:
+            continue
+        b = C.get_arch(row["arch"])
+        cell = f"{row['arch']}:{row['shape']}"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        args = b.real_args(row["shape"], device=dev, seed=0)
+        step = b.step_fn(row["shape"])
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        with FlopCounterMode(display=False) as fc:
+            res = step(*args)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - ts
+        launches = sum(read_counts(counters).values())
+        # the step's result: its last output (metrics, logits or scores);
+        # the state before it (parameters, moments, a cache) is written back
+        flat = [x for x in tree_flatten(res[-1] if isinstance(res, tuple) else res)[0]
+                if isinstance(x, torch.Tensor) and x.is_floating_point()]
+        check(bool(flat) and all(bool(torch.isfinite(x).all()) for x in flat),
+              f"real step {cell}: non-finite")
+        check(launches == 0, f"real step {cell}: {launches} kernel launches")
+        check(fc.get_total_flops() == row["hlo_flops"],
+              f"real step {cell}: FlopCounterMode {fc.get_total_flops()} vs meta "
+              f"{row['hlo_flops']}")
+        out[cell] = {"seconds": sec, "flops": fc.get_total_flops(),
+                     "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                     "peak_mem_gb_meta": row["peak_mem_gb"]}
+        print(f"launch real {cell}: {out[cell]}", flush=True)
+        del args, res, flat
+    return out
+
+
+def phase_launch(counters, dev) -> dict:
+    """The last modules' drives: (c)'s dry-run counted in host processes
+    from the start, (a) the serve launcher, (b) the bundles' smoke steps, (d)
+    the elastic drill at qwen2-7b's full width, then (c)'s real steps."""
+    import multiprocessing as mp
+
+    from repro_torch import configs as C
+    from repro_torch.launch import dryrun, elastic
+    from repro_torch.launch import serve as serve_mod
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    parts = {}
+    pool = mp.get_context("spawn").Pool(DRYRUN_WORKERS)
+    try:
+        # one cell per task: the slowest cells start at once, one per worker
+        pending = pool.map_async(dryrun.cell_row, dryrun_order(C), chunksize=1)
+        ts = time.perf_counter()
+        serve_runs = launch_serve(serve_mod, counters, dev)
+        parts["serve"] = time.perf_counter() - ts
+        ts = time.perf_counter()
+        smoke = launch_smoke(C, dev)
+        parts["smoke"] = time.perf_counter() - ts
+        ts = time.perf_counter()
+        cfg = dataclasses.replace(C.qwen2_7b.FULL, n_layers=2)
+        drill = elastic.elastic_drill(cfg, 3, 3, batch=2, seq=512, seed=0, device=dev)
+        parts["elastic"] = time.perf_counter() - ts
+        check(drill["bit_exact"], f"elastic drill not bit-exact: {drill}")
+        print(f"launch elastic: {drill}", flush=True)
+        torch.cuda.empty_cache()
+        ts = time.perf_counter()
+        rows = pending.get()
+        parts["dryrun_wait"] = time.perf_counter() - ts
+    finally:
+        pool.terminate()
+        pool.join()
+    for row in rows:
+        print(f"launch dryrun: {json.dumps(row, default=str)}", flush=True)
+    failed = [(r["arch"], r["shape"], r["status"]) for r in rows if r.get("status") != "ok"]
+    check(len(rows) == 36 and not failed, f"dry-run cells failed: {failed}")
+    ts = time.perf_counter()
+    real = launch_real_steps(C, rows, counters, dev)
+    parts["real_steps"] = time.perf_counter() - ts
+    out = {
+        "phase": "launch", "seconds": time.perf_counter() - t0, "part_s": parts,
+        "serve": serve_runs, "smoke": smoke,
+        "elastic": {k: drill[k] for k in ("bit_exact", "max_abs_gap", "reference")},
+        "dryrun": {f"{r['arch']}:{r['shape']}": {
+            k: r[k] for k in ("hlo_flops", "model_flops", "hlo_bytes", "peak_mem_gb",
+                              "fits_80gb", "bottleneck", "t_count_s")} for r in rows},
+        "dryrun_count_s": sum(r["t_count_s"] for r in rows),
+        "real_steps": real,
+        # the kernels' launches in the serve launcher's t = 1 drive (kernel backend)
+        "launches": serve_runs["t1"]["launches"],
+    }
+    emit(out)
+    return out
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int, err, timing,
                  main_shape: dict | None = None) -> dict:
     """One kernel of the kernels line: "ms", "plain_ms" and "library_ms" time
@@ -4025,6 +4270,7 @@ def main() -> int:
     lm_moe = phase_lm_moe(TM, qwen3_moe_235b_a22b, fp, F, counters, dev)
     phase_lm_moe(TM, deepseek_v2_236b, fp, F, counters, dev)
     phase_recsys(RM, mind, zipf_rows, counters, dev)
+    launch = phase_launch(counters, dev)
     launches.update(flash_prefill=lm["launches"]["flash_prefill"],
                     decode_attention=lm["launches"]["decode_attention"],
                     embedding_bag=bag["launches"]["embedding_bag"])
@@ -4084,7 +4330,8 @@ def main() -> int:
     routed_entry.update(executor_launches=ex["launches"]["routed_walk"],
                         planes_launches=planes_launches["routed_walk"],
                         serve_launches=serve["launches"]["routed_walk"],
-                        serve_controller_launches=serve_ctl["routed_walk"])
+                        serve_controller_launches=serve_ctl["routed_walk"],
+                        launch_serve_launches=launch["launches"]["routed_walk"])
     scored_entry = kernel_entry("scored_walk", "src/repro_torch/csrc/scored_walk.cu",
                                 "src/repro/kernels/routed_walk.py:244", launches["scored_walk"],
                                 err["scored_walk"], tm["scored_walk"], at["scored_walk"])
@@ -4096,7 +4343,8 @@ def main() -> int:
                             "src/repro/kernels/path_latency.py:93", launches["path_latency"],
                             err["path_latency"], tm["path_latency"], at["path_latency"])
     pl_entry.update(planes_launches=planes_launches["path_latency"],
-                    serve_controller_launches=serve_ctl["path_latency"])
+                    serve_controller_launches=serve_ctl["path_latency"],
+                    launch_serve_launches=launch["launches"]["path_latency"])
     # flash_prefill on qwen2-7b's path (G 7), and on qwen3-moe's (G 16):
     # its launches in the lm_moe phase's flash forward, timed at that shape
     flash_entry = kernel_entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",

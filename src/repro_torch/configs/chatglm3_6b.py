@@ -5,6 +5,8 @@
 """
 import torch
 
+from repro_torch.configs import base
+from repro_torch.configs.lm_family import make_bundle
 from repro_torch.models.transformer import TransformerConfig
 
 FULL = TransformerConfig(
@@ -21,3 +23,8 @@ SMOKE = TransformerConfig(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab=256,
     rotary_pct=0.5, dtype=torch.float32, remat=False,
 )
+
+
+@base.register("chatglm3-6b")
+def bundle():
+    return make_bundle("chatglm3-6b", FULL, SMOKE, skip_long=True)

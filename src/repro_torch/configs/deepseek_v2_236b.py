@@ -6,6 +6,8 @@ moe_d_ff=1536, first layer dense (d_ff=12288).
 """
 import torch
 
+from repro_torch.configs import base
+from repro_torch.configs.lm_family import make_bundle
 from repro_torch.models.transformer import TransformerConfig
 
 FULL = TransformerConfig(
@@ -31,3 +33,8 @@ SMOKE = TransformerConfig(
     mla_v_dim=16,
     dtype=torch.float32, remat=False,
 )
+
+
+@base.register("deepseek-v2-236b")
+def bundle():
+    return make_bundle("deepseek-v2-236b", FULL, SMOKE, skip_long=True)

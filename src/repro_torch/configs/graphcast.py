@@ -7,6 +7,8 @@ over the *provided* graph of each input shape; the 16-layer
 interaction-network processor (edge MLP + node MLP, sum aggregation) is
 faithful.
 """
+from repro_torch.configs import base
+from repro_torch.configs.gnn_family import make_bundle
 from repro_torch.models.gnn import GNNConfig
 
 FULL = GNNConfig(name="graphcast", arch="graphcast", n_layers=16,
@@ -14,3 +16,8 @@ FULL = GNNConfig(name="graphcast", arch="graphcast", n_layers=16,
                  d_edge=4)
 SMOKE = GNNConfig(name="graphcast-smoke", arch="graphcast", n_layers=2,
                   d_hidden=16, d_in=8, n_classes=4, aggregator="sum")
+
+
+@base.register("graphcast")
+def bundle():
+    return make_bundle("graphcast", FULL, SMOKE)

@@ -5,6 +5,8 @@ Item table: 2^26 rows x 64 f32 (17.2 GB); user-feature table 2^20 x 64.
 """
 import torch
 
+from repro_torch.configs import base
+from repro_torch.configs.recsys_family import make_bundle
 from repro_torch.models.recsys import MINDConfig
 
 FULL = MINDConfig(
@@ -22,3 +24,8 @@ SMOKE = MINDConfig(
     embed_dim=16, n_interests=3, capsule_iters=2,
     hist_len=10, user_feat_len=4, d_hidden=32,
 )
+
+
+@base.register("mind")
+def bundle():
+    return make_bundle("mind", FULL, SMOKE)

@@ -5,6 +5,8 @@ MoE: 128 experts top-8, moe_d_ff=1536 (no shared experts).
 """
 import torch
 
+from repro_torch.configs import base
+from repro_torch.configs.lm_family import make_bundle
 from repro_torch.models.transformer import TransformerConfig
 
 FULL = TransformerConfig(
@@ -25,3 +27,8 @@ SMOKE = TransformerConfig(
     n_experts=8, top_k=2, moe_d_ff=32,
     dtype=torch.float32, remat=False,
 )
+
+
+@base.register("qwen3-moe-235b-a22b")
+def bundle():
+    return make_bundle("qwen3-moe-235b-a22b", FULL, SMOKE, skip_long=True)

@@ -56,6 +56,7 @@ from repro_torch.engine import LatencyEngine, PackedScheme
 from repro_torch.engine import backends as _backends
 from repro_torch.engine.packed import scatter_or_pairs, storage_per_server, test_bits
 from repro_torch.engine.streaming import resolve_device, to_device, to_host
+from repro_torch.engine.sharding import refuse_multi_card
 from repro_torch.kernels.provision_update import fused_update_class
 
 _INF = 1e30
@@ -718,12 +719,7 @@ _RESILIENCE_ROUNDS = 3
 
 def _refuse_mesh(mesh) -> None:
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is refused: the port targets one card and has no mesh type; "
-            "multi-card path sharding of the fused driver is still to do "
-            "(the batch row quantum still rounds by the device count, "
-            "repro_torch.engine.sharding.round_up_rows)"
-        )
+        refuse_multi_card("mesh=")
 
 
 def _run_exact_fallback(host_scheme, cls, seq_idx, b, f_arr, capacity, epsilon,

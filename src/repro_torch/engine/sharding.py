@@ -2,8 +2,10 @@
 
 The JAX package lays the fused greedy out on a ``jax.sharding`` mesh
 (scheme words replicated, batch rows split on a path axis).  The port
-targets one card and has no mesh type: ``replicate_workload(mesh=...)``
-is refused (see its docstring).  What carries over is the row quantum the
+targets one card and has no mesh type: every multi-card request (``mesh=``,
+the bundles' shardings, ``launch.mesh``, a dry-run over TPU pods, an
+elastic step over more than one device) is refused through
+:func:`refuse_multi_card`.  What carries over is the row quantum the
 incremental dirty-set evaluator pads its blocks with, rounded by the
 device count as the JAX package rounds it, so the padded shapes of the
 two packages agree.
@@ -33,3 +35,13 @@ def round_up_rows(n: int, align: int = 128, device=None) -> int:
     """
     q = max(1, int(align)) * device_count(device)
     return max(q, -(-int(n) // q) * q)
+
+
+def refuse_multi_card(what: str):
+    """Raise ``NotImplementedError`` for a multi-card request ``what``: the
+    one refusal of the port, with its one reason."""
+    raise NotImplementedError(
+        f"{what} is refused: the port targets one card and has no mesh type; "
+        "multi-card sharding is still to do (the batch row quantum still "
+        "rounds by the device count, repro_torch.engine.sharding.round_up_rows)"
+    )

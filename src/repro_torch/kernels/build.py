@@ -47,6 +47,15 @@ SIGNATURES = {
 # floating-point element types the attention and embedding kernels take
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+# devices on which the model kernels' wrappers (flash_prefill,
+# decode_attention, embedding_bag) compute the plain torch version: the
+# host, and ``meta`` (shapes only: the one-card dry-run counts a step's
+# operations there, and no kernel can run on it).  A CUDA tensor launches
+# the kernel or raises; any other device raises.  The walks' plain
+# versions read their data on the host as they go, so they have no
+# ``meta`` form and their wrappers take the CPU only.
+PLAIN_DEVICES = ("cpu", "meta")
+
 _LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None
 # called with the build's seconds after every build that ran nvcc (a

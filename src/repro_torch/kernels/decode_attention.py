@@ -28,7 +28,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels.build import DTYPE_CODES, check_launch, load_library, refuse_grad
+from repro_torch.kernels.build import (DTYPE_CODES, PLAIN_DEVICES, check_launch, load_library,
+                                      refuse_grad)
 
 LAUNCHES = 0     # wrapper calls that launched the kernels (two launches each)
 MAX_HD = 128     # one thread per dim in the P V step
@@ -113,12 +114,12 @@ def _sm_count(device: torch.device) -> int:
 
 def decode_attention(q, k, v, lengths) -> torch.Tensor:
     """One-token GQA attention over a KV cache: the CUDA kernel on a CUDA
-    tensor, the plain version on a CPU tensor.  See
+    tensor, the plain version on a CPU or ``meta`` tensor.  See
     :func:`decode_attention_plain`."""
     global LAUNCHES
     _check(q, k, v, lengths)
     refuse_grad("decode_attention", q, k, v)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return decode_attention_plain(q, k, v, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")

@@ -21,7 +21,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import DTYPE_CODES, check_launch, load_library, refuse_grad
+from repro_torch.kernels.build import (DTYPE_CODES, PLAIN_DEVICES, check_launch, load_library,
+                                      refuse_grad)
 
 LAUNCHES = 0
 MODES = ("mean", "sum")
@@ -53,11 +54,11 @@ def _check(table, ids, mode):
 
 def embedding_bag(table, ids, mode: str = "mean") -> torch.Tensor:
     """Pooled rows f32 [B, d]: the CUDA kernel on a CUDA tensor, the plain
-    version on a CPU tensor.  See :func:`embedding_bag_plain`."""
+    version on a CPU or ``meta`` tensor.  See :func:`embedding_bag_plain`."""
     global LAUNCHES
     _check(table, ids, mode)
     refuse_grad("embedding_bag", table)
-    if table.device.type == "cpu":
+    if table.device.type in PLAIN_DEVICES:
         return embedding_bag_plain(table, ids, mode)
     if table.device.type != "cuda":
         raise ValueError(f"unsupported device {table.device}")

@@ -34,7 +34,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import DTYPE_CODES, check_launch, load_library, refuse_grad
+from repro_torch.kernels.build import (DTYPE_CODES, PLAIN_DEVICES, check_launch, load_library,
+                                      refuse_grad)
 
 LAUNCHES = 0     # kernel launches, both routes
 TC_LAUNCHES = 0  # of them, the tensor-core (wgmma) route's
@@ -92,12 +93,12 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def flash_prefill(q, k, v, window: int = 0) -> torch.Tensor:
     """Causal (optionally windowed) GQA attention: a CUDA kernel on a CUDA
-    tensor (see :func:`kernel_route`), the plain version on a CPU tensor.
+    tensor (see :func:`kernel_route`), the plain version on a CPU or ``meta`` tensor.
     See :func:`flash_prefill_plain`."""
     global LAUNCHES, TC_LAUNCHES
     _check(q, k, v)
     refuse_grad("flash_prefill", q, k, v)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_prefill_plain(q, k, v, window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")

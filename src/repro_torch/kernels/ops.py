@@ -3,7 +3,7 @@
 
 Each attention and embedding wrapper dispatches by the device of the
 tensors it is given: the CUDA kernel for a CUDA tensor, the plain torch
-version for a CPU tensor.  ``path_latency`` adapts a PathSet and a
+version for a CPU or ``meta`` tensor.  ``path_latency`` adapts a PathSet and a
 ReplicationScheme to the port's latency engine, whose backend follows the
 device.
 """

@@ -1,7 +1,10 @@
-"""Launchers (torch port of ``repro.launch``): the training loop.
+"""Launchers (torch port of ``repro.launch``): the train loop
+(``launch.train``), the serve launcher (``launch.serve``), the one-card
+dry-run (``launch.dryrun``, run as ``python -m repro_torch.launch.dryrun``)
+and the elastic drill (``launch.elastic``).
 
-Mesh construction, the dry-run, the elastic drills and the serving
-launcher of the JAX package are later slices of the port.
+``repro.launch`` exports its meshes, which the port refuses on one card
+(``launch.mesh``), so the package exports ``train_lm`` alone.
 """
 from repro_torch.launch.train import train_lm
 

@@ -29,27 +29,7 @@ from repro_torch.distsys import CheckpointManager
 from repro_torch.engine.streaming import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.optim import AdamW, cosine_schedule
-from repro_torch.optim.adamw import tree_leaves, tree_map
-
-
-def make_train_step(loss_fn, opt: AdamW):
-    """The step of the JAX package's train loops: ``loss_fn(params, batch)``
-    -> scalar loss, its gradients with respect to the leaves of ``params``
-    (a dict tree of tensors that require grad), then ``opt.update``.
-    Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
-    {"loss", "grad_norm"})``; the parameters are updated in place."""
-
-    def train_step(params, opt_state, batch):
-        loss = loss_fn(params, batch)
-        leaves = tree_leaves(params)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        # a leaf the loss does not reach gets a zero gradient, as in JAX
-        it = iter(torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads))
-        grads = tree_map(lambda _: next(it), params)
-        params, opt_state, gnorm = opt.update(grads, opt_state, params)
-        return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
-
-    return train_step
+from repro_torch.optim.adamw import make_train_step
 
 
 def train_lm(arch: str, steps: int = 20, smoke: bool = True,

@@ -174,6 +174,19 @@ def init(cfg: GNNConfig, generator: torch.Generator | None = None, device=None) 
     return build(shapes(cfg))
 
 
+def init_abstract(cfg: GNNConfig) -> dict:
+    """The parameter tree of :func:`init` as ``meta`` tensors that require
+    grad (the JAX ``init_abstract``): shapes and dtypes, nothing allocated."""
+    cfg.validate()
+
+    def build(tree):
+        return {name: build(v) if not _is_shape_leaf(v) else
+                torch.empty(v[0], dtype=v[1], device="meta").requires_grad_()
+                for name, v in tree.items()}
+
+    return build(shapes(cfg))
+
+
 def load_jax_params(params, cfg: GNNConfig, device=None) -> dict:
     """A JAX parameter tree (numpy leaves, e.g. ``jax.tree.map(np.asarray,
     repro.models.gnn.init(cfg, key))``) as the port's tree on ``device``
@@ -273,7 +286,10 @@ def forward(params: dict, batch: dict, cfg: GNNConfig) -> torch.Tensor:
     receivers = _tensor(batch["receivers"], dev).long()
     h = _mlp(params["encoder"], x)
     L = cfg.n_layers
-    layers = [_unflatten2({k: v[i] for k, v in params["layers"].items()}) for i in range(L)]
+    # one unbind per stacked leaf: its backward stacks the L gradients into
+    # one [L, ...] tensor, where L selects would each write a zero-filled one
+    per_layer = {k: v.unbind(0) for k, v in params["layers"].items()}
+    layers = [_unflatten2({k: v[i] for k, v in per_layer.items()}) for i in range(L)]
 
     def run(body, carry):
         for lp in layers:

@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.engine.streaming import resolve_device
+from repro_torch.models.transformer import bind_param, model_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,17 +163,29 @@ class MIND(nn.Module):
     A batch is a dict in the layout of ``repro.configs.recsys_family``:
     ``hist`` int [B, hist_len], ``hist_mask`` bool [B, hist_len],
     ``user_feats`` int [B, user_feat_len], and ``candidates`` int [B, C]
-    (serve) or ``candidate_ids`` int [N] (retrieval)."""
+    (serve) or ``candidate_ids`` int [N] (retrieval).
+
+    ``device="meta"`` builds the shapes only (:func:`init_abstract`);
+    ``params`` (keyed as :func:`shapes`) binds the model to those tensors,
+    unchanged, as ``Transformer(params=...)`` does."""
 
     def __init__(self, cfg: MINDConfig, device=None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, params: dict | None = None):
         super().__init__()
         cfg.validate()
-        dev = resolve_device(device)
         self.cfg = cfg
+        if params is not None:
+            if set(params) != set(shapes(cfg)):
+                raise ValueError(f"params {sorted(params)}, the config's {sorted(shapes(cfg))}")
+            for name, shape in shapes(cfg).items():
+                self.register_parameter(name, bind_param(params, name, shape, cfg.dtype))
+            return
+        dev = model_device(device)
         for name, shape in shapes(cfg).items():
             self.register_parameter(name, nn.Parameter(
                 torch.empty(shape, dtype=cfg.dtype, device=dev)))
+        if dev.type == "meta":
+            return
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         init_params(self, generator)
@@ -207,6 +219,12 @@ class MIND(nn.Module):
         interests = self.user_tower(batch)                              # [B, K, d]
         cand = self.item_embed[batch["candidate_ids"].long()]           # [N, d]
         return torch.einsum("bkd,nd->bkn", interests, cand).amax(dim=1)
+
+
+def init_abstract(cfg: MINDConfig) -> dict:
+    """The parameters as ``meta`` tensors keyed as :func:`shapes` (the JAX
+    ``init_abstract``): shapes and dtypes, nothing allocated."""
+    return dict(MIND(cfg, device="meta").named_parameters())
 
 
 def loss_fn(model: MIND, batch: dict) -> torch.Tensor:

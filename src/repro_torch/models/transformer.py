@@ -200,6 +200,27 @@ def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
+def bind_param(params: dict, name: str, shape, dtype) -> nn.Parameter:
+    """The parameter ``name`` of a given tree, checked against the
+    config's shape and dtype (a plain tensor is wrapped, sharing storage)."""
+    if name not in params:
+        raise ValueError(f"parameter {name} is missing")
+    p = params[name]
+    if tuple(p.shape) != tuple(shape) or p.dtype != dtype:
+        raise ValueError(f"{name}: {tuple(p.shape)} {p.dtype}, the config's "
+                         f"{tuple(shape)} {dtype}")
+    return p if isinstance(p, nn.Parameter) else nn.Parameter(p)
+
+
+def model_device(device) -> torch.device:
+    """The device a model is built on: ``"meta"`` (shapes and dtypes only,
+    nothing allocated or drawn, as the JAX ``init_abstract``) or what
+    :func:`~repro_torch.engine.streaming.resolve_device` gives."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
 @torch.no_grad()
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """Random init as the JAX ``init``: ``ln_*`` ones, ``b*`` zeros, every
@@ -362,7 +383,10 @@ def moe_dispatch_plan(x: torch.Tensor, router: torch.Tensor,
     flat_t = torch.arange(T, device=x.device).repeat_interleave(K)
     order = torch.argsort(flat_e, stable=True)
     e_sorted = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=E)
+    # the per-expert counts by a scatter-add (``bincount``'s output length
+    # depends on the data, so it has no ``meta`` form)
+    counts = torch.zeros(E, dtype=flat_e.dtype, device=x.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(T * K, device=x.device) - starts[e_sorted]
     C = moe_capacity(T, cfg)
@@ -373,16 +397,25 @@ def moe_dispatch_plan(x: torch.Tensor, router: torch.Tensor,
 def _moe_ffn_chunk(x: torch.Tensor, lp: nn.Module, cfg: TransformerConfig) -> torch.Tensor:
     """x: [T, d] -> [T, d]: dispatch into the [E, C, d] buffer (overflow
     past capacity drops), the expert SwiGLUs as batched products over all
-    E experts, the gated combine, then the shared experts."""
+    E experts, the gated combine, then the shared experts.
+
+    The dispatch is the JAX package's scatter-add: every assignment adds
+    ``x[t] * keep`` at ``(e, pos)``, a dropped one at slot (0, 0).  The
+    buffer starts at zero and each slot receives at most one kept row, so
+    every other add is of zeros and the buffer equals the boolean-index
+    store exactly, with no ``nonzero`` (no host sync, and a ``meta`` form)."""
     T, d = x.shape
     K = cfg.top_k
     plan = moe_dispatch_plan(x, lp.router, cfg)
     keep = plan.keep
+    e_at = torch.where(keep, plan.e_sorted, 0)
+    pos_at = torch.where(keep, plan.pos_in_e, 0)
     buf = x.new_zeros((cfg.n_experts, plan.capacity, d))
-    buf[plan.e_sorted[keep], plan.pos_in_e[keep]] = x[plan.t_sorted[keep]]
+    buf = buf.index_put((e_at, pos_at), x[plan.t_sorted] * keep[:, None].to(x.dtype),
+                        accumulate=True)
     h = F.silu(torch.bmm(buf, lp.we1)) * torch.bmm(buf, lp.we3)
     y_e = torch.bmm(h, lp.we2)                                      # [E, C, d]
-    contrib = y_e[torch.where(keep, plan.e_sorted, 0), torch.where(keep, plan.pos_in_e, 0)]
+    contrib = y_e[e_at, pos_at]
     contrib = contrib * (plan.gates * keep).to(contrib.dtype)[:, None]
     # each token's K contributions in the sorted order (ascending expert),
     # added one at a time in their dtype: the JAX scatter-add's order
@@ -422,12 +455,15 @@ class DecoderLayer(nn.Module):
     """One decoder layer of ``kind`` "dense" or "moe"; parameters named as
     the JAX layer stacks'."""
 
-    def __init__(self, cfg: TransformerConfig, device, kind: str = "dense"):
+    def __init__(self, cfg: TransformerConfig, device, kind: str = "dense",
+                 params: dict | None = None):
         super().__init__()
         self.cfg = cfg
         self.kind = kind
         for name, shape in layer_shapes(cfg, kind).items():
-            self.register_parameter(name, _param(shape, param_dtype(name, cfg), device))
+            dt = param_dtype(name, cfg)
+            self.register_parameter(name, _param(shape, dt, device) if params is None
+                                    else bind_param(params, name, shape, dt))
 
     def qkv(self, x, positions):
         """The JAX ``_qkv_gqa``: projections, optional bias, RoPE."""
@@ -503,17 +539,36 @@ class Transformer(nn.Module):
     """The LM.  ``device`` defaults to CUDA and raises without a card
     unless ``"cpu"`` is asked for; ``generator`` (a ``torch.Generator`` on
     that device) draws the random init, a generator seeded 0 when None.
-    ``layers`` holds every layer, a MoE model's dense ones first."""
+    ``device="meta"`` builds the shapes only (:func:`init_abstract`).
+    ``params`` (a dict keyed as ``named_parameters()``) binds the model to
+    those tensors, unchanged and not re-drawn, on their device: the step
+    functions of ``repro_torch.configs.lm_family`` run the model on a
+    parameter tree this way.  ``layers`` holds every layer, a MoE model's
+    dense ones first."""
 
     def __init__(self, cfg: TransformerConfig, device=None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, params: dict | None = None):
         super().__init__()
         cfg.validate()
-        dev = resolve_device(device)
         self.cfg = cfg
+        if params is not None:
+            for name, shape in top_shapes(cfg).items():
+                self.register_parameter(name, bind_param(params, name, shape, cfg.dtype))
+            dev = self.embed.device
+            self.layers = nn.ModuleList(
+                DecoderLayer(cfg, dev, kind, params={
+                    k.split(".", 2)[2]: v for k, v in params.items()
+                    if k.startswith(f"layers.{i}.")})
+                for i, kind in enumerate(cfg.layer_kinds()))
+            if len(params) != sum(1 for _ in self.parameters()):
+                raise ValueError("params holds names the config does not have")
+            return
+        dev = model_device(device)
         for name, shape in top_shapes(cfg).items():
             self.register_parameter(name, _param(shape, cfg.dtype, dev))
         self.layers = nn.ModuleList(DecoderLayer(cfg, dev, kind) for kind in cfg.layer_kinds())
+        if dev.type == "meta":
+            return
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         init_params(self, generator)
@@ -579,11 +634,18 @@ class Transformer(nn.Module):
         cfg = self.cfg
         B = tokens.shape[0]
         x = self._embed(tokens)[:, None, :]
-        idx = cache["index"]
         T = (cache["c_kv"] if cfg.is_mla else cache["k"]).shape[2]
-        slot = idx % T
         dev = x.device
-        pos_now = torch.full((B, 1), idx, dtype=torch.int32, device=dev)
+        idx = cache["index"]
+        if isinstance(idx, torch.Tensor):
+            # a device scalar (the dry-run's ``meta`` cache): no host read
+            idx = idx.to(torch.int64)
+            slot = (idx % T).reshape(1)
+            pos_now = idx.to(torch.int32).expand(B, 1)
+        else:
+            # a host int: filled in place, no host-to-device copy (and sync)
+            slot = torch.full((1,), idx % T, dtype=torch.int64, device=dev)
+            pos_now = torch.full((B, 1), idx, dtype=torch.int32, device=dev)
         # global position stored in each ring slot (largest p <= idx, p % T == s)
         k_pos = idx - ((idx - torch.arange(T, device=dev)) % T)
         k_valid = (k_pos >= 0) & (k_pos <= idx)
@@ -595,15 +657,15 @@ class Transformer(nn.Module):
             if cfg.is_mla:
                 qn, qr, c_new, r_new = layer.qkv_mla(h, pos_now)
                 c_l, r_l = cache["c_kv"][i], cache["k_rope"][i]
-                c_l[:, slot] = c_new[:, 0]
-                r_l[:, slot] = r_new[:, 0]
+                c_l.index_copy_(1, slot, c_new)
+                r_l.index_copy_(1, slot, r_new)
                 attn = mla_attention(qn, qr, c_l, r_l, layer.w_uk, layer.w_uv, cfg,
                                      pos_now[0], k_pos, k_valid)
             else:
                 q, k_new, v_new = layer.qkv(h, pos_now)
                 k_l, v_l = cache["k"][i], cache["v"][i]
-                k_l[:, slot] = k_new[:, 0]
-                v_l[:, slot] = v_new[:, 0]
+                k_l.index_copy_(1, slot, k_new)
+                v_l.index_copy_(1, slot, v_new)
                 qg = q.reshape(B, 1, KV, G, hd)
                 s = torch.einsum("bqkgh,btkh->bkgqt", qg.float(), k_l.float()) / math.sqrt(hd)
                 s = torch.where(k_valid, s, -1e30)
@@ -612,7 +674,7 @@ class Transformer(nn.Module):
             x = x + attn.reshape(B, 1, -1) @ layer.wo
             h2 = rms_norm(x, layer.ln_mlp, cfg.norm_eps)
             x = x + layer.ffn(h2.reshape(B, -1)).reshape(B, 1, -1)
-        cache["index"] = idx + 1
+        cache["index"] = cache["index"] + 1
         return cache, self._logits(x[:, 0])
 
 
@@ -693,6 +755,22 @@ def _cache_alloc(cfg: TransformerConfig, batch: int, slots: int, dev) -> dict:
     if cfg.is_mla:
         return {"c_kv": zeros(cfg.mla_kv_lora), "k_rope": zeros(cfg.mla_rope_dim), "index": 0}
     return {"k": zeros(cfg.n_kv_heads, cfg.hd), "v": zeros(cfg.n_kv_heads, cfg.hd), "index": 0}
+
+
+def init_abstract(cfg: TransformerConfig) -> dict:
+    """The parameters as ``meta`` tensors keyed as ``named_parameters()``
+    (the JAX ``init_abstract``): shapes and dtypes, nothing allocated."""
+    return dict(Transformer(cfg, device="meta").named_parameters())
+
+
+def cache_abstract(cfg: TransformerConfig, batch: int, max_len: int) -> dict:
+    """The cache of :func:`cache_init` as ``meta`` tensors (the JAX
+    ``cache_abstract``), ``index`` an int32 scalar as in the JAX cache."""
+    win = cfg.sliding_window
+    slots = min(win, max_len) if win and not cfg.is_mla else max_len
+    cache = _cache_alloc(cfg, batch, slots, torch.device("meta"))
+    cache["index"] = torch.zeros((), dtype=torch.int32, device="meta")
+    return cache
 
 
 def cache_init(cfg: TransformerConfig, batch: int, max_len: int, device=None) -> dict:

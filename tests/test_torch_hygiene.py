@@ -25,7 +25,11 @@ from repro_torch.configs import (GNN_CONFIGS, deepseek_v2_236b, mind, qwen2_7b,
 from repro_torch.data import shard_batch
 from repro_torch.engine import LatencyEngine, PackedScheme, resolve_backend
 from repro_torch.kernels import decode_attention, embedding_bag, flash_prefill, ops
-from repro_torch.launch import train_lm
+from repro_torch.configs import get_arch
+from repro_torch.configs.base import ArchBundle
+from repro_torch.engine.sharding import refuse_multi_card
+from repro_torch.launch import dryrun, elastic, mesh, train_lm
+from repro_torch.launch import serve as launch_serve
 from repro_torch.models import gnn as TG
 from repro_torch.models import recsys as TR
 from repro_torch.models import transformer as TM
@@ -60,7 +64,9 @@ def test_port_import_leaves_jax_unloaded():
         " repro_torch.models, repro_torch.configs, repro_torch.kernels.ops,"
         " repro_torch.distsys, repro_torch.graph, repro_torch.obs, repro_torch.serve,"
         " repro_torch.engine.incremental, repro_torch.engine.resilience, repro_torch.optim,"
-        " repro_torch.data, repro_torch.launch, repro_torch.models.gnn;"
+        " repro_torch.data, repro_torch.launch, repro_torch.models.gnn,"
+        " repro_torch.analysis, repro_torch.analysis.corrected, repro_torch.launch.serve,"
+        " repro_torch.launch.dryrun, repro_torch.launch.elastic, repro_torch.launch.mesh;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')];"
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -109,6 +115,13 @@ ENTRY_POINTS = {
     "harness_simulate": lambda ps, shard, sc: TS.harness_simulate(TD.Cluster(sc), ps),
     "AdaptiveController": lambda ps, shard, sc: TS.AdaptiveController(
         TD.Cluster(sc), TS.ControllerConfig(t=1)),
+    "launch.serve.serve": lambda ps, shard, sc: launch_serve.serve(n_queries=10),
+    "elastic_drill": lambda ps, shard, sc: elastic.elastic_drill(qwen2_7b.SMOKE),
+    "build_for_devices": lambda ps, shard, sc: elastic.build_for_devices(
+        qwen2_7b.SMOKE, [None], None),
+    "ArchBundle.real_args": lambda ps, shard, sc: get_arch("egnn").real_args("molecule"),
+    "ArchBundle.smoke_batch": lambda ps, shard, sc: get_arch("mind").smoke_batch(
+        np.random.default_rng(0)),
 }
 
 
@@ -140,20 +153,61 @@ def test_backend_resolves_from_device():
         LatencyEngine(sc, device="cpu", backend="kernel")
 
 
-def test_unported_options_raise():
-    """``mesh=`` stays refused with its reason (one card, no mesh type),
-    and it is the port's only ``NotImplementedError``."""
+# every multi-card request of the port, each refused through
+# engine.sharding.refuse_multi_card with its one reason
+REFUSALS = {
+    "replicate_workload(mesh=)": lambda ps, shard, sc: T.replicate_workload(
+        ps, shard, 3, 1, device="cpu", mesh=object()),
+    "replicate_workload(fused=True, mesh=)": lambda ps, shard, sc: T.replicate_workload(
+        ps, shard, 3, 1, device="cpu", fused=True, mesh=object()),
+    "replicate_delta(mesh=)": lambda ps, shard, sc: T.replicate_delta(
+        ps, LatencyEngine(sc, device="cpu"), 1, mesh=object()),
+    "replicate_stream(mesh=)": lambda ps, shard, sc: T.replicate_stream(
+        [ps], shard, 3, 1, device="cpu", mesh=object()),
+    "ArchBundle.shardings": lambda ps, shard, sc: get_arch("qwen2-7b").shardings("train_4k"),
+    "mesh.make_production_mesh": lambda ps, shard, sc: mesh.make_production_mesh(),
+    "mesh.make_production_mesh(multi_pod)": lambda ps, shard, sc: mesh.make_production_mesh(
+        multi_pod=True),
+    "mesh.make_host_mesh": lambda ps, shard, sc: mesh.make_host_mesh(),
+    "dryrun --mesh single": lambda ps, shard, sc: _dryrun_main("single"),
+    "dryrun --mesh both": lambda ps, shard, sc: _dryrun_main("both"),
+    "build_for_devices(2 devices)": lambda ps, shard, sc: elastic.build_for_devices(
+        qwen2_7b.SMOKE, ["cpu", "cpu"], None),
+}
+
+
+def _dryrun_main(mesh_name):
+    argv = sys.argv
+    sys.argv = ["dryrun", "--mesh", mesh_name, "--arch", "egnn"]
+    try:
+        return dryrun.main()
+    finally:
+        sys.argv = argv
+
+
+@pytest.mark.parametrize("name", sorted(REFUSALS))
+def test_unported_options_raise(name):
+    """Each multi-card request raises ``NotImplementedError`` with the one
+    reason (one card, no mesh type)."""
+    ps, shard, sc = _small_case()
+    with pytest.raises(NotImplementedError, match="one card"):
+        REFUSALS[name](ps, shard, sc)
+
+
+def test_refusals_share_one_function():
+    """The port's only ``raise NotImplementedError`` is
+    ``refuse_multi_card``'s, and every refusal site calls that function."""
     raising = [str(p.relative_to(ROOT)) for p in PORT_FILES
                if "raise NotImplementedError" in p.read_text()]
-    assert raising == ["src/repro_torch/core/greedy.py"]
-    ps, shard, sc = _small_case()
-    for kw in ({"mesh": object()}, {"fused": True, "mesh": object()}):
-        with pytest.raises(NotImplementedError, match="one card"):
-            T.replicate_workload(ps, shard, 3, 1, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="one card"):
-        T.replicate_delta(ps, LatencyEngine(sc, device="cpu"), 1, mesh=object())
-    with pytest.raises(NotImplementedError, match="one card"):
-        T.replicate_stream([ps], shard, 3, 1, device="cpu", mesh=object())
+    assert raising == ["src/repro_torch/engine/sharding.py"]
+    callers = sorted(str(p.relative_to(ROOT)) for p in PORT_FILES
+                     if "refuse_multi_card(" in p.read_text())
+    assert callers == ["src/repro_torch/configs/base.py", "src/repro_torch/core/greedy.py",
+                       "src/repro_torch/engine/sharding.py", "src/repro_torch/launch/dryrun.py",
+                       "src/repro_torch/launch/elastic.py", "src/repro_torch/launch/mesh.py"]
+    with pytest.raises(NotImplementedError, match="^what is refused: the port targets one card"):
+        refuse_multi_card("what")
+    assert ArchBundle.shardings.__code__.co_names == ("refuse_multi_card",)
 
 
 def test_obs_and_serve_are_importable_without_jax():
@@ -186,17 +240,19 @@ def _kernel_calls(device):
 
 @pytest.mark.parametrize("name", ["flash_prefill", "decode_attention", "embedding_bag"])
 def test_kernel_ops_dispatch_by_tensor_device(name):
-    """A CPU tensor runs the plain version (no launch counted); any device
-    but the CPU and CUDA raises.  A CUDA tensor launches the kernel
+    """A CPU tensor runs the plain version (no launch counted), and so does
+    a ``meta`` tensor (shapes only: the dry-run's), giving the plain
+    version's shape and dtype.  A CUDA tensor launches the kernel
     (tests/test_torch_lm_kernels.py, on a card)."""
     mod = {"flash_prefill": flash_prefill, "decode_attention": decode_attention,
            "embedding_bag": embedding_bag}[name]
     before = mod.LAUNCHES
     out = _kernel_calls("cpu")[name]()
     assert out.device.type == "cpu" and torch.isfinite(out).all()
+    meta = _kernel_calls("meta")[name]()
+    assert meta.device.type == "meta"
+    assert (meta.shape, meta.dtype) == (out.shape, out.dtype)
     assert mod.LAUNCHES == before
-    with pytest.raises(ValueError, match="unsupported device"):
-        _kernel_calls("meta")[name]()
 
 
 @pytest.mark.parametrize("name", ["flash_prefill", "decode_attention", "embedding_bag"])

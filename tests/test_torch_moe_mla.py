@@ -327,6 +327,54 @@ def test_combine_adds_in_expert_order_in_bf16(jx):
     assert (once != want).any()
 
 
+def _moe_ffn_chunk_boolean(x, lp, cfg):
+    """The dispatch as it was written before the sync-free form: a store at
+    the boolean-indexed kept assignments (a ``nonzero`` each)."""
+    T_, d = x.shape
+    K = cfg.top_k
+    plan = T.moe_dispatch_plan(x, lp.router, cfg)
+    keep = plan.keep
+    buf = x.new_zeros((cfg.n_experts, plan.capacity, d))
+    buf[plan.e_sorted[keep], plan.pos_in_e[keep]] = x[plan.t_sorted[keep]]
+    h = torch.nn.functional.silu(torch.bmm(buf, lp.we1)) * torch.bmm(buf, lp.we3)
+    y_e = torch.bmm(h, lp.we2)
+    contrib = y_e[torch.where(keep, plan.e_sorted, 0), torch.where(keep, plan.pos_in_e, 0)]
+    contrib = contrib * (plan.gates * keep).to(contrib.dtype)[:, None]
+    per_token = torch.argsort(plan.t_sorted, stable=True).view(T_, K)
+    y = contrib[per_token[:, 0]]
+    for j in range(1, K):
+        y = y + contrib[per_token[:, j]]
+    if cfg.n_shared_experts:
+        y = y + T.swiglu(x, lp.ws1, lp.ws3, lp.ws2)
+    return y.to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", SMOKE)
+def test_sync_free_dispatch_equals_boolean_index(name, dtype):
+    """``_moe_ffn_chunk``'s scatter-add dispatch (no ``nonzero``, so no host
+    sync and a ``meta`` form) equals the boolean-index store exactly, in
+    f32 and bf16, on 300 tokens at capacity factor 0.5 (assignments
+    dropped): the output, and the gradients of x and every expert weight."""
+    cfg = dataclasses.replace(C.LM_CONFIGS[name].SMOKE, dtype=dtype, capacity_factor=0.5)
+    lp = T.Transformer(cfg, device="cpu").layers[-1]
+    assert lp.kind == "moe"
+    x0 = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (300, cfg.d_model)).astype(np.float32)).to(dtype)
+    assert not T.moe_dispatch_plan(x0, lp.router, cfg).keep.all()
+    weights = [lp.we1, lp.we3, lp.we2] + ([lp.ws1] if cfg.n_shared_experts else [])
+    outs = []
+    for fn in (T._moe_ffn_chunk, _moe_ffn_chunk_boolean):
+        x = x0.clone().requires_grad_()
+        y = fn(x, lp, cfg)
+        grads = torch.autograd.grad(y.float().square().sum(), [x] + weights)
+        outs.append([y.detach()] + list(grads))
+    for got, want in zip(*outs):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    meta = T._moe_ffn_chunk(x0.to("meta"), T.Transformer(cfg, device="meta").layers[-1], cfg)
+    assert meta.shape == x0.shape and meta.dtype == dtype
+
+
 # --- parameters, cache, config -------------------------------------------------
 
 
