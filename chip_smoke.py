@@ -118,6 +118,26 @@ Phases (each prints one JSON line; any failed check exits non-zero):
           ``harness_simulate`` on the first 200 queries beside ``simulate``
           (every query completes, failed flags equal; the real-clock
           percentiles printed, not compared).
+  mesh    the path-sharded fused greedy (``mesh=``) on the main cell (SNB
+          scale 10, 6 servers, f = object sizes, kernel backend): a mesh of
+          every visible card when there are several, else 4 shards on the
+          one card and a 1-shard mesh; ``replicate_workload(fused=True,
+          mesh=)`` under nearest_copy at t = 1 and 2, home_first and
+          nearest_copy_dp at t = 1 (counters zeroed just before each drive,
+          read just after: ``fused_update`` launched once per shard and
+          batch, never as a class launch, on several shards, and as the
+          single-card class launch on one shard), masks and integer stats
+          equal to a single-device drive at the rounded batch size (and to
+          the fused phase's), total cost within the float32 rounding of
+          two summation orders, every replica equal; untimed with
+          ``track_rm``, each drive's resharding map equal and the first
+          mesh's total cost equal to the float64 sum of f over its map
+          (within its float32 rounding); one ``replicate_delta`` (the
+          planes phase's fused delta) and one 8-chunk ``replicate_stream``
+          on each mesh equal to their single-device runs.  Printed:
+          devices, shards, rounded batch, seconds per stage beside the
+          single-device drive's, launches and the bytes exchanged
+          between replicas.
   prune   the serial prune's kernel on the main path's inputs: the first
           2,000 t = 1 candidates through ``prune_walk`` and its plain loop
           under home_first, nearest_copy and queue_aware (keep flags and
@@ -957,7 +977,7 @@ def phase_fused(T, greedy, backends, pu, counters, targets, case, main_schemes: 
         "unit_f_t1_kernel_equals_torch": True, "unit_f_t1": unit,
     }
     emit(out)
-    return out
+    return dict(out, schemes=schemes)
 
 
 EXEC_POLICIES = ("home_first", "nearest_copy", "nearest_copy_dp")
@@ -1534,6 +1554,252 @@ def phase_planes(T, TS, engine_mod, counters, case, dev) -> dict:
     out = {"phase": "planes", "seconds": time.perf_counter() - t0, "paths": ps.n_paths,
            "drive_replicas": st.replicas, "drive_launches": drive, "launches": launches,
            **parts, "provisioning_snb": prov, "provisioning_s": time.perf_counter() - tb}
+    emit(out)
+    return out
+
+
+# the mesh phase's drives of the main cell: (policy, t)
+MESH_DRIVES = (("nearest_copy", 1), ("nearest_copy", 2), ("home_first", 1),
+               ("nearest_copy_dp", 1))
+
+
+def provisioning_meshes(S, dev) -> dict:
+    """Every visible card when there are several; else 4 shards on the one
+    card, and a 1-shard mesh."""
+    if torch.cuda.device_count() > 1:
+        return {f"{torch.cuda.device_count()} cards": S.provisioning_mesh()}
+    return {"4 shards on one card": S.ProvisioningMesh((dev,) * 4),
+            "1 shard": S.provisioning_mesh(1, device=dev)}
+
+
+@contextlib.contextmanager
+def watch_mesh(greedy):
+    """While the block runs: count greedy's launching ``fused_update`` rounds
+    (one per shard and batch on a mesh) and ``fused_update_class`` calls,
+    and keep every mesh drive built, to read its replicas."""
+    seen = {"rounds": 0, "class_calls": 0, "drives": []}
+    orig = (greedy.fused_update, greedy.fused_update_class, greedy._MeshDrive)
+
+    def rnd(words, objects, *args, **kwargs):
+        if objects.is_cuda and objects.shape[0]:
+            seen["rounds"] += 1
+        return orig[0](words, objects, *args, **kwargs)
+
+    def cls(words, objects, *args, **kwargs):
+        if objects.shape[0]:
+            seen["class_calls"] += 1
+        return orig[1](words, objects, *args, **kwargs)
+
+    class Kept(orig[2]):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            seen["drives"].append(self)
+
+    greedy.fused_update, greedy.fused_update_class, greedy._MeshDrive = rnd, cls, Kept
+    try:
+        yield seen
+    finally:
+        greedy.fused_update, greedy.fused_update_class, greedy._MeshDrive = orig
+
+
+def replicas_equal(drives) -> bool:
+    """Every shard's replica equals the first (the sacrificial last row,
+    which takes each shard's masked-out writes, aside)."""
+    return all(torch.equal(d.words(0)[:-1].cpu(), d.words(s)[:-1].cpu())
+               for d in drives for s in range(d.mesh.size))
+
+
+def mesh_drive(T, S, greedy, counters, run, mesh) -> dict:
+    """``run(mesh)`` with the launch counters zeroed just before and read
+    just after, the exchange counters and seconds: on several shards
+    ``fused_update`` must launch once per shard and batch and never as a
+    class launch, on one shard as the single-card class launch only; every
+    replica must be equal after it."""
+    zero_counts(counters)
+    S.EXCHANGE.reset()
+    with watch_mesh(greedy) as seen:
+        ts = time.perf_counter()
+        res = run(mesh)
+        secs = time.perf_counter() - ts
+    launches = read_counts(counters)
+    check(launches["fused_update"] > 0, f"mesh {mesh.devices}: fused_update not launched")
+    if mesh.size == 1:
+        check(launches["fused_update"] == seen["class_calls"] and seen["rounds"] == 0,
+              f"mesh: {launches['fused_update']} fused_update launches for "
+              f"{seen['class_calls']} class calls and {seen['rounds']} rounds (expected "
+              "the class launch only on one shard)")
+    else:
+        check(launches["fused_update"] == seen["rounds"] and seen["class_calls"] == 0,
+              f"mesh: {launches['fused_update']} fused_update launches for {seen['rounds']} "
+              f"rounds and {seen['class_calls']} class calls (expected one round per "
+              "shard and batch, no class launch)")
+    # the last drive's: an earlier call's other replicas are left behind
+    # once a later call (a stream's next chunk) writes the shared first one
+    check(seen["drives"] and replicas_equal(seen["drives"][-1:]), "mesh: replicas differ")
+    return {"res": res, "seconds": secs, "launches": launches["fused_update"],
+            "exchange": S.EXCHANGE.snapshot(), "drives": len(seen["drives"])}
+
+
+def same_counts(a: dict, b: dict, n_terms: int) -> bool:
+    """``greedy_counts`` equal, ``total_cost`` within the float32 rounding
+    of two summation orders of at most ``n_terms`` non-negative costs: the
+    class launch adds its rows one by one, a mesh its shards' partials, and
+    each float32 sum of n terms is within n * 2^-24 of the exact sum
+    relative to it.  Unit sizes make every sum exact; the mesh phase's
+    delta compares them exactly."""
+    bound = 2 * n_terms * 2.0 ** -24 * max(abs(a["total_cost"]), abs(b["total_cost"]))
+    return ({k: v for k, v in a.items() if k != "total_cost"}
+            == {k: v for k, v in b.items() if k != "total_cost"}
+            and abs(a["total_cost"] - b["total_cost"]) <= bound)
+
+
+def mesh_delta_stream(T, TS, engine_mod, S, greedy, counters, case, meshes: dict, dev) -> dict:
+    """The planes phase's fused delta (phase 1's added paths of
+    ``snb_drift`` at scale 10 on the engine of phase 0, unit sizes,
+    ``nearest_copy``) and its 8-chunk ``replicate_stream`` (f, t = 1) on
+    each mesh, equal to their single-device runs (masks, additions and
+    stats)."""
+    snb, ps, shard, f = case
+    deltas = list(TS.drift_stream(TS.snb_drift(snb, n_phases=3, queries_per_phase=2000,
+                                               seed=0)))
+
+    def engine():
+        return T.replicate_workload(deltas[0].pathset, shard, 6, 1, policy="nearest_copy",
+                                    fused=True, policy_prune=False, return_engine=True,
+                                    device=dev)[2]
+
+    def delta(mesh, eng):
+        ts = time.perf_counter()
+        st, add = T.replicate_delta(deltas[1].added, eng, 1, policy="nearest_copy",
+                                    fused=True, mesh=mesh)
+        return eng.host_mask(), add, greedy_counts(st), time.perf_counter() - ts, st.stage_s
+
+    step = -(-ps.n_paths // STREAM_CHUNKS)
+
+    def stream(mesh):
+        chunks = (ps.select(np.arange(lo, min(lo + step, ps.n_paths)))
+                  for lo in range(0, ps.n_paths, step))
+        scheme, st = T.replicate_stream(engine_mod.PathStream(chunks), shard, 6, t=1, f=f,
+                                        fused=True, mesh=mesh, device=dev)
+        return scheme.mask, greedy_counts(st), st.stage_s
+
+    single = {"delta": delta(None, engine()), "stream": stream(None)}
+    out = {"delta_paths": deltas[1].added.n_paths, "stream_chunks": STREAM_CHUNKS,
+           "single": {"delta_s": single["delta"][3], "delta_stage_s": single["delta"][4],
+                      "stream_stage_s": single["stream"][2]}}
+    for name, mesh in meshes.items():
+        d = mesh_drive(T, S, greedy, counters, lambda m, eng=engine(): delta(m, eng), mesh)
+        want = single["delta"]
+        check(np.array_equal(d["res"][0], want[0]), f"mesh {name} delta: masks differ")
+        check(all(np.array_equal(a, b) for a, b in zip(d["res"][1], want[1])),
+              f"mesh {name} delta: additions differ")
+        check(d["res"][2] == want[2], f"mesh {name} delta: stats differ")
+        s = mesh_drive(T, S, greedy, counters, stream, mesh)
+        check(np.array_equal(s["res"][0], single["stream"][0]),
+              f"mesh {name} stream: masks differ")
+        check(same_counts(s["res"][1], single["stream"][1], ps.n_paths + s["launches"]),
+              f"mesh {name} stream: stats differ ({s['res'][1]} against one card's "
+              f"{single['stream'][1]})")
+        out[name] = {"delta_s": d["res"][3], "delta_stage_s": d["res"][4],
+                     "delta_launches": d["launches"], "delta_exchange": d["exchange"],
+                     "stream_s": s["seconds"], "stream_stage_s": s["res"][2],
+                     "stream_launches": s["launches"], "stream_exchange": s["exchange"],
+                     "stream_drives": s["drives"], "additions": len(want[1][0])}
+        print(f"mesh {name}: delta ({len(want[1][0])} additions) and {STREAM_CHUNKS}-chunk "
+              "stream equal to one card", flush=True)
+    return out
+
+
+def phase_mesh(T, TS, engine_mod, S, greedy, counters, case, fused_schemes: dict,
+               dev) -> dict:
+    """The path-sharded fused greedy on the main cell (SNB scale 10, 6 hash
+    servers, f = object sizes, kernel backend): ``replicate_workload(fused
+    =True, mesh=)`` under nearest_copy at t = 1 and 2 and home_first and
+    nearest_copy_dp at t = 1, on each mesh of :func:`provisioning_meshes`,
+    counters zeroed just before each drive and read just after;
+    ``fused_update`` launched once per shard and batch on several shards
+    and as the class launch on one; masks, integer stats and total cost
+    (within float32 rounding) equal to a single-device drive at the rounded batch size (and to
+    the fused phase's drive where that is 256 rows), every replica equal;
+    then, untimed with ``track_rm``, each drive's resharding map equal to
+    one card's and the first mesh's total cost equal to the float64 sum of
+    f over its map within its own float32 rounding.  Then one ``replicate_delta``
+    and one 8-chunk ``replicate_stream`` on each mesh.  Printed: the
+    devices, shards, rounded batch, seconds per stage beside the
+    single-device drive's, launches and the bytes exchanged."""
+    t0 = time.perf_counter()
+    snb, ps, shard, f = case
+    meshes = provisioning_meshes(S, dev)
+    out = {"phase": "mesh", "cards": torch.cuda.device_count(),
+           "cross_card": torch.cuda.device_count() > 1,
+           "meshes": {name: {"devices": [str(d) for d in m.devices], "shards": m.size,
+                             "batch_size": m.round_batch(256)} for name, m in meshes.items()},
+           "runs": {}}
+    print(f"mesh: {out['meshes']}", flush=True)
+    single = {}
+    for name, mesh in meshes.items():
+        bs = mesh.round_batch(256)
+        for pol, t in MESH_DRIVES:
+            if (pol, t, bs) not in single:
+                ts = time.perf_counter()
+                sc, st = T.replicate_workload(ps, shard, 6, t, f=f, policy=pol, fused=True,
+                                              batch_size=bs, device=dev)
+                single[pol, t, bs] = (sc, st, time.perf_counter() - ts)
+                if bs == 256 and (pol, t) in fused_schemes:
+                    check(np.array_equal(sc.mask, fused_schemes[pol, t].mask),
+                          f"mesh: single-device {pol} t={t} differs from the fused phase's")
+            sc1, st1, secs1 = single[pol, t, bs]
+            d = mesh_drive(T, S, greedy, counters, lambda m, pol=pol, t=t: T.replicate_workload(
+                ps, shard, 6, t, f=f, policy=pol, fused=True, mesh=m), mesh)
+            sc, st = d["res"]
+            what = f"mesh {name} {pol} t={t}"
+            check(np.array_equal(sc.mask, sc1.mask), f"{what}: masks differ from one card")
+            for k in ("replicas", "failed_paths", "routed_skips", "routed_violations",
+                      "pruned_replicas", "fallback_paths"):
+                check(getattr(st, k) == getattr(st1, k), f"{what}: {k} differs from one card")
+            check(same_counts(greedy_counts(st), greedy_counts(st1), ps.n_paths + d["launches"]),
+                  f"{what}: stats or total_cost differ from one card ({greedy_counts(st)} "
+                  f"against {greedy_counts(st1)})")
+            out["runs"][f"{name}/{pol}/t={t}"] = {
+                "seconds": d["seconds"], "single_seconds": secs1, "stage_s": st.stage_s,
+                "single_stage_s": st1.stage_s, "fused_update_launches": d["launches"],
+                "exchange": d["exchange"], "replicas": st.replicas,
+                "failed_paths": st.failed_paths, "routed_skips": st.routed_skips,
+                "total_cost": st.total_cost, "single_total_cost": st1.total_cost}
+            print(f"{what}: {d['seconds']} s (one card {secs1} s), UPDATE "
+                  f"{st.stage_s.get('update')} s (one card {st1.stage_s.get('update')} s), "
+                  f"{d['launches']} fused_update launches, exchanged {d['exchange']}",
+                  flush=True)
+    # untimed, with the resharding map (the additions in row order): the
+    # map equals one card's, and the first mesh's total cost is held
+    # against the float64 sum of f over its map's entries, within the
+    # float32 rounding of its own sums: a row's cost over at most L (L + 1)
+    # cells, a shard's block of at most a batch, one add per launch (a
+    # stat partial dropped or added twice is far outside it)
+    name, mesh = next(iter(meshes.items()))
+    f64 = np.asarray(f, np.float64)
+    L = np.asarray(ps.objects).shape[1]
+    out["rm"] = {}
+    for pol, t in MESH_DRIVES:
+        _, st1 = T.replicate_workload(ps, shard, 6, t, f=f, policy=pol, fused=True,
+                                      batch_size=mesh.round_batch(256), track_rm=True,
+                                      device=dev)
+        zero_counts(counters)
+        _, st = T.replicate_workload(ps, shard, 6, t, f=f, policy=pol, fused=True, mesh=mesh,
+                                     track_rm=True)
+        n_launch = read_counts(counters)["fused_update"]
+        what = f"mesh {name} {pol} t={t}"
+        check(st.rm == st1.rm, f"{what}: the resharding map differs from one card")
+        exact = float(f64[[v for _, v, _ in st.rm]].sum())
+        bound = (L * (L + 1) + 256 + n_launch) * 2.0 ** -24 * exact
+        check(abs(st.total_cost - exact) <= bound,
+              f"{what}: total_cost {st.total_cost} is not the map's {exact} (bound {bound})")
+        out["rm"][f"{pol}/t={t}"] = {"entries": len(st.rm), "total_cost": st.total_cost,
+                                     "single_total_cost": st1.total_cost, "map_cost": exact,
+                                     "bound": bound}
+    out["planes"] = mesh_delta_stream(T, TS, engine_mod, S, greedy, counters, case, meshes,
+                                      dev)
+    out["seconds"] = time.perf_counter() - t0
     emit(out)
     return out
 
@@ -4193,7 +4459,7 @@ def main() -> int:
     from repro_torch.core import combi
     from repro_torch.core import greedy
     from repro_torch.distsys import executor, faults
-    from repro_torch.engine import backends, routing, streaming
+    from repro_torch.engine import backends, routing, sharding, streaming
     from repro_torch.engine import engine as engine_core
     import torch.nn.functional as F
 
@@ -4243,6 +4509,8 @@ def main() -> int:
                         main_out["schemes"], dev)
     planes = phase_planes(T, TS, engine_mod, counters, case, dev)
     serve = phase_serve(T, TD, TS, engine_mod, counters, case, main_out["schemes"][1], dev)
+    mesh = phase_mesh(T, TS, engine_mod, sharding, greedy, counters, case,
+                      fused_out["schemes"], dev)
     # each kernel's launches on the path that exercises it
     launches = {
         "path_latency": main_out["launches"]["path_latency"],
@@ -4321,7 +4589,10 @@ def main() -> int:
                     for part in ("liveness", "eviction")]
                  for name in PLANE_COUNTERS}
     fused_entry.update(planes_launches=planes_launches["fused_update"],
-                       serve_controller_launches=serve_ctl["fused_update"])
+                       serve_controller_launches=serve_ctl["fused_update"],
+                       # one round per shard and batch on each mesh drive
+                       mesh_launches={run: r["fused_update_launches"]
+                                      for run, r in mesh["runs"].items()})
     # the walks' launches on the executor's path (every case of its phase)
     routed_entry = kernel_entry("routed_walk", "src/repro_torch/csrc/routed_walk.cu",
                                 "src/repro/kernels/routed_walk.py:147", launches["routed_walk"],

@@ -17,7 +17,8 @@ each of its input shapes:
     and a tiny batch that run a real step (shape and finiteness checked in
     tests).
 
-``shardings`` is refused: the port runs on one card and has no mesh type
+``shardings`` is refused: the port trains on one card, and its one mesh
+type shards provisioning only
 (:func:`~repro_torch.engine.sharding.refuse_multi_card`), so the JAX
 package's mesh constants (``dp_axes``, ``dp_size``, ``TP_AXIS``,
 ``TP_SIZE``) are not carried over.

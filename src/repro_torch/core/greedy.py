@@ -30,14 +30,25 @@ TF32 product would round them and flip strict argmins, so
 
 ``fused=True`` runs the gate, the candidate scoring and the scatter-OR as
 one fused step: on the ``kernel`` backend (without capacity checking) a
-whole budget class is one ``fused_update_class`` CUDA launch that loops
-over the batches itself (:func:`_run_update_class`); elsewhere each batch
-is one :func:`_fused_update_batch`, the gate walk and
-:func:`_update_batch_core` back to back.  Batch statistics stay on the
-device and are read once per budget class.  The kernel sums each
+whole budget class on one shard is one ``fused_update_class`` CUDA launch
+that loops over the batches itself (:func:`_run_update_class`); elsewhere
+each batch is one :func:`_fused_update_batch`, the gate walk and
+:func:`_update_batch_core` back to back, in the batch loop of
+:func:`_run_update_mesh` (one shard without ``mesh=``).  Batch statistics
+stay on the device and are read once per budget class.  The kernel sums each
 candidate's cost in its own fixed order, not the einsum's, so with
 non-integer sizes a near-tie can resolve differently from ``fused=False``
 (ROADMAP trap c); with unit sizes every cost is exact and both agree.
+
+``mesh=`` (a :class:`~repro_torch.engine.sharding.ProvisioningMesh`,
+``fused=True`` only) shards every batch on the path axis
+(:func:`_run_update_mesh`): each shard runs the fused step on its block of
+rows against its own replica of the words (``fused_update``'s one round on
+the ``kernel`` backend when there are several shards), then the chosen
+(object, server) pairs of each shard are OR-ed into every other replica
+before the next batch.  The batch
+size rounds up to a multiple of the shard count, and the masks are those
+of a single-device run at the rounded batch size.
 """
 from __future__ import annotations
 
@@ -55,9 +66,9 @@ from repro_torch.core.replication import ReplicationScheme, subpath_structure
 from repro_torch.engine import LatencyEngine, PackedScheme
 from repro_torch.engine import backends as _backends
 from repro_torch.engine.packed import scatter_or_pairs, storage_per_server, test_bits
+from repro_torch.engine import sharding as _sharding
 from repro_torch.engine.streaming import resolve_device, to_device, to_host
-from repro_torch.engine.sharding import refuse_multi_card
-from repro_torch.kernels.provision_update import fused_update_class
+from repro_torch.kernels.provision_update import fused_update, fused_update_class
 
 _INF = 1e30
 
@@ -356,12 +367,11 @@ def _run_update_batches(
     stats: GreedyStats,
     track_rm: bool,
     routed_fn=None,
-    fused: bool = False,
     pol=None,
-    rank=None,
     backend: str = "torch",
     collect_additions: bool = False,
     acc_holder: DeviceStatsAcc | None = None,
+    drive: "_MeshDrive | None" = None,
 ):
     """The batched UPDATE loop over vectorizable paths of one budget class.
 
@@ -370,32 +380,35 @@ def _run_update_batches(
     the *current* packed snapshot; paths within budget under the routed
     walk are gated out of the UPDATE.
 
-    ``fused`` runs each batch as one :func:`_fused_update_batch` step
-    instead: the gate under ``pol`` (``rank`` the padded holder rank) runs
-    against the same snapshot inside the step, on ``backend``, and the
-    statistics are read back (and the stage clock synchronised) once at
-    the end of the class.  On the ``kernel`` backend without capacity
-    checking the whole class is one launch instead
-    (:func:`_run_update_class`).  ``acc_holder`` (fused only) defers the
-    statistics readback: the device accumulator is carried in the holder
-    and drained by the caller, so the stats components stay 0 here.
+    ``drive`` (from :func:`_fused_setup`) runs the class fused, with the
+    gate under ``pol`` (the drive's padded holder rank) inside each step,
+    on ``backend``: on the ``kernel`` backend without capacity
+    checking and on one shard, as one launch (:func:`_run_update_class`),
+    else batch by batch, path-sharded on the drive's mesh
+    (:func:`_run_update_mesh`, which on one shard is the plain batch loop).
+    Its statistics are read back (and the stage clock synchronised) once at
+    the end of the class; ``acc_holder`` defers that readback: the device
+    accumulator is carried in the holder and drained by the caller, so the
+    stats components stay 0 here.
 
     Mutates ``packed`` and ``stats``; returns the load and, with
     ``collect_additions``, the applied (object, server) pairs as two int64
     arrays in row order (else None).
     """
-    if fused and backend == "kernel" and not check_capacity:
+    fused = drive is not None
+    if fused and backend == "kernel" and not check_capacity and drive.mesh.size == 1:
         additions = _run_update_class(
             packed, vec_objects, vec_lengths, shard_d, f_d, tables, counts, t_vec,
-            batch_size, stats, track_rm, pol, rank, collect_additions, acc_holder)
+            batch_size, stats, track_rm, pol, drive.rank[0], collect_additions, acc_holder)
         return load, additions
-    device = packed.device
     if fused:
-        acc = acc_holder if acc_holder is not None else DeviceStatsAcc(device)
-        acc.used = True
+        return _run_update_mesh(
+            drive, vec_objects, vec_lengths, shard_d, f_d, tables, counts, t_vec, load,
+            cap_d, eps_d, check_capacity, batch_size, stats, track_rm, pol, backend,
+            collect_additions, acc_holder)
+    device = packed.device
     add_obj: list[np.ndarray] = []
     add_srv: list[np.ndarray] = []
-    t_class = time.perf_counter()
     for i in range(0, len(vec_objects), batch_size):
         t0 = time.perf_counter()
         # the JAX package pads the last batch to a fixed jit shape; rows are
@@ -404,25 +417,19 @@ def _run_update_batches(
         o_d = to_device(o, device)
         l_d = to_device(vec_lengths[i : i + batch_size], device)
         t_d = to_device(t_vec[i : i + batch_size], device)
-        if fused:
-            packed.words, chosen, srv = _fused_update_batch(
-                packed.words, acc.acc, o_d, l_d, shard_d, f_d, tables, counts, t_d,
-                rank, load, cap_d, eps_d, check_capacity, pol, backend,
-            )
+        if routed_fn is not None:
+            # routed latency against the snapshot the batch prices on
+            h_rt = routed_fn(o_d, l_d)
+            t0 = _tick(stats, "gate", t0, device)
         else:
-            if routed_fn is not None:
-                # routed latency against the snapshot the batch prices on
-                h_rt = routed_fn(o_d, l_d)
-                t0 = _tick(stats, "gate", t0, device)
-            else:
-                h_rt = torch.zeros(len(o), dtype=torch.int32, device=device)
-            packed.words, costs, failed, chosen, srv, skipped = _update_batch_core(
-                packed.words, o_d, l_d, shard_d, f_d, tables, counts, t_d, h_rt,
-                load, cap_d, eps_d, check_capacity, routed_fn is not None,
-            )
-            stats.total_cost += float(to_host(costs).sum())
-            stats.failed_paths += int(failed.sum())
-            stats.routed_skips += int(skipped.sum())
+            h_rt = torch.zeros(len(o), dtype=torch.int32, device=device)
+        packed.words, costs, failed, chosen, srv, skipped = _update_batch_core(
+            packed.words, o_d, l_d, shard_d, f_d, tables, counts, t_d, h_rt,
+            load, cap_d, eps_d, check_capacity, routed_fn is not None,
+        )
+        stats.total_cost += float(to_host(costs).sum())
+        stats.failed_paths += int(failed.sum())
+        stats.routed_skips += int(skipped.sum())
         if check_capacity:
             # exact load from the packed words (the UPDATE's estimate can
             # over-count duplicate additions within a batch)
@@ -431,14 +438,7 @@ def _run_update_batches(
             _append_rm(stats, o, o_d, l_d, shard_d, chosen, srv)
         if collect_additions:
             _collect(add_obj, add_srv, o, chosen, srv)
-        if not fused:
-            _tick(stats, "update", t0, device)
-    if fused:
-        # one readback and one device sync per class, not per batch (none
-        # at all while a caller holds the accumulator)
-        if acc_holder is None:
-            acc.drain(stats)
-        _tick(stats, "update", t_class, device, sync=acc_holder is None)
+        _tick(stats, "update", t0, device)
     return load, _additions(add_obj, add_srv) if collect_additions else None
 
 
@@ -503,6 +503,155 @@ def _run_update_class(packed: PackedScheme, vec_objects: np.ndarray,
         acc.drain(stats)
     _tick(stats, "update", t0, device, sync=acc_holder is None)
     return _additions(add_obj, add_srv) if collect_additions else None
+
+
+class _MeshDrive:
+    """A driver call's state on a :class:`~repro_torch.engine.sharding.
+    ProvisioningMesh`: one replica of the words and of the gate's rank per
+    shard (shard 0's words are ``packed.words`` itself, on the mesh's first
+    device), the read-only inputs copied once per device, and the sharded
+    batch upload."""
+
+    def __init__(self, mesh, packed: PackedScheme, rank: torch.Tensor):
+        if packed.device != mesh.first:
+            raise ValueError(
+                f"the scheme lies on {packed.device}, the mesh's first device is {mesh.first}")
+        self.mesh = mesh
+        self.packed = packed
+        self.others = list(_sharding.replicate(packed.words, mesh)[1:])
+        self.rank = _sharding.replicate(rank, mesh)
+        self.put = _sharding.batch_put(mesh)
+        self._copies: dict = {}
+
+    def words(self, s: int) -> torch.Tensor:
+        return self.packed.words if s == 0 else self.others[s - 1]
+
+    def on(self, x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+        """Read-only ``x`` on ``dev``: ``x`` itself there, else one copy
+        made at first use."""
+        if x.device == dev:
+            return x
+        key = (id(x), dev)
+        hit = self._copies.get(key)
+        if hit is None or hit[0] is not x:
+            hit = self._copies[key] = (x, x.to(dev))
+        return hit[1]
+
+    def union(self, pairs: list) -> None:
+        """OR each shard's chosen pairs (``pairs[s]``: int32 objects and
+        servers on shard ``s``'s device, or None) into every other shard's
+        replica: one ``scatter_or_pairs`` per receiving replica.  A pair
+        list crosses to another card only after an event recorded on its
+        producer's stream."""
+        devs = self.mesh.devices
+        ready = {}
+        for s, p in enumerate(pairs):
+            if p is not None and devs[s].type == "cuda" and any(d != devs[s] for d in devs):
+                ready[s] = torch.cuda.Event()
+                ready[s].record(torch.cuda.current_stream(devs[s]))
+        for d, dev in enumerate(devs):
+            objs, srvs = [], []
+            for s, p in enumerate(pairs):
+                if s == d or p is None or not p[0].shape[0]:
+                    continue
+                if devs[s] != dev:
+                    torch.cuda.current_stream(dev).wait_event(ready[s])
+                objs.append(p[0].to(dev))
+                srvs.append(p[1].to(dev))
+                _sharding.EXCHANGE.pairs += p[0].shape[0]
+                _sharding.EXCHANGE.pair_bytes += 8 * p[0].shape[0]
+            if objs:
+                scatter_or_pairs(self.words(d), torch.cat(objs), torch.cat(srvs))
+
+    def add(self, objects, servers) -> None:
+        """Host (object, server) pairs OR-ed into every replica: uploaded
+        once to the first device, as ``PackedScheme.add`` does, and copied
+        from there to the other shards."""
+        obj = to_device(np.asarray(objects, dtype=np.int32), self.mesh.first)
+        srv = to_device(np.asarray(servers, dtype=np.int32), self.mesh.first)
+        scatter_or_pairs(self.packed.words, obj, srv)
+        self.union([(obj, srv)] + [None] * (self.mesh.size - 1))
+
+
+def _chosen_pairs(objects: torch.Tensor, chosen: torch.Tensor, srv: torch.Tensor):
+    """The (object, server) pairs of ``chosen`` (bool [B, L, Hp1]) on its
+    device, int32, in the row-major order of :func:`_collect`."""
+    bb, xx, kk = torch.nonzero(chosen, as_tuple=True)
+    return objects[bb, xx], srv[bb, kk]
+
+
+def _run_update_mesh(drive: _MeshDrive, vec_objects: np.ndarray, vec_lengths: np.ndarray,
+                     shard_d, f_d, tables, counts, t_vec: np.ndarray, load, cap_d, eps_d,
+                     check_capacity: bool, batch_size: int, stats: GreedyStats,
+                     track_rm: bool, pol, backend: str, collect_additions: bool,
+                     acc_holder: DeviceStatsAcc | None):
+    """The fused UPDATE of one budget class batch by batch, path-sharded on
+    ``drive``'s mesh (on a 1-shard mesh, the plain batch loop).
+
+    Per batch: the rows go up split into one block per shard
+    (``batch_put``); each shard prices its block against its own replica,
+    with ``fused_update``'s one round on the ``kernel`` backend without
+    capacity checking (on several shards: the class launch cannot take the
+    other shards' additions between its batches) and with
+    :func:`_fused_update_batch` elsewhere; then each shard's chosen pairs
+    are OR-ed into every other replica, so every batch prices against the
+    union of the batches before it, and the stat partials are added into the one accumulator on the
+    mesh's first device in shard order.  Under capacity checking the load
+    is recomputed from the first replica's words after the union (two
+    shards can add the same pair).  The resharding map and the additions
+    come shard by shard, which is row order.  Returns as
+    :func:`_run_update_batches`.
+    """
+    packed, mesh = drive.packed, drive.mesh
+    device = packed.device
+    acc = acc_holder if acc_holder is not None else DeviceStatsAcc(device)
+    acc.used = True
+    kernel = backend == "kernel" and not check_capacity
+    add_obj: list[np.ndarray] = []
+    add_srv: list[np.ndarray] = []
+    t_class = time.perf_counter()
+    for i in range(0, len(vec_objects), batch_size):
+        o = vec_objects[i : i + batch_size]
+        o_s = drive.put(o)
+        l_s = drive.put(vec_lengths[i : i + batch_size])
+        t_s = drive.put(t_vec[i : i + batch_size])
+        pairs, parts = [], []
+        for s, ((lo, hi), dev) in enumerate(zip(_sharding.shard_bounds(len(o), mesh),
+                                                mesh.devices)):
+            if hi == lo:
+                pairs.append(None)
+                continue
+            shard_s = drive.on(shard_d, dev)
+            consts = (shard_s, drive.on(f_d, dev), drive.on(tables, dev),
+                      drive.on(counts, dev))
+            # both steps OR the shard's additions into its replica in place
+            if kernel:
+                _, cost, no_sol, chosen, srv, skipped = fused_update(
+                    drive.words(s), o_s[s], l_s[s], *consts, t_s[s], drive.rank[s], pol=pol)
+                part = torch.stack([cost.sum(), no_sol.sum(dtype=torch.float32),
+                                    skipped.sum(dtype=torch.float32)])
+            else:
+                part = torch.zeros((3,), dtype=torch.float32, device=dev)
+                _, chosen, srv = _fused_update_batch(
+                    drive.words(s), part, o_s[s], l_s[s], *consts, t_s[s], drive.rank[s],
+                    load.to(dev), cap_d.to(dev), eps_d.to(dev), check_capacity, pol, backend)
+            parts.append(part)
+            if track_rm:
+                _append_rm(stats, o[lo:hi], o_s[s], l_s[s], shard_s, chosen, srv)
+            pairs.append(_chosen_pairs(o_s[s], chosen, srv)
+                         if mesh.size > 1 or collect_additions else None)
+            if collect_additions:
+                add_obj.append(to_host(pairs[s][0]).astype(np.int64))
+                add_srv.append(to_host(pairs[s][1]).astype(np.int64))
+        drive.union(pairs)
+        for part in parts:
+            acc.acc += part.to(device)
+        if check_capacity:
+            load = _device_load(packed, f_d)
+    if acc_holder is None:
+        acc.drain(stats)
+    _tick(stats, "update", t_class, device, sync=acc_holder is None)
+    return load, _additions(add_obj, add_srv) if collect_additions else None
 
 
 # host-residency bound on candidate-table construction: a budget class
@@ -717,9 +866,23 @@ _POLICY_REVALIDATE = 2
 _RESILIENCE_ROUNDS = 3
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        refuse_multi_card("mesh=")
+def _fused_setup(packed: PackedScheme, pol, load, fused: bool, mesh, batch_size: int):
+    """The fused drivers' preamble, as the JAX package's ``_fused_setup``:
+    the drive on ``mesh`` (one replica of the words and of the gate's
+    padded holder rank per shard; ``mesh`` None is one shard on
+    ``packed``'s device) and the batch size rounded up to a multiple of
+    the shard count.  Returns ``(drive, batch_size)``, the drive None
+    without ``fused``; ``mesh`` without ``fused`` raises."""
+    if not fused:
+        if mesh is not None:
+            raise ValueError("mesh= requires fused=True")
+        return None, batch_size
+    rank = _backends._load_vector(
+        load if (pol is not None and pol.uses_load) else None, packed.words
+    )
+    if mesh is None:
+        mesh = _sharding.ProvisioningMesh((packed.device,))
+    return _MeshDrive(mesh, packed, rank), mesh.round_batch(batch_size)
 
 
 def _run_exact_fallback(host_scheme, cls, seq_idx, b, f_arr, capacity, epsilon,
@@ -778,9 +941,8 @@ def _repair_loss_case(packed: PackedScheme, sub_ps: PathSet, t_sub: np.ndarray,
         masked.add(orphans, np.asarray(fshard)[orphans])
     routed_fn = _routed_gate_fn(masked, pol, policy_backend, load=load)
     fused_c = fused and policy_backend != "reference"
-    rank = _backends._load_vector(
-        load if (pol is not None and pol.uses_load) else None, masked.words
-    ) if fused_c else None
+    # unsharded under a mesh too, as the JAX package's repair
+    drive, batch_size = _fused_setup(masked, pol, load, fused_c, None, batch_size)
     srv_load = _device_load(masked, f_d)
     host_scheme: ReplicationScheme | None = None
     add_obj: list[np.ndarray] = []
@@ -801,8 +963,8 @@ def _repair_loss_case(packed: PackedScheme, sub_ps: PathSet, t_sub: np.ndarray,
             masked, cls.objects[vec_idx], cls.lengths[vec_idx], masked.shard, f_d,
             tables, counts, np.full(len(vec_idx), b, np.int32), srv_load, cap_d, eps_d,
             check_capacity, batch_size, stats, track_rm,
-            routed_fn=None if fused_c else routed_fn, fused=fused_c, pol=pol,
-            rank=rank, backend=policy_backend, collect_additions=True,
+            routed_fn=None if fused_c else routed_fn, pol=pol, backend=policy_backend,
+            collect_additions=True, drive=drive,
         )
         add_obj.append(additions[0])
         add_srv.append(additions[1])
@@ -958,17 +1120,24 @@ def replicate_workload(
     into the live scheme.  ``stats.resilient_violations == 0`` certifies
     the scheme stays feasible under the loss of any k domains.
 
-    ``device`` defaults to ``"cuda"``.  ``mesh`` is refused: the port
-    targets one card and has no mesh type.
+    ``mesh`` (a :class:`~repro_torch.engine.sharding.ProvisioningMesh`,
+    from ``provisioning_mesh``; requires ``fused=True``, else
+    ``ValueError``) shards every batch on the path axis while every shard
+    keeps a replica of the words (:func:`_run_update_mesh`); the batch size
+    rounds up to a multiple of the shard count.  The class filter, the
+    revalidation, the prune, the resilience gate (unsharded, as in the JAX
+    package) and the returned scheme read the replica on the mesh's first
+    device.
+
+    ``device`` defaults to ``"cuda"``, or to the mesh's first device.
     """
     from repro_torch.core.slo import normalize_path_budgets  # local: no cycle
     from repro_torch.engine.incremental import PathIndex
     from repro_torch.engine.resilience import resolve_resilience
     from repro_torch.engine.routing import resolve_policy
 
-    _refuse_mesh(mesh)
     res = resolve_resilience(resilience)
-    device = resolve_device(device)
+    device = resolve_device(mesh.first if device is None and mesh is not None else device)
     if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
             "torch.backends.cuda.matmul.allow_tf32 is True: TF32 candidate "
@@ -1007,10 +1176,8 @@ def replicate_workload(
     srv_load = to_device(scheme.storage_per_server(f_arr).astype(np.float32), device)
     routed_fn = _routed_gate_fn(packed, pol, policy_backend, load=load)
     fused = fused and policy_backend != "reference"
-    # the fused gate's padded holder rank
-    rank = _backends._load_vector(
-        load if (pol is not None and pol.uses_load) else None, packed.words
-    ) if fused else None
+    drive, batch_size = _fused_setup(packed, pol, load, fused, mesh, batch_size)
+    add_pairs = packed.add if drive is None else drive.add
 
     def run_classes(ps_run: PathSet, t_run: np.ndarray) -> None:
         nonlocal srv_load
@@ -1044,10 +1211,9 @@ def replicate_workload(
                 stats,
                 track_rm,
                 routed_fn=None if fused else routed_fn,
-                fused=fused,
                 pol=pol,
-                rank=rank,
                 backend=policy_backend,
+                drive=drive,
             )
 
             # Exact fallback for enumeration-heavy paths, against a freshly
@@ -1060,7 +1226,7 @@ def replicate_workload(
                     scheme, cls, seq_idx, b, f_arr, capacity, epsilon, pol, load,
                     stats, track_rm)
                 if fb_obj:
-                    packed.add(np.asarray(fb_obj), np.asarray(fb_srv))
+                    add_pairs(np.asarray(fb_obj), np.asarray(fb_srv))
                     if check_capacity:
                         srv_load = _device_load(packed, f_d)
                 _tick(stats, "update", tu, device)
@@ -1155,14 +1321,15 @@ def replicate_delta(
     the caller drains it.  ``sync_host=False`` also skips the end-of-call
     host-mask refresh.  ``resilience`` runs the k-resilience gate over the
     delta paths after the pass; its additions join the returned delta.
-    ``mesh`` is refused (one card).
+    ``mesh`` shards the UPDATE's batches as in :func:`replicate_workload`
+    (``fused=True`` only); the engine's words are the replica on the mesh's
+    first device, and the other shards' replicas live for the call.
     """
     from repro_torch.core.slo import normalize_path_budgets  # local: no cycle
     from repro_torch.engine.incremental import PathIndex
     from repro_torch.engine.resilience import resolve_resilience
     from repro_torch.engine.routing import resolve_policy
 
-    _refuse_mesh(mesh)
     t0 = time.perf_counter()
     packed = engine.packed
     device = packed.device
@@ -1198,9 +1365,8 @@ def replicate_delta(
     srv_load = _device_load(packed, f_d)
     routed_fn = _routed_gate_fn(packed, pol, policy_backend, load=load)
     fused = fused and policy_backend != "reference"
-    rank = _backends._load_vector(
-        load if (pol is not None and pol.uses_load) else None, packed.words
-    ) if fused else None
+    drive, batch_size = _fused_setup(packed, pol, load, fused, mesh, batch_size)
+    add_pairs = packed.add if drive is None else drive.add
 
     add_obj = np.zeros(0, np.int64)
     add_srv = np.zeros(0, np.int64)
@@ -1224,9 +1390,9 @@ def replicate_delta(
                 packed, cls.objects[vec_idx], cls.lengths[vec_idx], shard_d, f_d,
                 tables, counts, np.full(len(vec_idx), b, np.int32), srv_load, cap_d,
                 eps_d, check_capacity, batch_size, stats, track_rm,
-                routed_fn=None if fused else routed_fn, fused=fused, pol=pol, rank=rank,
+                routed_fn=None if fused else routed_fn, pol=pol,
                 backend=policy_backend, collect_additions=collect_additions,
-                acc_holder=stats_acc if fused else None,
+                acc_holder=stats_acc if fused else None, drive=drive,
             )
             # mirror the class's additions into the host scheme FIRST: the
             # exact fallback below prices against the host mask
@@ -1249,7 +1415,7 @@ def replicate_delta(
                     host, cls, seq_idx, b, f_arr, capacity, epsilon, pol, load, stats,
                     track_rm)
                 if fb_obj:
-                    packed.add(np.asarray(fb_obj), np.asarray(fb_srv))
+                    add_pairs(np.asarray(fb_obj), np.asarray(fb_srv))
                     if collect_additions:
                         add_obj = np.concatenate([add_obj, np.asarray(fb_obj, np.int64)])
                         add_srv = np.concatenate([add_srv, np.asarray(fb_srv, np.int64)])
@@ -1345,15 +1511,15 @@ def replicate_stream(
 
     Returns ``(scheme, stats)``; ``return_engine=True`` appends the
     device-resident :class:`LatencyEngine`.  ``device`` defaults to
-    ``"cuda"``; ``mesh`` is refused (one card).
+    ``"cuda"``, or to the mesh's first device; ``mesh`` shards every
+    chunk's UPDATE as in :func:`replicate_delta` (``fused=True`` only).
     """
     from repro_torch.engine.streaming import PathStream, double_buffer  # lazy
 
-    _refuse_mesh(mesh)
     t0 = time.perf_counter()
     if not isinstance(stream, PathStream):
         stream = PathStream(stream)
-    device = resolve_device(device)
+    device = resolve_device(mesh.first if device is None and mesh is not None else device)
     scheme = ReplicationScheme.from_sharding(shard, n_servers)
     engine = LatencyEngine(scheme, device=device)
     policy_backend = _backends.resolve_backend(policy_backend, device)
@@ -1369,7 +1535,7 @@ def replicate_stream(
         cstats, _ = replicate_delta(
             ps, engine, budgets, f=f, capacity=capacity, epsilon=epsilon,
             batch_size=batch_size, max_candidates=max_candidates, prune=prune,
-            policy=policy, policy_backend=policy_backend, load=load, fused=fused,
+            policy=policy, policy_backend=policy_backend, load=load, fused=fused, mesh=mesh,
             collect_additions=False, stats_acc=acc_holder, sync_host=False,
         )
         # cost / failed / skipped of fused runs live in the deferred device

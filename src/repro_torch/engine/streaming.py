@@ -95,23 +95,35 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def to_device(x, device, payload_bytes: int | None = None) -> torch.Tensor:
-    """Counted host->device copy (the only upload path in the engine).
-
-    ``payload_bytes`` marks how many of the array's bytes are real data;
-    the remainder (alignment padding) is booked under
-    ``TRANSFER.padded_bytes`` instead of ``h2d_bytes``.  The result never
-    aliases ``x``: callers may update it in place.
-    """
+def book_upload(x, payload_bytes: int | None = None) -> np.ndarray:
+    """``x`` as a C-contiguous array, its host->device upload booked in
+    ``TRANSFER`` as one call: ``payload_bytes`` (default all) of real data
+    under ``h2d_bytes``, the remainder (alignment padding) under
+    ``padded_bytes``."""
     a = np.ascontiguousarray(x)
     payload = a.nbytes if payload_bytes is None else int(payload_bytes)
     TRANSFER.h2d_bytes += payload
     TRANSFER.padded_bytes += a.nbytes - payload
     TRANSFER.h2d_calls += 1
+    return a
+
+
+def staged(a: np.ndarray, device) -> torch.Tensor:
+    """Host tensor holding a copy of ``a`` to upload to ``device`` from:
+    pinned for a card (the copy can then be non-blocking); never aliases
+    ``a``."""
     if device.type == "cuda":
-        host = torch.from_numpy(a if a.flags.writeable else a.copy())
-        return host.pin_memory().to(device, non_blocking=True)
+        return torch.from_numpy(a if a.flags.writeable else a.copy()).pin_memory()
     return torch.from_numpy(a.copy())
+
+
+def to_device(x, device, payload_bytes: int | None = None) -> torch.Tensor:
+    """Counted host->device copy to one device (booked by
+    :func:`book_upload`; ``sharding.batch_put`` is the path-sharded
+    counterpart).  The result never aliases ``x``: callers may update it
+    in place.
+    """
+    return staged(book_upload(x, payload_bytes), device).to(device, non_blocking=True)
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:

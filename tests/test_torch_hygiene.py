@@ -153,17 +153,10 @@ def test_backend_resolves_from_device():
         LatencyEngine(sc, device="cpu", backend="kernel")
 
 
-# every multi-card request of the port, each refused through
-# engine.sharding.refuse_multi_card with its one reason
+# every multi-card request of the port's training side, each refused
+# through engine.sharding.refuse_multi_card with its one reason (the
+# greedy's mesh= is ported: tests/test_torch_mesh.py)
 REFUSALS = {
-    "replicate_workload(mesh=)": lambda ps, shard, sc: T.replicate_workload(
-        ps, shard, 3, 1, device="cpu", mesh=object()),
-    "replicate_workload(fused=True, mesh=)": lambda ps, shard, sc: T.replicate_workload(
-        ps, shard, 3, 1, device="cpu", fused=True, mesh=object()),
-    "replicate_delta(mesh=)": lambda ps, shard, sc: T.replicate_delta(
-        ps, LatencyEngine(sc, device="cpu"), 1, mesh=object()),
-    "replicate_stream(mesh=)": lambda ps, shard, sc: T.replicate_stream(
-        [ps], shard, 3, 1, device="cpu", mesh=object()),
     "ArchBundle.shardings": lambda ps, shard, sc: get_arch("qwen2-7b").shardings("train_4k"),
     "mesh.make_production_mesh": lambda ps, shard, sc: mesh.make_production_mesh(),
     "mesh.make_production_mesh(multi_pod)": lambda ps, shard, sc: mesh.make_production_mesh(
@@ -187,8 +180,9 @@ def _dryrun_main(mesh_name):
 
 @pytest.mark.parametrize("name", sorted(REFUSALS))
 def test_unported_options_raise(name):
-    """Each multi-card request raises ``NotImplementedError`` with the one
-    reason (one card, no mesh type)."""
+    """Each multi-card request of the training side raises
+    ``NotImplementedError`` with the one reason (one card outside
+    path-sharded provisioning)."""
     ps, shard, sc = _small_case()
     with pytest.raises(NotImplementedError, match="one card"):
         REFUSALS[name](ps, shard, sc)
@@ -202,7 +196,7 @@ def test_refusals_share_one_function():
     assert raising == ["src/repro_torch/engine/sharding.py"]
     callers = sorted(str(p.relative_to(ROOT)) for p in PORT_FILES
                      if "refuse_multi_card(" in p.read_text())
-    assert callers == ["src/repro_torch/configs/base.py", "src/repro_torch/core/greedy.py",
+    assert callers == ["src/repro_torch/configs/base.py",
                        "src/repro_torch/engine/sharding.py", "src/repro_torch/launch/dryrun.py",
                        "src/repro_torch/launch/elastic.py", "src/repro_torch/launch/mesh.py"]
     with pytest.raises(NotImplementedError, match="^what is refused: the port targets one card"):
