@@ -241,6 +241,17 @@ Phases (each prints one JSON line; any failed check exits non-zero):
           step timed, and card = CPU at B = 1,024 over 2^20 items.
           train_lm on qwen2-7b's SMOKE config: a failure injected after
           step 5, the restart's losses equal to an uninterrupted run's.
+  mesh_train  right after train's qwen2-7b run (before the other parts
+          fragment the card's memory): a world-1 NCCL group and its 1 x 1
+          ("data", "model") mesh, the same 3 steps with the parameters and
+          AdamW moments as DTensors placed by param_specs (counters zeroed
+          just before, read just after: 0 launches), losses and norms
+          equal to train's bit for bit, step seconds and peak memory
+          beside train's; elastic_drill through the mesh, bit-exact (the
+          launch phase runs the same drill on one device); make_agg with
+          agg_axes against dense in f64 (1e-12); compressed_psum over the
+          group equal to the no-group result.  (Several cards: the
+          ``cuda``-marked tests/test_torch_mesh_train_cuda.py.)
   launch  the last modules.  From the phase's start, DRYRUN_WORKERS host
           processes count the one-card dry-run's 36 cells on ``meta``
           tensors (``launch.dryrun.cell_row``), while the card runs:
@@ -272,6 +283,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -279,8 +291,15 @@ import sys
 import tempfile
 import time
 
-import numpy as np
-import torch
+# the caching allocator grows its segments in place, in every phase: the
+# train phase runs qwen2-7b's ~73 GB step twice (one device, then the
+# 1 x 1 mesh), and with fixed segments the second run in a process finds
+# no 3.5 GiB block in the first one's freed segments (either run alone
+# fits on a fresh card); set before the first allocation
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (NVIDIA data sheet)
 # H100 SXM 32-bit rate outside the tensor cores (67 T/s for float32 in the
@@ -4221,18 +4240,166 @@ def train_restart(train_lm, dev) -> dict:
             "restarted_losses": again["losses"], "equal": True}
 
 
+# the mesh_train phase: the train phase's qwen2-7b run on a 1 x 1 NCCL
+# mesh (a world of one in this process)
+MESH_TRAIN_STEPS = TRAIN_LM_STEPS
+MESH_DRILL_LAYERS, MESH_DRILL_BATCH, MESH_DRILL_SEQ = 2, 2, 512   # as the launch phase's drill
+MESH_AGG_NODES, MESH_AGG_EDGES, MESH_AGG_WIDTH = 250_000, 1_000_000, 128
+
+
+def mesh_lm_full(TM, qwen2, O, lm_batch_fn, shard_batch, counters, ranks: list,
+                 steps: int) -> dict:
+    """train_lm_full's first ``steps`` steps (the same config, seed,
+    batches and optimizer) on the ("data", "model") mesh over ``ranks``:
+    the parameters and AdamW moments DTensors placed by param_specs, the
+    batch rows over "data"; per step the loss, norm, seconds and peak
+    memory; the kernels' counters zeroed just before and read just after."""
+    from torch import nn
+
+    from repro_torch.launch.elastic import build_for_devices
+    from repro_torch.launch.train import BATCH_SPECS
+    from repro_torch.models.parallel import mesh_device, shard_tensor
+
+    cfg = dataclasses.replace(qwen2.FULL, n_layers=TRAIN_LM_DEPTH)
+    B, S = TRAIN_LM_BATCH, TRAIN_LM_SEQ
+    mesh, ps, _, _, step = build_for_devices(cfg, ranks, lm_opt(O))
+    dev = mesh_device(mesh)
+    model = TM.Transformer(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    params = {name: nn.Parameter(shard_tensor(p.detach(), mesh, ps[name].spec))
+              for name, p in model.named_parameters()}
+    del model
+    state = lm_opt(O).init(params)
+    make = lm_batch_fn(cfg.vocab, B, S)
+    rows = []
+    zero_counts(counters)
+    for b in range(steps):
+        batch = shard_batch(make(b), mesh, BATCH_SPECS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ts = time.perf_counter()
+        _, state, m = step(params, state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        rows.append({"step": b, "loss": loss, "grad_norm": gnorm,
+                     "seconds": time.perf_counter() - ts,
+                     "max_memory_allocated": torch.cuda.max_memory_allocated()})
+        check(math.isfinite(loss) and math.isfinite(gnorm),
+              f"mesh step {b}: loss {loss}, grad norm {gnorm}")
+    launches = read_counts(counters)
+    del params, state
+    torch.cuda.empty_cache()
+    return {"config": cfg.name, "layers": cfg.n_layers, "batch": [B, S],
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "steps": rows,
+            "launches": launches}
+
+
+def mesh_agg_check(G, dev) -> dict:
+    """make_agg with agg_axes on the 1 x 1 mesh against the dense
+    aggregation, sum and mean, values and gradients, in f64."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.parallel import use_mesh
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    N, E, d = MESH_AGG_NODES, MESH_AGG_EDGES, MESH_AGG_WIDTH
+    msgs = torch.randn(E, d, generator=g, device=dev, dtype=torch.float64).requires_grad_()
+    recv = torch.randint(0, N, (E,), generator=g, device=dev)
+    w = torch.randn(N, d, generator=g, device=dev, dtype=torch.float64)
+    agg = G.make_agg(G.GNNConfig(agg_axes=("data", "model")))
+    out = {"nodes": N, "edges": E, "width": d}
+    for kind in ("sum", "mean"):
+        with use_mesh(make_host_mesh()):
+            got = agg(msgs, recv, N, kind)
+        want = G._agg_dense(msgs, recv, N, kind)
+        g_got, = torch.autograd.grad((got * w).sum(), msgs)
+        g_want, = torch.autograd.grad((want * w).sum(), msgs)
+        out[kind] = {"max_abs_err": float((got - want).detach().abs().max()),
+                     "grad_max_abs_err": float((g_got - g_want).abs().max())}
+        check(torch.allclose(got, want, atol=1e-12, rtol=1e-12)
+              and torch.allclose(g_got, g_want, atol=1e-12, rtol=1e-12),
+              f"sharded aggregation ({kind}) on the 1 x 1 mesh: {out[kind]}")
+    return out
+
+
+def phase_mesh_train(TM, G, C, O, lm_batch_fn, shard_batch, counters, train_lm_out,
+                     dev) -> dict:
+    """The training path on a mesh: on this card a world-1 NCCL group and
+    its 1 x 1 mesh, the train phase's qwen2-7b run (losses and norms equal
+    to its one-device ones bit for bit), elastic_drill through the mesh
+    (bit-exact; the launch phase runs the same drill on one device), the
+    GNN's sharded aggregation against dense in f64, and compressed_psum
+    over the group equal to the no-group result."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.elastic import elastic_drill
+    from repro_torch.launch.mesh import init_ranks
+
+    t0 = time.perf_counter()
+    out = {"phase": "mesh_train", "card": gpu_name_and_power()}
+    parts = {}
+    ts = time.perf_counter()
+    init_ranks("cuda")
+    check(dist.get_world_size() == 1 and dist.get_backend() == "nccl",
+          f"mesh_train: world {dist.get_world_size()} over {dist.get_backend()}")
+    parts["init"] = time.perf_counter() - ts
+    try:
+        ts = time.perf_counter()
+        lm = mesh_lm_full(TM, C.qwen2_7b, O, lm_batch_fn, shard_batch, counters, [0],
+                          MESH_TRAIN_STEPS)
+        parts["lm"] = time.perf_counter() - ts
+        one = train_lm_out["steps"][:MESH_TRAIN_STEPS]
+        for got, want in zip(lm["steps"], one):
+            got["one_device_seconds"] = want["seconds"]
+            got["one_device_max_memory_allocated"] = want["max_memory_allocated"]
+        lm["bit_equal"] = all(a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+                              for a, b in zip(lm["steps"], one))
+        check(lm["bit_equal"] and len(lm["steps"]) == len(one),
+              f"1 x 1 mesh losses {[r['loss'] for r in lm['steps']]} / norms "
+              f"{[r['grad_norm'] for r in lm['steps']]} vs one device "
+              f"{[r['loss'] for r in one]} / {[r['grad_norm'] for r in one]}")
+        check(all(v == 0 for v in lm["launches"].values()),
+              f"a kernel launched on the mesh training path: {lm['launches']}")
+        out["lm"] = lm
+        ts = time.perf_counter()
+        dcfg = dataclasses.replace(C.qwen2_7b.FULL, n_layers=MESH_DRILL_LAYERS)
+        drill = elastic_drill(dcfg, 3, 3, batch=MESH_DRILL_BATCH, seq=MESH_DRILL_SEQ, seed=0,
+                              device=dev, ranks=[0])
+        check(drill["bit_exact"], f"elastic drill on the 1 x 1 mesh: {drill}")
+        out["drill"] = drill
+        parts["drill"] = time.perf_counter() - ts
+        ts = time.perf_counter()
+        out["agg"] = mesh_agg_check(G, dev)
+        parts["agg"] = time.perf_counter() - ts
+        x = torch.randn(1 << 22, generator=torch.Generator(device=dev).manual_seed(12),
+                        device=dev)
+        out["psum_equal"] = bool(torch.equal(O.compressed_psum(x, group=dist.group.WORLD),
+                                             O.compressed_psum(x)))
+        check(out["psum_equal"], "compressed_psum over the world-1 NCCL group differs from "
+                                 "the no-group result")
+    finally:
+        dist.destroy_process_group()
+    out.update(seconds=time.perf_counter() - t0, part_s=parts)
+    emit(out)
+    return out
+
+
 def phase_train(TM, RM, G, C, O, make_train_step, train_lm, lm_batch_fn, gnn_batch_fn,
                 shard_batch, ogb_like, zipf_rows, counters, dev) -> dict:
     """The training path: qwen2-7b at full width, card = CPU at narrow f32
     widths (dense, MoE, MLA) with the remat and loss_chunk equivalences,
     the four GNNs on their cells, MIND's train_batch, and train_lm's
-    failure drill."""
+    failure drill.  The mesh_train phase runs right after the qwen2-7b
+    run, before the other parts fragment the card's memory, and prints
+    its own line."""
     t0 = time.perf_counter()
     out = {"phase": "train"}
     parts = {}
-    for key, fn in (("lm", lambda: train_lm_full(TM, C.qwen2_7b, O, make_train_step,
-                                                   lm_batch_fn, shard_batch, counters, dev)),
-                    ("lm_parity", lambda: train_lm_parity(TM, C, O, dev)),
+    ts = time.perf_counter()
+    out["lm"] = train_lm_full(TM, C.qwen2_7b, O, make_train_step, lm_batch_fn, shard_batch,
+                              counters, dev)
+    parts["lm"] = time.perf_counter() - ts
+    ts = time.perf_counter()
+    phase_mesh_train(TM, G, C, O, lm_batch_fn, shard_batch, counters, out["lm"], dev)
+    parts["mesh_train"] = time.perf_counter() - ts
+    for key, fn in (("lm_parity", lambda: train_lm_parity(TM, C, O, dev)),
                     ("gnn", lambda: train_gnn(G, C.GNN_CONFIGS, O, make_train_step,
                                               gnn_batch_fn, ogb_like, shard_batch, dev)),
                     ("mind", lambda: train_mind(RM, C.mind, O, make_train_step, zipf_rows, dev)),

@@ -17,11 +17,12 @@ each of its input shapes:
     and a tiny batch that run a real step (shape and finiteness checked in
     tests).
 
-``shardings`` is refused: the port trains on one card, and its one mesh
-type shards provisioning only
-(:func:`~repro_torch.engine.sharding.refuse_multi_card`), so the JAX
-package's mesh constants (``dp_axes``, ``dp_size``, ``TP_AXIS``,
-``TP_SIZE``) are not carried over.
+``shardings`` is refused
+(:func:`~repro_torch.engine.sharding.refuse_multi_card`): the JAX package
+gives each cell's shardings on its TPU v5e pod meshes, which have no
+machine here, so its pod mesh constants (``dp_axes``, ``dp_size``,
+``TP_AXIS``, ``TP_SIZE``) are not carried over.  Training on a mesh of
+ranks is ``repro_torch.launch.train`` / ``launch.elastic``.
 """
 from __future__ import annotations
 

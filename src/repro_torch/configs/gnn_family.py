@@ -12,9 +12,9 @@ names; padded as the JAX package pads them):
 
 Geometric archs (egnn/schnet) receive synthetic 3-D positions on
 non-molecular graphs, as in the JAX package.  ``ogb_products`` turns
-``remat`` on; the JAX package also sets ``agg_axes`` / ``node_axes`` there
-(its ``shard_map`` aggregation), which the port's dense aggregation does
-not have (``repro_torch.models.gnn``).
+``remat`` on and sets ``agg_axes`` (the sharded
+aggregation, on the mesh in use; dense on one device:
+``repro_torch.models.gnn.make_agg``).
 """
 from __future__ import annotations
 
@@ -50,9 +50,12 @@ SHAPES = {
 
 def cfg_for_cell(bundle, shape_id: str) -> G.GNNConfig:
     cell = SHAPES[shape_id]
-    return dataclasses.replace(bundle.config, d_in=cell.meta["f"],
-                               n_classes=cell.meta["classes"],
-                               remat=shape_id == "ogb_products")
+    kw = dict(d_in=cell.meta["f"], n_classes=cell.meta["classes"],
+              remat=shape_id == "ogb_products")
+    if shape_id == "ogb_products":
+        # the sharded aggregation over the edge axes (GNNConfig.agg_axes)
+        kw.update(agg_axes=("data", "model"))
+    return dataclasses.replace(bundle.config, **kw)
 
 
 def _needs_pos(arch: str) -> bool:

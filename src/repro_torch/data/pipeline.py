@@ -4,11 +4,12 @@
 A deterministic generator produces global batches seeded by step (any
 process can regenerate any step, which makes restart from a checkpoint
 exact), a background thread prefetches ``prefetch`` batches ahead, and
-``shard_batch`` places a host batch on the one device: pinned host memory
-and a non-blocking copy, so the train step does not wait on the upload.
-It is the one-card counterpart of the JAX package's ``NamedSharding``
-placement.  The generators are numpy, copied as they are: a step's batch
-is bit for bit the JAX package's.
+``shard_batch`` places a host batch: on one device through pinned host
+memory and a non-blocking copy, so the train step does not wait on the
+upload, or on a mesh by partition specs (the JAX package's
+``NamedSharding`` placement), each rank uploading only its own slice.
+The generators are numpy, copied as they are: a step's batch is bit for
+bit the JAX package's.
 """
 from __future__ import annotations
 
@@ -18,9 +19,12 @@ from typing import Callable, Iterator
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
 from repro_torch.engine.streaming import resolve_device
 from repro_torch.graph.sampler import minibatch_sampler
+from repro_torch.models.parallel import PartitionSpec, local_slice, mesh_device, placements
 
 
 def lm_batch_fn(vocab: int, batch: int, seq: int) -> Callable[[int], dict]:
@@ -92,11 +96,41 @@ class Prefetcher:
         self._thread.join(timeout=2)
 
 
-def shard_batch(batch, device=None):
-    """Place a host batch (a dict or list tree of numpy arrays) on
-    ``device`` (default CUDA; raises without a card unless ``"cpu"``):
-    on a card each array goes through pinned memory with a non-blocking
-    copy; on the CPU it becomes a tensor sharing the array's memory."""
+def _upload(x, dev: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if dev.type == "cpu":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+def shard_batch(batch, device=None, specs=None):
+    """Place a host batch (a dict or list tree of numpy arrays).
+
+    ``shard_batch(batch, device)``: on ``device`` (default CUDA; raises
+    without a card unless ``"cpu"``); on a card each array goes through
+    pinned memory with a non-blocking copy; on the CPU it becomes a tensor
+    sharing the array's memory.
+
+    ``shard_batch(batch, mesh, specs)`` (the JAX signature): each array as
+    a DTensor on the ``DeviceMesh`` placed by its partition spec in
+    ``specs`` (a tree of the batch's structure), each rank uploading only
+    the slice it holds."""
+    if isinstance(device, DeviceMesh):
+        mesh = device
+        dev = mesh_device(mesh)
+
+        def place(x, spec):
+            if isinstance(x, dict):
+                return {k: place(v, spec[k]) for k, v in x.items()}
+            if isinstance(x, (list, tuple)) and not isinstance(spec, PartitionSpec):
+                return type(x)(place(v, s) for v, s in zip(x, spec))
+            a = np.asarray(x)
+            mine = _upload(local_slice(a, spec, mesh), dev)
+            stride = tuple(int(s // a.itemsize) for s in np.ascontiguousarray(a).strides)
+            return DTensor.from_local(mine, mesh, placements(spec, mesh), run_check=False,
+                                      shape=torch.Size(a.shape), stride=stride)
+
+        return place(batch, specs)
     dev = resolve_device(device)
 
     def put(x):
@@ -104,9 +138,6 @@ def shard_batch(batch, device=None):
             return {k: put(v) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
             return type(x)(put(v) for v in x)
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        if dev.type == "cpu":
-            return t
-        return t.pin_memory().to(dev, non_blocking=True)
+        return _upload(x, dev)
 
     return put(batch)

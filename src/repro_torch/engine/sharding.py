@@ -23,9 +23,11 @@ after another on its stream, the port's counterpart of XLA's
 ``--xla_force_host_platform_device_count`` (the CPU tests, and N shards on
 one card).
 
-The training side's multi-card requests (the bundles' shardings,
-``launch.mesh``, a dry-run over TPU pods, an elastic step over more than
-one device) are still refused through :func:`refuse_multi_card`.  The row
+Training on a mesh of ranks is ``repro_torch.models.parallel`` (DTensor,
+``launch.mesh.make_host_mesh``).  What is left of the JAX package's
+multi-device side, its TPU v5e pod meshes (``make_production_mesh``, the
+bundles' ``shardings``, ``dryrun --mesh``), is refused through
+:func:`refuse_multi_card`.  The row
 quantum the incremental dirty-set evaluator pads its blocks with rounds by
 the device count as the JAX package rounds it, so the padded shapes of the
 two packages agree.
@@ -197,10 +199,13 @@ def batch_put(mesh: ProvisioningMesh):
 
 
 def refuse_multi_card(what: str):
-    """Raise ``NotImplementedError`` for a multi-card request ``what`` of
-    the training side: the port's one refusal, with its one reason."""
+    """Raise ``NotImplementedError`` for a request ``what`` on the JAX
+    package's TPU pod meshes (``make_production_mesh``, the bundles'
+    ``shardings``, ``dryrun --mesh``): the port's one refusal, with its one
+    reason."""
     raise NotImplementedError(
-        f"{what} is refused: the port targets one card outside path-sharded "
-        "provisioning (repro_torch.engine.sharding.ProvisioningMesh, the mesh= of "
-        "core.greedy's drivers); multi-card training and its meshes are still to do"
+        f"{what} is refused: the TPU v5e pod meshes (256 / 512 chips) have no "
+        "machine here; the port trains on a mesh of ranks "
+        "(repro_torch.launch.mesh.make_host_mesh) and its per-shard census of the "
+        "pod cells is still to do"
     )

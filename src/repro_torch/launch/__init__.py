@@ -3,8 +3,8 @@
 dry-run (``launch.dryrun``, run as ``python -m repro_torch.launch.dryrun``)
 and the elastic drill (``launch.elastic``).
 
-``repro.launch`` exports its meshes, which the port refuses on one card
-(``launch.mesh``), so the package exports ``train_lm`` alone.
+``launch.mesh`` builds the host mesh (``make_host_mesh``); the TPU pod
+meshes stay refused.  The package exports ``train_lm``.
 """
 from repro_torch.launch.train import train_lm
 

@@ -20,7 +20,7 @@ time; for each of the same 36 cells it:
 
 Most full-depth LM cells do not fit one card (qwen2-7b's ``decode_32k``
 bf16 cache alone is ~240 GB); the dry-run reports it, it cuts nothing.
-A ``--mesh`` of TPU pods is refused (one card).
+A ``--mesh`` of TPU pods is refused (no such machine here).
 
 Usage (host only, no card needed):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-7b --shape train_4k

@@ -20,13 +20,17 @@ Batch formats (numpy from the JAX package's generators, or tensors):
   * minibatch    — {seed_x:[B,F], layer_x: per-hop [B, W_h, F]} blocks from
                    the fan-out sampler; aggregation is a reshape-mean
 
-The JAX package's ``make_agg`` with ``agg_axes`` set (a ``shard_map``
-partial segment-sum plus ``psum_scatter`` over a mesh) has no one-card
-counterpart: on one device it is the dense aggregation, which
-``tests/test_distributed.py`` holds equal to the sharded one.  So the
-config has none of the JAX config's mesh fields (``scan_unroll``,
-``agg_axes``, ``node_axes``, ``min_tp_dim``).  ``remat`` checkpoints each
-layer (``torch.utils.checkpoint``).
+The aggregation comes from :func:`make_agg`: ``index_add_`` on one device,
+and with ``cfg.agg_axes`` set, on the mesh in use
+(:func:`~repro_torch.models.parallel.use_mesh`), the JAX package's
+``shard_map`` aggregation: each rank sums its shard of the edges into a
+whole ``[N, d]`` buffer, and the buffers are summed over the aggregation
+axes (a DTensor ``Partial`` redistributed to ``Replicate``).  Everything
+around it runs whole on every rank (the node arrays stay whole), so the
+backward is an all-gather of the edges' gradients.  On a mesh the
+parameters are DTensors placed by :func:`param_specs`
+(:func:`place_params`), gathered whole for the forward.  ``remat``
+checkpoints each layer (``torch.utils.checkpoint``).
 """
 from __future__ import annotations
 
@@ -37,8 +41,10 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.engine.streaming import resolve_device
+from repro_torch.models.parallel import P, current_mesh, local_slice, shard_tensor
 from repro_torch.models.transformer import remat
 
 
@@ -58,6 +64,10 @@ class GNNConfig:
     d_edge: int = 4                  # raw edge-feature dim (displacement+len)
     dtype: Any = torch.float32
     remat: bool = False              # rematerialize layer bodies (big graphs)
+    # the sharded aggregation (make_agg): each rank sums its shard of the
+    # edges, the node rows are summed over these axes
+    agg_axes: tuple = ()             # mesh axes the edge arrays split over
+    min_tp_dim: int = 512            # only tp-split hidden dims >= this
 
     def validate(self) -> None:
         if self.arch not in ("egnn", "schnet", "graphsage", "graphcast"):
@@ -142,6 +152,56 @@ def _is_shape_leaf(x) -> bool:
     return isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], tuple)
 
 
+def param_specs(cfg: GNNConfig, dp=("data",), tp="model", tp_size=16) -> dict:
+    """Partition specs of the parameter tree (the JAX ``param_specs``): the
+    last (output) dim over ``tp`` when ``tp_size`` divides it and it is at
+    least ``cfg.min_tp_dim``; the stacked layer dim stays whole."""
+    del dp
+
+    def spec_for(shape: tuple, stacked: bool) -> P:
+        spec = [None] * len(shape)
+        if shape and shape[-1] % tp_size == 0 and shape[-1] >= cfg.min_tp_dim:
+            spec[-1] = tp
+        if stacked:
+            spec[0] = None
+        return P(*spec)
+
+    def rec(sub, stacked):
+        return {k: rec(v, stacked or k == "layers") if not _is_shape_leaf(v)
+                else spec_for(v[0], stacked) for k, v in sub.items()}
+
+    return rec(shapes(cfg), False)
+
+
+def place_params(params: dict, cfg: GNNConfig, mesh) -> dict:
+    """``params`` (whole on every rank) as DTensor leaves on the ``("data",
+    "model")`` ``mesh``, each placed by :func:`param_specs` (each rank
+    keeps its slice), requiring grad."""
+    specs = param_specs(cfg, ("data",), "model", mesh["model"].size())
+
+    def rec(p, s):
+        if isinstance(p, dict):
+            return {k: rec(p[k], s[k]) for k in p}
+        return shard_tensor(p.detach(), mesh, s).requires_grad_()
+
+    return rec(params, specs)
+
+
+def _whole(params: dict) -> dict:
+    """The tree with each DTensor leaf gathered whole over its mesh.  Every
+    rank computes the whole model, so a leaf's gradient is the same on
+    each and goes back to the leaf's placement as a slice."""
+    def rec(p):
+        if isinstance(p, dict):
+            return {k: rec(v) for k, v in p.items()}
+        if not isinstance(p, DTensor):
+            return p
+        whole = [Replicate()] * p.device_mesh.ndim
+        return p.redistribute(p.device_mesh, whole).to_local(grad_placements=whole)
+
+    return rec(params)
+
+
 def init(cfg: GNNConfig, generator: torch.Generator | None = None, device=None) -> dict:
     """Random parameters by the JAX ``init`` rule: a leaf whose own key
     starts with "b" is zeros, every other normal * 1/sqrt(fan_in) with
@@ -223,6 +283,46 @@ def _agg_dense(messages, receivers, n_nodes, kind="sum"):
     return s
 
 
+def make_agg(cfg: GNNConfig):
+    """The aggregation op: ``_agg_dense`` without ``cfg.agg_axes``; with
+    them, on the mesh in use, each rank's partial segment-sum of its edge
+    shard (``messages`` [E, d] and ``receivers`` [E], whole on every rank,
+    split over ``agg_axes`` as ``P(agg_axes)``) into a whole ``[N, d]``
+    buffer (a count column beside it for ``mean``), summed over the axes.
+    Dense when no mesh is in use (one device) or when the ranks do not
+    divide ``n_nodes``, as in the JAX package."""
+    if not cfg.agg_axes:
+        return _agg_dense
+    axes = tuple(cfg.agg_axes)
+
+    def agg(messages, receivers, n_nodes, kind="sum"):
+        m = current_mesh()
+        if m is None:
+            return _agg_dense(messages, receivers, n_nodes, kind)
+        sub = m[axes] if len(axes) > 1 else m[axes[0]]
+        k = len(axes)
+        if n_nodes % sub.size() != 0:
+            return _agg_dense(messages, receivers, n_nodes, kind)
+        # this rank's edge rows (split over each axis in turn, the first
+        # outermost); the backward gathers their gradients whole
+        m_local = DTensor.from_local(messages, sub, [Replicate()] * k, run_check=False
+                                     ).redistribute(sub, [Shard(0)] * k).to_local()
+        r_local = local_slice(receivers, P(axes), sub)
+        part = messages.new_zeros((n_nodes, messages.shape[1])).index_add(0, r_local, m_local)
+        if kind == "mean":
+            cnt = messages.new_zeros(n_nodes).index_add(
+                0, r_local, messages.new_ones(r_local.shape[0]))
+            part = torch.cat([part, cnt[:, None]], dim=1)
+        out = DTensor.from_local(part, sub, [Partial()] * k, run_check=False
+                                 ).redistribute(sub, [Replicate()] * k).to_local()
+        if kind == "mean":
+            out, cnt = out[:, :-1], out[:, -1]
+            out = out / cnt.clamp_min(1.0)[:, None]
+        return out
+
+    return agg
+
+
 def rbf_expand(dist, n_rbf, cutoff):
     centers = torch.linspace(0.0, cutoff, n_rbf, device=dist.device)
     gamma = 10.0 / cutoff
@@ -232,40 +332,40 @@ def rbf_expand(dist, n_rbf, cutoff):
 # ---------------------------------------------------------------------------
 # Per-arch layer bodies (x/h: [N, d]; senders/receivers: [E] int64)
 # ---------------------------------------------------------------------------
-def egnn_layer(lp, h, pos, senders, receivers):
+def egnn_layer(lp, h, pos, senders, receivers, agg=_agg_dense):
     n = h.shape[0]
     diff = pos[senders] - pos[receivers]
     d2 = torch.sum(diff * diff, dim=-1, keepdim=True)
     m = _mlp(lp["phi_e"], torch.cat([h[senders], h[receivers], d2], -1))
     coef = _mlp(lp["phi_x"], m)
     # normalized coordinate update keeps equivariance + numerics
-    upd = _agg_dense(diff * coef / torch.sqrt(d2 + 1.0), receivers, n, "mean")
+    upd = agg(diff * coef / torch.sqrt(d2 + 1.0), receivers, n, "mean")
     pos = pos + upd
-    magg = _agg_dense(m, receivers, n, "sum")
+    magg = agg(m, receivers, n, "sum")
     h = h + _mlp(lp["phi_h"], torch.cat([h, magg], -1))
     return h, pos
 
 
-def schnet_layer(lp, h, pos, senders, receivers, n_rbf, cutoff):
+def schnet_layer(lp, h, pos, senders, receivers, n_rbf, cutoff, agg=_agg_dense):
     n = h.shape[0]
     dist = torch.sqrt(torch.sum((pos[senders] - pos[receivers]) ** 2, -1) + 1e-9)
     w = _mlp(lp["filter"], rbf_expand(dist, n_rbf, cutoff))
     x = _mlp(lp["in_dense"], h)
     m = x[senders] * w
-    out = _agg_dense(m, receivers, n, "sum")
+    out = agg(m, receivers, n, "sum")
     return h + _mlp(lp["out_dense"], out), pos
 
 
-def graphsage_layer(lp, h, senders, receivers, kind="mean"):
+def graphsage_layer(lp, h, senders, receivers, kind="mean", agg=_agg_dense):
     n = h.shape[0]
-    nbr = _agg_dense(h[senders], receivers, n, kind)
+    nbr = agg(h[senders], receivers, n, kind)
     return torch.relu(h @ lp["w_self"] + nbr @ lp["w_nbr"] + lp["b"])
 
 
-def graphcast_layer(lp, h, e, senders, receivers):
+def graphcast_layer(lp, h, e, senders, receivers, agg=_agg_dense):
     n = h.shape[0]
     e = e + _mlp(lp["edge_mlp"], torch.cat([e, h[senders], h[receivers]], -1))
-    out = _agg_dense(e, receivers, n, "sum")
+    out = agg(e, receivers, n, "sum")
     h = h + _mlp(lp["node_mlp"], torch.cat([h, out], -1))
     return h, e
 
@@ -280,11 +380,13 @@ def _tensor(x, device) -> torch.Tensor:
 
 def forward(params: dict, batch: dict, cfg: GNNConfig) -> torch.Tensor:
     """Node logits [N, n_classes] for a (full or sampled-flat) graph."""
+    params = _whole(params)
     dev = params["encoder"]["w0"].device
     x = _tensor(batch["x"], dev).to(cfg.dtype)
     senders = _tensor(batch["senders"], dev).long()
     receivers = _tensor(batch["receivers"], dev).long()
     h = _mlp(params["encoder"], x)
+    agg = make_agg(cfg)
     L = cfg.n_layers
     # one unbind per stacked leaf: its backward stacks the L gradients into
     # one [L, ...] tensor, where L selects would each write a zero-filled one
@@ -298,21 +400,21 @@ def forward(params: dict, batch: dict, cfg: GNNConfig) -> torch.Tensor:
 
     if cfg.arch == "egnn":
         pos = _tensor(batch["pos"], dev).to(cfg.dtype)
-        h, _ = run(lambda lp, h, pos: egnn_layer(lp, h, pos, senders, receivers), (h, pos))
+        h, _ = run(lambda lp, h, pos: egnn_layer(lp, h, pos, senders, receivers, agg), (h, pos))
     elif cfg.arch == "schnet":
         pos = _tensor(batch["pos"], dev).to(cfg.dtype)
         h, _ = run(lambda lp, h, pos: schnet_layer(lp, h, pos, senders, receivers,
-                                                   cfg.n_rbf, cfg.cutoff), (h, pos))
+                                                   cfg.n_rbf, cfg.cutoff, agg), (h, pos))
     elif cfg.arch == "graphsage":
         (h,) = run(lambda lp, h: (graphsage_layer(lp, h, senders, receivers,
-                                                  cfg.aggregator),), (h,))
+                                                  cfg.aggregator, agg),), (h,))
     else:  # graphcast
         if "edge_feat" in batch:
             ef = _tensor(batch["edge_feat"], dev).to(cfg.dtype)
         else:
             ef = torch.zeros((senders.shape[0], cfg.d_edge), dtype=cfg.dtype, device=dev)
         e = _mlp(params["edge_encoder"], ef)
-        h, _ = run(lambda lp, h, e: graphcast_layer(lp, h, e, senders, receivers), (h, e))
+        h, _ = run(lambda lp, h, e: graphcast_layer(lp, h, e, senders, receivers, agg), (h, e))
     return _mlp(params["decoder"], h)
 
 
@@ -323,6 +425,7 @@ def forward_minibatch(params: dict, batch: dict, cfg: GNNConfig) -> torch.Tensor
     prod(fanouts[:h+1]); layer_mask: list of [B, W_h] validity.
     Aggregation bottom-up: hop H-1 aggregates hop H by a reshape-mean over
     the fan-out."""
+    params = _whole(params)
     dev = params["encoder"]["w0"].device
     hops = [batch["seed_x"]] + list(batch["layer_x"])
     masks = [None] + list(batch.get("layer_mask", [None] * (len(hops) - 1)))
@@ -370,6 +473,7 @@ def loss_fn(params, batch, cfg: GNNConfig) -> torch.Tensor:
     """The JAX ``loss_fn``: node classification (cross entropy over labels
     >= 0) on a full or sampled graph, or, for a molecule batch, the
     node-mean readout against float targets (squared error)."""
+    params = _whole(params)
     dev = params["encoder"]["w0"].device
     if "seed_x" in batch:
         logits = forward_minibatch(params, batch, cfg)

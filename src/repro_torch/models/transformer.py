@@ -56,6 +56,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.engine.streaming import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.models.parallel import P, local
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,6 +195,55 @@ def param_dtype(name: str, cfg: TransformerConfig) -> torch.dtype:
 def top_shapes(cfg: TransformerConfig) -> dict[str, tuple[int, ...]]:
     return {"embed": (cfg.vocab, cfg.d_model), "ln_f": (cfg.d_model,),
             "lm_head": (cfg.d_model, cfg.vocab)}
+
+
+def param_specs(cfg: TransformerConfig, dp: tuple[str, ...] = ("data",),
+                tp: str = "model", tp_size: int = 16, dp_size: int = 16) -> dict:
+    """Partition specs keyed as ``named_parameters()`` (the JAX
+    ``param_specs`` with the stacked layer axis dropped): Megatron-style
+    TP on the head / hidden output dims, and FSDP: the other big dim of
+    each weight over the data axes (the JAX ``fsdp=True``, the training
+    layout; the serving layout without FSDP belongs to the bundles' pod
+    shardings, still refused).  Head-aligned TP only: a GQA
+    projection whose head count the model axis does not divide stays
+    whole over it."""
+    d_ok = cfg.d_model % dp_size == 0
+    fs = dp if d_ok else None          # the FSDP split of dim d_model
+
+    def attn_specs() -> dict:
+        s = {"ln_attn": P(None), "ln_mlp": P(None), "wo": P(tp, fs)}
+        if cfg.is_mla:
+            if cfg.mla_q_lora:
+                s["w_dq"] = P(fs, tp if cfg.mla_q_lora % tp_size == 0 else None)
+                s["w_uq"] = P(fs if cfg.mla_q_lora % dp_size == 0 else None, tp)
+            else:
+                s["wq"] = P(fs, tp)
+            kvl = cfg.mla_kv_lora + cfg.mla_rope_dim
+            s["w_dkv"] = P(fs, tp if kvl % tp_size == 0 else None)
+            lora_fs = fs if cfg.mla_kv_lora % dp_size == 0 else None
+            s["w_uk"] = P(lora_fs, tp)
+            s["w_uv"] = P(lora_fs, tp)
+        else:
+            q_ok = cfg.n_heads % tp_size == 0
+            kv_ok = cfg.n_kv_heads % tp_size == 0
+            s["wq"] = P(fs, tp if q_ok else None)
+            s["wk"] = s["wv"] = P(fs, tp if kv_ok else None)
+            s["wo"] = P(tp if q_ok else None, fs)
+            if cfg.qkv_bias:
+                s["bq"] = P(tp if q_ok else None)
+                s["bk"] = s["bv"] = P(tp) if kv_ok else P(None)
+        return s
+
+    dense = {**attn_specs(), "w1": P(fs, tp), "w3": P(fs, tp), "w2": P(tp, fs)}
+    moe = {**attn_specs(), "router": P(None, None),
+           "we1": P(tp, fs, None), "we3": P(tp, fs, None), "we2": P(tp, None, fs)}
+    if cfg.n_shared_experts:
+        moe.update(ws1=P(fs, tp), ws3=P(fs, tp), ws2=P(tp, fs))
+    out = {"embed": P(tp, fs), "ln_f": P(None), "lm_head": P(fs, tp)}
+    for i, kind in enumerate(cfg.layer_kinds()):
+        for name, spec in (moe if kind == "moe" else dense).items():
+            out[f"layers.{i}.{name}"] = spec
+    return out
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -403,28 +453,43 @@ def _moe_ffn_chunk(x: torch.Tensor, lp: nn.Module, cfg: TransformerConfig) -> to
     ``x[t] * keep`` at ``(e, pos)``, a dropped one at slot (0, 0).  The
     buffer starts at zero and each slot receives at most one kept row, so
     every other add is of zeros and the buffer equals the boolean-index
-    store exactly, with no ``nonzero`` (no host sync, and a ``meta`` form)."""
+    store exactly, with no ``nonzero`` (no host sync, and a ``meta`` form).
+
+    On a mesh (``lp.par``) the experts are split over "model": this rank
+    routes every token, keeps the assignments to its own experts, and the
+    partial outputs are summed over "model" (the shared experts are
+    split by hidden units, as a dense layer's MLP)."""
     T, d = x.shape
     K = cfg.top_k
-    plan = moe_dispatch_plan(x, lp.router, cfg)
-    keep = plan.keep
-    e_at = torch.where(keep, plan.e_sorted, 0)
+    plan = moe_dispatch_plan(x, lp.w("router"), cfg)
+    keep, e_sorted, gates = plan.keep, plan.e_sorted, plan.gates
+    E = cfg.n_experts
+    split = lp.split("we1")
+    xr = x
+    if split:
+        lo, hi = lp.par.model_range(E)
+        E = hi - lo
+        keep = keep & (e_sorted >= lo) & (e_sorted < hi)
+        e_sorted = e_sorted - lo
+        xr, gates = lp.enter(x), lp.enter(gates)
+    e_at = torch.where(keep, e_sorted, 0)
     pos_at = torch.where(keep, plan.pos_in_e, 0)
-    buf = x.new_zeros((cfg.n_experts, plan.capacity, d))
-    buf = buf.index_put((e_at, pos_at), x[plan.t_sorted] * keep[:, None].to(x.dtype),
+    buf = x.new_zeros((E, plan.capacity, d))
+    buf = buf.index_put((e_at, pos_at), xr[plan.t_sorted] * keep[:, None].to(x.dtype),
                         accumulate=True)
-    h = F.silu(torch.bmm(buf, lp.we1)) * torch.bmm(buf, lp.we3)
-    y_e = torch.bmm(h, lp.we2)                                      # [E, C, d]
+    h = F.silu(torch.bmm(buf, lp.w("we1"))) * torch.bmm(buf, lp.w("we3"))
+    y_e = torch.bmm(h, lp.w("we2"))                                 # [E, C, d]
     contrib = y_e[e_at, pos_at]
-    contrib = contrib * (plan.gates * keep).to(contrib.dtype)[:, None]
+    contrib = contrib * (gates * keep).to(contrib.dtype)[:, None]
     # each token's K contributions in the sorted order (ascending expert),
     # added one at a time in their dtype: the JAX scatter-add's order
     per_token = torch.argsort(plan.t_sorted, stable=True).view(T, K)
     y = contrib[per_token[:, 0]]
     for j in range(1, K):
         y = y + contrib[per_token[:, j]]
+    y = lp.exit(y, split)
     if cfg.n_shared_experts:
-        y = y + swiglu(x, lp.ws1, lp.ws3, lp.ws2)
+        y = y + lp.swiglu("ws1", "ws3", "ws2", x)
     return y.to(x.dtype)
 
 
@@ -451,33 +516,83 @@ def moe_ffn(x: torch.Tensor, lp: nn.Module, cfg: TransformerConfig,
 # ---------------------------------------------------------------------------
 # Modules
 # ---------------------------------------------------------------------------
-class DecoderLayer(nn.Module):
+class _MeshModule(nn.Module):
+    """A module that computes on one device (``par`` None) or on a mesh
+    (``par`` a :class:`~repro_torch.models.parallel.MeshParallel`, its
+    parameters DTensors)."""
+    par = None
+
+    def w(self, name: str, keep_tp: bool = True) -> torch.Tensor:
+        """The weight ``name`` to compute with: the parameter itself on one
+        device; on a mesh its local tensor, whole over "data" and split over
+        "model" as stored (``keep_tp``) or whole."""
+        p = getattr(self, name)
+        return p if self.par is None else self.par.weight(p, keep_tp)
+
+    def split(self, name: str) -> bool:
+        """Whether ``name`` is stored split over "model" (never on one device)."""
+        return self.par is not None and self.par.split(getattr(self, name))
+
+    def enter(self, x, on: bool = True):
+        """``x`` entering a region split over "model" (identity when ``on``
+        is False or on one device)."""
+        return self.par.enter(x) if on and self.par is not None else x
+
+    def exit(self, y, on: bool = True):
+        """The partial results ``y`` of a split region summed over "model"."""
+        return self.par.exit(y) if on and self.par is not None else y
+
+
+class DecoderLayer(_MeshModule):
     """One decoder layer of ``kind`` "dense" or "moe"; parameters named as
     the JAX layer stacks'."""
 
     def __init__(self, cfg: TransformerConfig, device, kind: str = "dense",
-                 params: dict | None = None):
+                 params: dict | None = None, par=None):
         super().__init__()
         self.cfg = cfg
         self.kind = kind
+        self.par = par
         for name, shape in layer_shapes(cfg, kind).items():
             dt = param_dtype(name, cfg)
             self.register_parameter(name, _param(shape, dt, device) if params is None
                                     else bind_param(params, name, shape, dt))
 
+    def mla_heads_split(self) -> bool:
+        """Whether the MLA head-indexed weights (``w_uq`` / ``wq``, ``w_uk``,
+        ``w_uv``, ``wo``) stay split over "model": when it divides the head
+        count (they are stored split by columns either way) and it has more
+        than one rank."""
+        return self.par is not None and self.par.tp > 1 and self.cfg.n_heads % self.par.tp == 0
+
     def qkv(self, x, positions):
-        """The JAX ``_qkv_gqa``: projections, optional bias, RoPE."""
+        """The JAX ``_qkv_gqa``: projections, optional bias, RoPE.  On a
+        mesh the heads the stored weights split over "model" are this
+        rank's; where the query heads are split and the KV heads are not,
+        each local query head gets its own KV head (k, v [B, S, H_local,
+        hd])."""
         cfg = self.cfg
         B, S, _ = x.shape
-        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
+        hd = cfg.hd
+        q_split, kv_split = self.split("wq"), self.split("wk")
+        q = self.enter(x, q_split) @ self.w("wq")
+        xkv = self.enter(x, kv_split)
+        k, v = xkv @ self.w("wk"), xkv @ self.w("wv")
         if cfg.qkv_bias:
-            q, k, v = q + self.bq, k + self.bk, v + self.bv
-        q = q.reshape(B, S, H, hd)
-        k = k.reshape(B, S, KV, hd)
-        v = v.reshape(B, S, KV, hd)
+            q, k, v = q + self.w("bq"), k + self.w("bk"), v + self.w("bv")
+        if q_split and not kv_split:
+            k, v = self.enter(k), self.enter(v)
+        q = q.reshape(B, S, -1, hd)
+        k = k.reshape(B, S, -1, hd)
+        v = v.reshape(B, S, -1, hd)
         rd = int(cfg.rotary_pct * hd)
-        return rope(q, positions, cfg.rope_theta, rd), rope(k, positions, cfg.rope_theta, rd), v
+        q, k = rope(q, positions, cfg.rope_theta, rd), rope(k, positions, cfg.rope_theta, rd)
+        if q_split and not kv_split:
+            G = cfg.n_heads // cfg.n_kv_heads
+            lo, hi = self.par.model_range(cfg.n_heads)
+            kv_of = torch.arange(lo, hi, device=q.device) // G
+            k, v = k[:, :, kv_of], v[:, :, kv_of]
+        return q, k, v
 
     def qkv_mla(self, x, positions):
         """The JAX ``_qkv_mla``: (q_nope, q_rope, c_kv, k_rope); the last
@@ -485,10 +600,14 @@ class DecoderLayer(nn.Module):
         cfg = self.cfg
         B, S, _ = x.shape
         nd, rd = cfg.mla_nope_dim, cfg.mla_rope_dim
-        q = (x @ self.w_dq) @ self.w_uq if cfg.mla_q_lora else x @ self.wq
-        q = q.reshape(B, S, cfg.n_heads, nd + rd)
+        hs = self.mla_heads_split()
+        if cfg.mla_q_lora:
+            q = self.enter(x @ self.w("w_dq", keep_tp=False), hs) @ self.w("w_uq", hs)
+        else:
+            q = self.enter(x, hs) @ self.w("wq", hs)
+        q = q.reshape(B, S, -1, nd + rd)
         q_rope = rope(q[..., nd:], positions, cfg.rope_theta)
-        ckv = x @ self.w_dkv
+        ckv = x @ self.w("w_dkv", keep_tp=False)
         k_rope = rope(ckv[..., cfg.mla_kv_lora:][:, :, None, :], positions, cfg.rope_theta)
         return q[..., :nd], q_rope, ckv[..., :cfg.mla_kv_lora], k_rope[:, :, 0]
 
@@ -501,7 +620,9 @@ class DecoderLayer(nn.Module):
         B, S, _ = h.shape
         if cfg.is_mla:
             qn, qr, ckv, kr = self.qkv_mla(h, positions)
-            attn = mla_attention(qn, qr, ckv, kr, self.w_uk, self.w_uv, cfg,
+            hs = self.mla_heads_split()
+            attn = mla_attention(qn, qr, self.enter(ckv, hs), self.enter(kr, hs),
+                                 self.w("w_uk", hs), self.w("w_uv", hs), cfg,
                                  positions, positions)
             return attn.reshape(B, S, -1), (ckv, kr)
         q, k, v = self.qkv(h, positions)
@@ -515,27 +636,47 @@ class DecoderLayer(nn.Module):
         return attn.reshape(B, S, -1), (k, v)
 
     def ffn(self, x, bs: tuple[int, int] | None = None):
-        """The JAX ``_ffn`` on normed tokens x [T, d]."""
+        """The JAX ``_ffn`` on normed tokens x [T, d].  On a mesh a MoE
+        layer routes the global batch (every "data" rank's tokens, so the
+        capacity is the global token set's) and keeps this rank's rows."""
         if self.kind == "moe":
-            return moe_ffn(x, self, self.cfg, bs)
-        return swiglu(x, self.w1, self.w3, self.w2)
+            if self.par is None or bs is None or self.par.dp == 1:
+                return moe_ffn(x, self, self.cfg, bs)
+            lo = self.par.dp_rank * x.shape[0]
+            xa = self.par.gather_rows(x)
+            y = moe_ffn(xa, self, self.cfg, (bs[0] * self.par.dp, bs[1]))
+            return y[lo:lo + x.shape[0]]
+        return self.swiglu("w1", "w3", "w2", x)
+
+    def swiglu(self, n1: str, n3: str, n2: str, x):
+        """SwiGLU by the weights ``n1``, ``n3``, ``n2``; on a mesh split over
+        "model" by hidden units (column- then row-parallel)."""
+        split = self.split(n1)
+        y = swiglu(self.enter(x, split), self.w(n1), self.w(n3), self.w(n2))
+        return self.exit(y, split)
+
+    def out_proj(self, attn):
+        """``attn @ wo``; on a mesh summed over "model" when ``wo`` is split
+        by heads (always for MLA when the heads split)."""
+        split = self.mla_heads_split() if self.cfg.is_mla else self.split("wo")
+        return self.exit(attn @ self.w("wo", split), split)
 
     def mlp(self, x):
         """x + FFN(rms_norm(x)) over a full sequence x [B, S, d]."""
         B, S, d = x.shape
-        h = rms_norm(x, self.ln_mlp, self.cfg.norm_eps)
+        h = rms_norm(x, self.w("ln_mlp"), self.cfg.norm_eps)
         return x + self.ffn(h.reshape(B * S, d), (B, S)).reshape(B, S, d)
 
     def forward(self, x, positions):
         """The JAX ``layer_fwd``: one layer over the full sequence."""
         cfg = self.cfg
-        h = rms_norm(x, self.ln_attn, cfg.norm_eps)
+        h = rms_norm(x, self.w("ln_attn"), cfg.norm_eps)
         flash = cfg.use_flash_prefill and not cfg.is_mla and x.shape[1] % 128 == 0
         attn, _ = self.attend(h, positions, flash)
-        return self.mlp(x + attn @ self.wo)
+        return self.mlp(x + self.out_proj(attn))
 
 
-class Transformer(nn.Module):
+class Transformer(_MeshModule):
     """The LM.  ``device`` defaults to CUDA and raises without a card
     unless ``"cpu"`` is asked for; ``generator`` (a ``torch.Generator`` on
     that device) draws the random init, a generator seeded 0 when None.
@@ -544,13 +685,22 @@ class Transformer(nn.Module):
     those tensors, unchanged and not re-drawn, on their device: the step
     functions of ``repro_torch.configs.lm_family`` run the model on a
     parameter tree this way.  ``layers`` holds every layer, a MoE model's
-    dense ones first."""
+    dense ones first.
+
+    ``par`` (a :class:`~repro_torch.models.parallel.MeshParallel`, with
+    ``params`` DTensors placed by :func:`param_specs`) runs the training
+    forward on a mesh: this rank's batch rows, the weights gathered layer
+    by layer.  ``prefill`` and ``decode_step`` run on one device only."""
 
     def __init__(self, cfg: TransformerConfig, device=None,
-                 generator: torch.Generator | None = None, params: dict | None = None):
+                 generator: torch.Generator | None = None, params: dict | None = None,
+                 par=None):
         super().__init__()
         cfg.validate()
         self.cfg = cfg
+        self.par = par
+        if par is not None and params is None:
+            raise ValueError("a mesh model is bound to placed parameters (params=)")
         if params is not None:
             for name, shape in top_shapes(cfg).items():
                 self.register_parameter(name, bind_param(params, name, shape, cfg.dtype))
@@ -558,7 +708,7 @@ class Transformer(nn.Module):
             self.layers = nn.ModuleList(
                 DecoderLayer(cfg, dev, kind, params={
                     k.split(".", 2)[2]: v for k, v in params.items()
-                    if k.startswith(f"layers.{i}.")})
+                    if k.startswith(f"layers.{i}.")}, par=par)
                 for i, kind in enumerate(cfg.layer_kinds()))
             if len(params) != sum(1 for _ in self.parameters()):
                 raise ValueError("params holds names the config does not have")
@@ -574,7 +724,26 @@ class Transformer(nn.Module):
         init_params(self, generator)
 
     def _embed(self, tokens):
-        return self.embed[tokens.long()].to(self.cfg.dtype)
+        if not self.split("embed"):
+            return self.w("embed")[tokens.long()].to(self.cfg.dtype)
+        # the table's rows split over "model": each rank looks up the ids
+        # in its range, the rows are summed over "model"
+        lo, hi = self.par.model_range(self.cfg.vocab)
+        ids = tokens.long()
+        inside = (ids >= lo) & (ids < hi)
+        rows = self.w("embed")[(ids - lo).clamp(0, max(hi - lo - 1, 0))]
+        return self.exit(rows * inside[..., None]).to(self.cfg.dtype)
+
+    def head(self, x, w=None) -> torch.Tensor:
+        """f32 logits ``x @ lm_head`` of hidden states x [..., d]; on a mesh
+        split over "model", each rank's vocabulary columns concatenated.
+        ``w``: ``self.w("lm_head")`` taken once by a caller that runs the
+        head several times."""
+        w = self.w("lm_head") if w is None else w
+        if not self.split("lm_head"):
+            return (x @ w).float()
+        y = self.enter(x) @ w
+        return self.par.gather_model(y, -1, self.cfg.vocab).float()
 
     def _logits(self, x):
         return (rms_norm(x, self.ln_f, self.cfg.norm_eps) @ self.lm_head).float()
@@ -588,11 +757,11 @@ class Transformer(nn.Module):
         nd = self.cfg.n_dense_layers if self.cfg.is_moe else 0
         for stack in (self.layers[:nd], self.layers[nd:]):
             x = _run_stack(x, list(stack), self.cfg, pos)
-        return rms_norm(x, self.ln_f, self.cfg.norm_eps)
+        return rms_norm(x, self.w("ln_f"), self.cfg.norm_eps)
 
     def forward(self, tokens, positions=None) -> torch.Tensor:
         """Logits f32 [B, S, vocab]."""
-        return (self.hidden_states(tokens, positions) @ self.lm_head).float()
+        return self.head(self.hidden_states(tokens, positions))
 
     @torch.no_grad()
     def prefill(self, tokens, max_len: int):
@@ -722,12 +891,12 @@ def _ce_terms(logits: torch.Tensor, labels: torch.Tensor):
     return ((logz - gold) * mask).sum(), mask.sum()
 
 
-def loss_fn(model: Transformer, tokens, labels) -> torch.Tensor:
-    """Mean next-token cross entropy of ``model`` on ``tokens`` [B, S]
-    against ``labels`` [B, S] (the JAX ``loss_fn``).  When
-    ``cfg.loss_chunk`` divides T = B * S and T exceeds it, the head runs
-    chunk by chunk, each checkpointed, so the live logits are [chunk, V]
-    and the backward recomputes them."""
+def loss_terms(model: Transformer, tokens, labels):
+    """(sum of the nll, count of labels >= 0) of ``model`` on ``tokens``
+    [B, S] against ``labels`` [B, S].  When ``cfg.loss_chunk`` divides
+    T = B * S and T exceeds it, the head runs chunk by chunk, each
+    checkpointed, so the live logits are [chunk, V] and the backward
+    recomputes them."""
     cfg = model.cfg
     x = model.hidden_states(tokens)
     B, S, d = x.shape
@@ -735,14 +904,31 @@ def loss_fn(model: Transformer, tokens, labels) -> torch.Tensor:
     xt, lt = x.reshape(T, d), labels.reshape(T)
     ck = cfg.loss_chunk
     if ck and T > ck and T % ck == 0:
+        # the head's weight taken once: the chunks' gradients add up in one
+        # tensor (on a mesh, each take's DTensor gradient would be added
+        # out of place, a transient copy of the whole head)
+        w = model.w("lm_head")
+
         def chunk_terms(xc, lc):
-            return _ce_terms((xc @ model.lm_head).float(), lc)
+            return _ce_terms(model.head(xc, w), lc)
 
         terms = [remat(chunk_terms, xt[i:i + ck], lt[i:i + ck]) for i in range(0, T, ck)]
-        nll = torch.stack([t[0] for t in terms]).sum()
-        cnt = torch.stack([t[1] for t in terms]).sum()
-        return nll / cnt.clamp_min(1)
-    nll, cnt = _ce_terms((xt @ model.lm_head).float(), lt)
+        return torch.stack([t[0] for t in terms]).sum(), torch.stack([t[1] for t in terms]).sum()
+    return _ce_terms(model.head(xt), lt)
+
+
+def loss_fn(model: Transformer, tokens, labels) -> torch.Tensor:
+    """Mean next-token cross entropy of ``model`` on ``tokens`` [B, S]
+    against ``labels`` [B, S] (the JAX ``loss_fn``): the nll summed over
+    the batch over the count of labels >= 0 (:func:`loss_terms`).  On a
+    mesh ``tokens`` and ``labels`` are this rank's rows (local tensors or
+    the DTensors of ``shard_batch``) and the count is the global batch's:
+    the result is this rank's share of the global mean, whose sum over
+    "data" (:func:`~repro_torch.models.parallel.MeshParallel.sum_data`) is
+    the loss and whose gradients are this rank's partial sums."""
+    nll, cnt = loss_terms(model, local(tokens), local(labels))
+    if model.par is not None:
+        cnt = model.par.sum_data(cnt)
     return nll / cnt.clamp_min(1)
 
 

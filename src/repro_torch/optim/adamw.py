@@ -18,6 +18,12 @@ tensor ops leaf by leaf, in the JAX package's order of operations
 (``torch.optim.AdamW`` orders and decays differently).  It writes the
 parameters and ``m``, ``v`` in place, so one leaf's f32 copies are the
 only transient memory; the arithmetic is the same as writing new tensors.
+
+On a mesh the leaves are DTensors: ``m`` and ``v`` take each parameter's
+placement (:meth:`AdamW.state_specs`), each leaf's update runs on the
+local shards, and the global norm (so the clip factor) is the whole
+gradient's: each leaf's sum of squares is summed over the ranks holding
+parts of it before the leaves are added.
 """
 from __future__ import annotations
 
@@ -26,6 +32,9 @@ import math
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
+
+from repro_torch.models.parallel import P, local
 
 
 class AdamWState(NamedTuple):
@@ -59,14 +68,20 @@ class AdamW:
     grad_clip: float = 1.0          # global-norm clip; 0 disables
 
     def init(self, params) -> AdamWState:
-        """Zero m and v in f32 beside each parameter, step 0."""
+        """Zero m and v in f32 beside each parameter (placed as it is on a
+        mesh), step 0."""
         dev = tree_leaves(params)[0].device
 
         def zeros(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            return torch.zeros_like(p, dtype=torch.float32, requires_grad=False)
 
         return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                           m=tree_map(zeros, params), v=tree_map(zeros, params))
+
+    def state_specs(self, param_specs) -> AdamWState:
+        """Partition specs of the state: each moment as its parameter, the
+        step whole (the JAX ``state_specs``)."""
+        return AdamWState(step=P(), m=param_specs, v=param_specs)
 
     @torch.no_grad()
     def update(self, grads, state: AdamWState, params):
@@ -85,6 +100,7 @@ class AdamW:
         bc2 = 1 - torch.pow(torch.tensor(self.b2, dtype=torch.float32, device=stepf.device),
                             stepf)
         for p, g, m, v in tree_leaves(params, grads, state.m, state.v):
+            p, g, m, v = local(p), local(g), local(m), local(v)
             g32 = g.float()
             if scale is not None:
                 g32 = g32 * scale
@@ -98,9 +114,24 @@ class AdamW:
         return params, AdamWState(step=step, m=state.m, v=state.v), gnorm
 
 
+def _sum_sq(x: torch.Tensor) -> torch.Tensor:
+    s = torch.sum(x.float() ** 2)
+    if not isinstance(s, DTensor):
+        return s
+    # summed over one mesh dim after the other (the partial sums of the
+    # ranks that split the leaf), replicated ones left as they are
+    pl = list(s.placements)
+    for i, p in enumerate(pl):
+        if p.is_partial():
+            pl[i] = Replicate()
+            s = s.redistribute(s.device_mesh, pl)
+    return s.to_local()
+
+
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of sum(x^2), in f32."""
-    return torch.sqrt(sum(torch.sum(x.float() ** 2) for x in tree_leaves(tree)))
+    """sqrt of the sum over leaves of sum(x^2), in f32; a DTensor leaf's
+    sum is its whole tensor's (summed over the ranks that split it)."""
+    return torch.sqrt(sum(_sum_sq(x) for x in tree_leaves(tree)))
 
 
 def cosine_schedule(peak_lr: float, warmup: int, total: int,
@@ -118,12 +149,14 @@ def cosine_schedule(peak_lr: float, warmup: int, total: int,
     return lr
 
 
-def make_train_step(loss_fn, opt: AdamW):
+def make_train_step(loss_fn, opt: AdamW, report=None):
     """The step of the JAX package's train loops: ``loss_fn(params, batch)``
     -> scalar loss, its gradients with respect to the leaves of ``params``
     (a dict tree of tensors that require grad), then ``opt.update``.
     Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
-    {"loss", "grad_norm"})``; the parameters are updated in place."""
+    {"loss", "grad_norm"})``; the parameters are updated in place.  On a
+    mesh ``loss_fn`` gives this rank's share of the loss and ``report``
+    (e.g. ``MeshParallel.sum_data``) the loss from it."""
 
     def train_step(params, opt_state, batch):
         loss = loss_fn(params, batch)
@@ -133,6 +166,7 @@ def make_train_step(loss_fn, opt: AdamW):
         it = iter(torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads))
         grads = tree_map(lambda _: next(it), params)
         params, opt_state, gnorm = opt.update(grads, opt_state, params)
-        return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
+        loss = loss.detach() if report is None else report(loss)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return train_step

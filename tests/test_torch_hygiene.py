@@ -66,7 +66,9 @@ def test_port_import_leaves_jax_unloaded():
         " repro_torch.engine.incremental, repro_torch.engine.resilience, repro_torch.optim,"
         " repro_torch.data, repro_torch.launch, repro_torch.models.gnn,"
         " repro_torch.analysis, repro_torch.analysis.corrected, repro_torch.launch.serve,"
-        " repro_torch.launch.dryrun, repro_torch.launch.elastic, repro_torch.launch.mesh;"
+        " repro_torch.launch.dryrun, repro_torch.launch.elastic, repro_torch.launch.mesh,"
+        " repro_torch.launch.train, repro_torch.models.parallel, repro_torch.data.pipeline,"
+        " repro_torch.optim.adamw, repro_torch.configs.gnn_family;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')];"
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -119,6 +121,7 @@ ENTRY_POINTS = {
     "elastic_drill": lambda ps, shard, sc: elastic.elastic_drill(qwen2_7b.SMOKE),
     "build_for_devices": lambda ps, shard, sc: elastic.build_for_devices(
         qwen2_7b.SMOKE, [None], None),
+    "make_host_mesh": lambda ps, shard, sc: mesh.make_host_mesh(),
     "ArchBundle.real_args": lambda ps, shard, sc: get_arch("egnn").real_args("molecule"),
     "ArchBundle.smoke_batch": lambda ps, shard, sc: get_arch("mind").smoke_batch(
         np.random.default_rng(0)),
@@ -153,19 +156,17 @@ def test_backend_resolves_from_device():
         LatencyEngine(sc, device="cpu", backend="kernel")
 
 
-# every multi-card request of the port's training side, each refused
-# through engine.sharding.refuse_multi_card with its one reason (the
-# greedy's mesh= is ported: tests/test_torch_mesh.py)
+# every request on the JAX package's TPU pod meshes, each refused through
+# engine.sharding.refuse_multi_card with its one reason (the greedy's
+# mesh= is ported: tests/test_torch_mesh.py; training on a mesh of ranks:
+# tests/test_torch_sharded_*.py)
 REFUSALS = {
     "ArchBundle.shardings": lambda ps, shard, sc: get_arch("qwen2-7b").shardings("train_4k"),
     "mesh.make_production_mesh": lambda ps, shard, sc: mesh.make_production_mesh(),
     "mesh.make_production_mesh(multi_pod)": lambda ps, shard, sc: mesh.make_production_mesh(
         multi_pod=True),
-    "mesh.make_host_mesh": lambda ps, shard, sc: mesh.make_host_mesh(),
     "dryrun --mesh single": lambda ps, shard, sc: _dryrun_main("single"),
     "dryrun --mesh both": lambda ps, shard, sc: _dryrun_main("both"),
-    "build_for_devices(2 devices)": lambda ps, shard, sc: elastic.build_for_devices(
-        qwen2_7b.SMOKE, ["cpu", "cpu"], None),
 }
 
 
@@ -180,11 +181,10 @@ def _dryrun_main(mesh_name):
 
 @pytest.mark.parametrize("name", sorted(REFUSALS))
 def test_unported_options_raise(name):
-    """Each multi-card request of the training side raises
-    ``NotImplementedError`` with the one reason (one card outside
-    path-sharded provisioning)."""
+    """Each request on the TPU pod meshes raises ``NotImplementedError``
+    with the one reason (no such machine here)."""
     ps, shard, sc = _small_case()
-    with pytest.raises(NotImplementedError, match="one card"):
+    with pytest.raises(NotImplementedError, match="TPU v5e pod meshes"):
         REFUSALS[name](ps, shard, sc)
 
 
@@ -198,8 +198,8 @@ def test_refusals_share_one_function():
                      if "refuse_multi_card(" in p.read_text())
     assert callers == ["src/repro_torch/configs/base.py",
                        "src/repro_torch/engine/sharding.py", "src/repro_torch/launch/dryrun.py",
-                       "src/repro_torch/launch/elastic.py", "src/repro_torch/launch/mesh.py"]
-    with pytest.raises(NotImplementedError, match="^what is refused: the port targets one card"):
+                       "src/repro_torch/launch/mesh.py"]
+    with pytest.raises(NotImplementedError, match="^what is refused: the TPU v5e pod meshes"):
         refuse_multi_card("what")
     assert ArchBundle.shardings.__code__.co_names == ("refuse_multi_card",)
 
