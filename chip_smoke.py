@@ -248,13 +248,29 @@ Phases (each prints one JSON line; any failed check exits non-zero):
           just before, read just after: 0 launches), losses and norms
           equal to train's bit for bit, step seconds and peak memory
           beside train's; elastic_drill through the mesh, bit-exact (the
-          launch phase runs the same drill on one device); make_agg with
-          agg_axes against dense in f64 (1e-12); compressed_psum over the
+          launch phase runs the same drill on one device); the GNN's
+          split aggregation (SplitGraph) against dense in f64 (1e-12);
+          compressed_psum over the
           group equal to the no-group result.  (Several cards: the
           ``cuda``-marked tests/test_torch_mesh_train_cuda.py.)
+  mesh_serve  serving on a mesh, after recsys: a world-1 NCCL group and
+          its 1 x 1 ("data", "model") mesh.  qwen2-7b at full width with
+          MESH_SERVE_LAYERS layers in bf16, its parameters placed by the
+          bundle's decode_32k layout (``shardings``, sized to the mesh):
+          prefill of 4 x 1,024 prompts into 1,040 slots, then 16 decode
+          steps fed the one-device run's greedy tokens; every step's logits
+          and the cache bit-equal to one device's, seconds beside.  MIND
+          FULL at serve_p99 (512 users x 100 candidates) placed by its
+          cell's layout, scores bit-equal to one device's.  Counters zeroed
+          just before the mesh drives, read just after: 0 launches (no
+          kernel is on these paths in ``repro``).  (Several cards: the
+          ``cuda``-marked tests/test_torch_mesh_serve_cuda.py.)
   launch  the last modules.  From the phase's start, DRYRUN_WORKERS host
           processes count the one-card dry-run's 36 cells on ``meta``
-          tensors (``launch.dryrun.cell_row``), while the card runs:
+          tensors (``launch.dryrun.cell_row``) and POD_CELLS per rank on
+          the 256 / 512-rank meshes (each on a placeholder group of its
+          own; every kernel counter read in the worker: 0), while the card
+          runs:
           (a) ``launch.serve.serve`` at the main cell (SNB-like scale 10,
           20,000 queries, 6 hash-sharded servers), t = 1 and t = 2 with
           the server-0 drill and t = 1 with ``hedge``, each on the kernel
@@ -4293,21 +4309,20 @@ def mesh_lm_full(TM, qwen2, O, lm_batch_fn, shard_batch, counters, ranks: list,
 
 
 def mesh_agg_check(G, dev) -> dict:
-    """make_agg with agg_axes on the 1 x 1 mesh against the dense
-    aggregation, sum and mean, values and gradients, in f64."""
+    """The GNN's split aggregation (``SplitGraph.agg``: each rank's edges
+    summed into its node rows, gathered whole) on the 1 x 1 mesh against
+    the dense aggregation, sum and mean, values and gradients, in f64."""
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models.parallel import use_mesh
 
     g = torch.Generator(device=dev).manual_seed(11)
     N, E, d = MESH_AGG_NODES, MESH_AGG_EDGES, MESH_AGG_WIDTH
     msgs = torch.randn(E, d, generator=g, device=dev, dtype=torch.float64).requires_grad_()
     recv = torch.randint(0, N, (E,), generator=g, device=dev)
     w = torch.randn(N, d, generator=g, device=dev, dtype=torch.float64)
-    agg = G.make_agg(G.GNNConfig(agg_axes=("data", "model")))
+    sp = G.SplitGraph(make_host_mesh())
     out = {"nodes": N, "edges": E, "width": d}
     for kind in ("sum", "mean"):
-        with use_mesh(make_host_mesh()):
-            got = agg(msgs, recv, N, kind)
+        got = sp.full(sp.agg(sp.rows(msgs), sp.rows(recv), N, kind), N)
         want = G._agg_dense(msgs, recv, N, kind)
         g_got, = torch.autograd.grad((got * w).sum(), msgs)
         g_want, = torch.autograd.grad((want * w).sum(), msgs)
@@ -4315,7 +4330,7 @@ def mesh_agg_check(G, dev) -> dict:
                      "grad_max_abs_err": float((g_got - g_want).abs().max())}
         check(torch.allclose(got, want, atol=1e-12, rtol=1e-12)
               and torch.allclose(g_got, g_want, atol=1e-12, rtol=1e-12),
-              f"sharded aggregation ({kind}) on the 1 x 1 mesh: {out[kind]}")
+              f"split aggregation ({kind}) on the 1 x 1 mesh: {out[kind]}")
     return out
 
 
@@ -4325,7 +4340,7 @@ def phase_mesh_train(TM, G, C, O, lm_batch_fn, shard_batch, counters, train_lm_o
     its 1 x 1 mesh, the train phase's qwen2-7b run (losses and norms equal
     to its one-device ones bit for bit), elastic_drill through the mesh
     (bit-exact; the launch phase runs the same drill on one device), the
-    GNN's sharded aggregation against dense in f64, and compressed_psum
+    GNN's split aggregation against dense in f64, and compressed_psum
     over the group equal to the no-group result."""
     import torch.distributed as dist
 
@@ -4381,6 +4396,127 @@ def phase_mesh_train(TM, G, C, O, lm_batch_fn, shard_batch, counters, train_lm_o
     return out
 
 
+MESH_SERVE_LAYERS = 4
+
+
+def mesh_serve_lm(TM, C, counters, mesh, dev) -> dict:
+    """qwen2-7b (MESH_SERVE_LAYERS layers, bf16) served on one device (after
+    a warm-up run), then on ``mesh`` with the same parameters placed by the
+    decode_32k layout: prefill 4 x 1,024 into 1,040 slots, 16 decode steps
+    fed the one-device greedy tokens; logits and cache compared bit for
+    bit."""
+    from repro_torch.models.parallel import MeshParallel, P, local, place_tree
+
+    cfg = dataclasses.replace(C.qwen2_7b.FULL, n_layers=MESH_SERVE_LAYERS)
+    bundle = C.get_arch("qwen2-7b")
+    (pspecs, cspecs, bspecs), _ = bundle.shardings("decode_32k")
+    g = torch.Generator(device=dev).manual_seed(41)
+    model = TM.Transformer(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    prompts = torch.randint(0, cfg.vocab, (4, 1024), generator=g, device=dev)
+
+    def serve(m, prompts, feed=None):
+        steps, secs = [], []
+        (cache, lg), sec = synced(lambda: m.prefill(prompts, max_len=1040))
+        steps.append(local(lg))
+        secs.append(sec)
+        picks = []
+        for i in range(16):
+            tok = lg.argmax(-1) if feed is None else feed[i]
+            picks.append(tok)
+            (cache, lg), sec = synced(lambda: m.decode_step(cache, tok))
+            steps.append(local(lg))
+            secs.append(sec)
+        return steps, cache, picks, secs
+
+    with torch.no_grad():
+        serve(model, prompts)   # warm-up: the first calls' library set-up out of the times
+        one, one_cache, picks, one_s = serve(model, prompts)
+        params = dict(model.named_parameters())
+        placed = place_tree(params, {n: pspecs[n] for n in params}, mesh)
+        mesh_model = TM.Transformer(cfg, params=placed, par=MeshParallel(mesh))
+        # the prompts' rows split as the decode cell's tokens are
+        placed_prompts = place_tree(prompts, P(bspecs["tokens"][0], None), mesh)
+        zero_counts(counters)
+        got, cache, _, mesh_s = serve(mesh_model, local(placed_prompts), picks)
+        launches = read_counts(counters)
+    logits_equal = [bool(torch.equal(a, b)) for a, b in zip(got, one)]
+    cache_equal = {k: bool(torch.equal(local(cache[k]), one_cache[k])) for k in ("k", "v")}
+    check(all(logits_equal) and all(cache_equal.values()) and
+          cache["index"] == one_cache["index"],
+          f"mesh_serve qwen2-7b: logits equal {logits_equal}, cache equal {cache_equal}")
+    check(all(v == 0 for v in launches.values()),
+          f"mesh_serve qwen2-7b: a kernel launched: {launches}")
+    check(all(bool(torch.isfinite(x).all()) for x in got), "mesh_serve qwen2-7b: non-finite")
+    out = {"config": f"{cfg.name} ({cfg.n_layers} layers, {cfg.dtype})",
+           "layout": {"params": "decode_32k", "cache": str(cspecs["k"]),
+                      "tokens": str(bspecs["tokens"])},
+           "mesh": list(mesh.shape), "prompts": [4, 1024], "max_len": 1040, "decode_steps": 16,
+           "logits_bit_equal": all(logits_equal), "cache_bit_equal": cache_equal,
+           "prefill_s": mesh_s[0], "one_device_prefill_s": one_s[0],
+           "decode_step_s": mesh_s[1:], "one_device_decode_step_s": one_s[1:],
+           "launches": launches}
+    del model, mesh_model, params, placed, one, got, cache, one_cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serve_mind(RM, C, mind, zipf_rows, counters, mesh, dev) -> dict:
+    """MIND FULL at serve_p99 on one device (after a warm-up call), then on
+    ``mesh`` with the same tables placed by the cell's layout; scores
+    compared bit for bit."""
+    from repro_torch.models.parallel import MeshParallel, local, place_tree
+
+    cfg = mind.FULL
+    (pspecs, bspecs), _ = C.get_arch("mind").shardings("serve_p99")
+    g = torch.Generator(device=dev).manual_seed(43)
+    rng = np.random.default_rng(43)
+    with torch.no_grad():
+        model = RM.MIND(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+        users, cands, _ = MIND_CELLS["serve_p99"]
+        batch = mind_batch(cfg, users, g, rng, zipf_rows, dev, cands)
+        model.serve_score(batch)   # warm-up
+        one, one_s = synced(lambda: model.serve_score(batch))
+        params = dict(model.named_parameters())
+        placed = place_tree(params, pspecs, mesh)
+        pbatch = place_tree(batch, bspecs, mesh)
+        mesh_model = RM.MIND(cfg, params=placed, par=MeshParallel(mesh))
+        zero_counts(counters)
+        got, mesh_s = synced(lambda: local(mesh_model.serve_score(pbatch)))
+        launches = read_counts(counters)
+    equal = bool(torch.equal(got, one))
+    check(equal, f"mesh_serve mind: scores differ, max {float((got - one).abs().max())}")
+    check(all(v == 0 for v in launches.values()), f"mesh_serve mind: a kernel launched: "
+                                                   f"{launches}")
+    out = {"config": cfg.name, "cell": "serve_p99", "users": users, "candidates": cands,
+           "layout": {k: str(v) for k, v in pspecs.items()}, "scores_bit_equal": equal,
+           "seconds": mesh_s, "one_device_seconds": one_s, "launches": launches}
+    del model, mesh_model, params, placed, batch, pbatch, one, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_serve(TM, RM, C, mind, zipf_rows, counters, dev) -> dict:
+    """Serving on a mesh: a world-1 NCCL group and its 1 x 1 mesh, qwen2-7b's
+    prefill and decode and MIND's serve_p99 bit-equal to one device."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    out = {"phase": "mesh_serve", "card": gpu_name_and_power()}
+    mesh = make_host_mesh(device="cuda")
+    check(dist.get_world_size() == 1 and dist.get_backend() == "nccl",
+          f"mesh_serve: world {dist.get_world_size()} over {dist.get_backend()}")
+    try:
+        out["lm"] = mesh_serve_lm(TM, C, counters, mesh, dev)
+        out["mind"] = mesh_serve_mind(RM, C, mind, zipf_rows, counters, mesh, dev)
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
 def phase_train(TM, RM, G, C, O, make_train_step, train_lm, lm_batch_fn, gnn_batch_fn,
                 shard_batch, ogb_like, zipf_rows, counters, dev) -> dict:
     """The training path: qwen2-7b at full width, card = CPU at narrow f32
@@ -4415,6 +4551,28 @@ def phase_train(TM, RM, G, C, O, make_train_step, train_lm, lm_batch_fn, gnn_bat
 # the launch phase: host processes counting the dry-run's cells (on meta)
 # while the card runs the serve drives, the smoke steps and the drill
 DRYRUN_WORKERS = 6
+# pod cells counted per rank on the production meshes (launch.dryrun
+# --mesh single / multi), first in the pool
+POD_CELLS = [("qwen2-7b", "prefill_32k", "single"), ("deepseek-v2-236b", "decode_32k", "multi"),
+             ("graphsage-reddit", "minibatch_lg", "single"), ("mind", "retrieval_cand", "multi")]
+KERNEL_MODULES = ("path_latency", "routed_walk", "provision_update", "flash_prefill",
+                  "decode_attention", "embedding_bag", "prune_walk")
+
+
+def pod_cell_row(cell) -> dict:
+    """A pod cell's dry-run row, counted in this worker process, with the
+    launches every kernel counter of the port read in it."""
+    import importlib
+
+    from repro_torch.launch import dryrun
+
+    mods = [importlib.import_module(f"repro_torch.kernels.{m}") for m in KERNEL_MODULES]
+    counters = [(m, name) for m in mods for name in ("LAUNCHES", "SCORED_LAUNCHES", "TC_LAUNCHES")
+                if hasattr(m, name)]
+    zero_counts(counters)
+    row = dryrun.cell_row(cell)
+    row["launches"] = sum(read_counts(counters).values())
+    return row
 # a dry-run cell is run for real on the card below this peak (GiB)
 REAL_STEP_MAX_GB = 70.0
 # each bundle's SMOKE step, card against CPU: the f32 losses
@@ -4547,6 +4705,7 @@ def phase_launch(counters, dev) -> dict:
     pool = mp.get_context("spawn").Pool(DRYRUN_WORKERS)
     try:
         # one cell per task: the slowest cells start at once, one per worker
+        pods = pool.map_async(pod_cell_row, POD_CELLS, chunksize=1)
         pending = pool.map_async(dryrun.cell_row, dryrun_order(C), chunksize=1)
         ts = time.perf_counter()
         serve_runs = launch_serve(serve_mod, counters, dev)
@@ -4563,14 +4722,18 @@ def phase_launch(counters, dev) -> dict:
         torch.cuda.empty_cache()
         ts = time.perf_counter()
         rows = pending.get()
+        pod_rows = pods.get()
         parts["dryrun_wait"] = time.perf_counter() - ts
     finally:
         pool.terminate()
         pool.join()
-    for row in rows:
+    for row in rows + pod_rows:
         print(f"launch dryrun: {json.dumps(row, default=str)}", flush=True)
     failed = [(r["arch"], r["shape"], r["status"]) for r in rows if r.get("status") != "ok"]
     check(len(rows) == 36 and not failed, f"dry-run cells failed: {failed}")
+    failed = [(r["arch"], r["shape"], r["mesh"], r["status"]) for r in pod_rows
+              if r.get("status") != "ok" or r["launches"] != 0]
+    check(len(pod_rows) == len(POD_CELLS) and not failed, f"pod cells failed: {failed}")
     ts = time.perf_counter()
     real = launch_real_steps(C, rows, counters, dev)
     parts["real_steps"] = time.perf_counter() - ts
@@ -4582,6 +4745,10 @@ def phase_launch(counters, dev) -> dict:
             k: r[k] for k in ("hlo_flops", "model_flops", "hlo_bytes", "peak_mem_gb",
                               "fits_80gb", "bottleneck", "t_count_s")} for r in rows},
         "dryrun_count_s": sum(r["t_count_s"] for r in rows),
+        "pod": {f"{r['arch']}:{r['shape']}:{r['mesh']}": {
+            k: r[k] for k in ("status", "chips", "hlo_flops", "hlo_bytes", "collective_bytes",
+                              "t_collective_s", "peak_mem_gb", "fits_80gb", "bottleneck",
+                              "t_count_s", "launches")} for r in pod_rows},
         "real_steps": real,
         # the kernels' launches in the serve launcher's t = 1 drive (kernel backend)
         "launches": serve_runs["t1"]["launches"],
@@ -4705,6 +4872,7 @@ def main() -> int:
     lm_moe = phase_lm_moe(TM, qwen3_moe_235b_a22b, fp, F, counters, dev)
     phase_lm_moe(TM, deepseek_v2_236b, fp, F, counters, dev)
     phase_recsys(RM, mind, zipf_rows, counters, dev)
+    phase_mesh_serve(TM, RM, C, mind, zipf_rows, counters, dev)
     launch = phase_launch(counters, dev)
     launches.update(flash_prefill=lm["launches"]["flash_prefill"],
                     decode_attention=lm["launches"]["decode_attention"],

@@ -17,8 +17,18 @@ allocated: the one-card dry-run) as on real ones, and records per op:
     tracked up front, op outputs as they appear) counts until its last
     tensor is freed, so ``peak_bytes`` is the largest sum of live storages
     during the run, arguments included;
-  * collectives: ops of the ``c10d`` / ``_c10d_functional`` namespaces,
-    their output bytes by kind.  One card runs none.
+  * collectives: the ops of the ``c10d`` / ``_c10d_functional``
+    namespaces named in ``_COLLECTIVE_KINDS``, their output bytes by kind
+    and by the ranks of their process group (``collective_groups``), so
+    the roofline can price each by the links its group spans.  One card
+    runs none.
+
+On a mesh (a step run as one rank of a process group, e.g. rank 0 of a
+placeholder group of 256 ranks) the census is that rank's: a DTensor
+argument or operand counts by its local shard, an op on DTensors by its
+local tensors, and the aliases a functional collective hands back
+(``_wrap_tensor_autograd``, ``wait_tensor``) share their input's storage
+rather than count as a second one.
 
 :func:`op_census` keeps the JAX function's keys: ``dot`` = mm / bmm /
 addmm / baddbmm, ``scatter`` = index_put / index_add / scatter*,
@@ -33,6 +43,8 @@ import weakref
 from collections import Counter, defaultdict
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
@@ -59,6 +71,9 @@ _COLLECTIVE_KINDS = {
     "broadcast": "all-gather",
 }
 
+# ops that hand back their input under another tensor object: no new storage
+_ALIASES = ("_wrap_tensor_autograd", "wait_tensor")
+
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
@@ -66,9 +81,11 @@ def _nbytes(t: torch.Tensor) -> int:
 
 def _tensors(x, out: list) -> list:
     """The tensors of an op's arguments or results, or of a step's
-    arguments (nested sequences, named tuples and dicts); a faster walk than
-    the general pytree one."""
-    if isinstance(x, torch.Tensor):
+    arguments (nested sequences, named tuples and dicts), a DTensor by its
+    local shard; a faster walk than the general pytree one."""
+    if isinstance(x, DTensor):
+        out.append(x._local_tensor)
+    elif isinstance(x, torch.Tensor):
         out.append(x)
     elif isinstance(x, (list, tuple)):
         for y in x:
@@ -79,6 +96,36 @@ def _tensors(x, out: list) -> list:
     return out
 
 
+def _local(x):
+    """``x`` with every DTensor replaced by its local shard (nested
+    sequences and dicts), for counting an op on DTensors by its local work."""
+    if isinstance(x, DTensor):
+        return x._local_tensor
+    if isinstance(x, (list, tuple)):
+        return type(x)(_local(y) for y in x) if not hasattr(x, "_fields") else \
+            type(x)(*(_local(y) for y in x))
+    if isinstance(x, dict):
+        return {k: _local(v) for k, v in x.items()}
+    return x
+
+
+def _group_ranks(args) -> tuple:
+    """The global ranks of a collective's process group: a functional
+    collective names its group by its last string argument, a ``c10d`` op
+    passes the group object.  Raises when neither is there, so no
+    collective goes unpriced."""
+    for a in reversed(args):
+        if isinstance(a, str):
+            group = torch._C._distributed_c10d._resolve_process_group(a)
+        elif isinstance(a, torch.ScriptObject) and \
+                a._type().qualified_name().endswith(".ProcessGroup"):
+            group = dist.ProcessGroup.unbox(a)
+        else:
+            continue
+        return tuple(dist.get_process_group_ranks(group))
+    raise ValueError(f"no process group among a collective's arguments {args!r}")
+
+
 class OpCensus(TorchDispatchMode):
     """Count a program's aten ops while it runs (``with OpCensus() as c:``).
 
@@ -86,7 +133,8 @@ class OpCensus(TorchDispatchMode):
     step's arguments) before it starts.  Fields after the run: ``ops``
     (a Counter of op names), ``flops``, ``bytes`` (input + output bytes summed over
     ops), ``peak_bytes`` / ``live_bytes`` (live storages), ``collectives``
-    (kind -> [count, output bytes])."""
+    (kind -> [count, output bytes]) and ``collective_groups`` ((kind,
+    group ranks) -> [count, output bytes])."""
 
     def __init__(self):
         super().__init__()
@@ -96,28 +144,36 @@ class OpCensus(TorchDispatchMode):
         self.live_bytes = 0
         self.peak_bytes = 0
         self.collectives: dict = defaultdict(lambda: [0, 0])
-        # storage key -> [bytes, {tensor id: weak reference}]
+        self.collective_groups: dict = defaultdict(lambda: [0, 0])
+        # storage key -> its group: [bytes, {tensor id: (weak reference,
+        # the tensor's own storage key)}].  An alias's storage joins its
+        # source's group; a key leaves the map when its last tensor dies
+        # (its address may then be reused by a new storage), the group's
+        # bytes when the group's last tensor dies.
         self._storages: dict = {}
 
-    def _see(self, t: torch.Tensor) -> None:
-        st = t.untyped_storage()
-        key = st._cdata
-        rec = self._storages.get(key)
-        if rec is None:
-            rec = self._storages[key] = [st.nbytes(), {}]
-            self.live_bytes += rec[0]
+    def _see(self, t: torch.Tensor, alias_of: torch.Tensor | None = None) -> None:
+        own = t.untyped_storage()._cdata
+        if alias_of is not None and own not in self._storages:
+            group = self._storages.get(alias_of.untyped_storage()._cdata)
+            if group is not None:
+                self._storages[own] = group
+        group = self._storages.get(own)
+        if group is None:
+            group = self._storages[own] = [t.untyped_storage().nbytes(), {}]
+            self.live_bytes += group[0]
         tid = id(t)
-        if tid not in rec[1]:
-            rec[1][tid] = weakref.ref(t, lambda _, key=key, tid=tid: self._free(key, tid))
+        if tid not in group[1]:
+            group[1][tid] = (weakref.ref(t, lambda _, g=group, tid=tid: self._free(g, tid)), own)
 
-    def _free(self, key, tid) -> None:
-        rec = self._storages.get(key)
-        if rec is None:
-            return
-        rec[1].pop(tid, None)
-        if not rec[1]:
-            self.live_bytes -= rec[0]
-            del self._storages[key]
+    def _free(self, group, tid) -> None:
+        _, own = group[1].pop(tid, (None, None))
+        if own is not None and not any(o == own for _, o in group[1].values()) \
+                and self._storages.get(own) is group:
+            del self._storages[own]
+        if not group[1] and group[0] is not None:
+            self.live_bytes -= group[0]
+            group[0] = None
 
     def track(self, tree) -> None:
         for t in _tensors(tree, []):
@@ -132,16 +188,25 @@ class OpCensus(TorchDispatchMode):
         self.ops[name] += 1
         count = flop_registry.get(packet)
         if count is not None:
-            self.flops += count(*args, **kwargs, out_val=out)
+            self.flops += count(*_local(args), **_local(kwargs), out_val=_local(out))
         outs = _tensors(out, [])
         if not func.is_view:   # a view moves no bytes
             self.bytes += sum(_nbytes(t) for t in _tensors((args, kwargs), outs[:]))
         if func.namespace in ("c10d", "_c10d_functional"):
-            kind = _COLLECTIVE_KINDS.get(name.rstrip("_"), name)
-            self.collectives[kind][0] += 1
-            self.collectives[kind][1] += sum(_nbytes(t) for t in outs)
+            kind = _COLLECTIVE_KINDS.get(name.rstrip("_"))
+            if kind is not None:
+                nbytes = sum(_nbytes(t) for t in outs)
+                self.collectives[kind][0] += 1
+                self.collectives[kind][1] += nbytes
+                group = self.collective_groups[(kind, _group_ranks(args))]
+                group[0] += 1
+                group[1] += nbytes
+        source = None
+        if name in _ALIASES:
+            ins = _tensors(args, [])
+            source = ins[0] if ins else None
         for t in outs:
-            self._see(t)
+            self._see(t, source)
         self.peak_bytes = max(self.peak_bytes, self.live_bytes)
         return out
 

@@ -1,14 +1,24 @@
-"""Roofline analysis of a step counted on one card (torch port of
-``repro.analysis.roofline``).
+"""Roofline analysis of a step counted on one card, or as one rank of a
+cluster of H100s (torch port of ``repro.analysis.roofline``).
 
-Per (arch x shape) cell, on one H100:
+Per (arch x shape x mesh) cell, per card:
 
   compute term    = FLOPs / peak_FLOP/s
   memory term     = bytes / HBM_bw
-  collective term = 0 (one card runs no collective)
+  collective term = sum over the rank's collectives of bytes / the
+                    slowest link its group spans (0 on one card)
 
-The counts come from the step run once on ``meta`` tensors (the one-card
-dry-run, ``repro_torch.launch.dryrun``) under
+The cluster is H100 SXM nodes of ``NODE_CARDS`` cards: NVLink inside a
+node, InfiniBand NDR between nodes, one 400 Gb/s port per card; rank r
+sits on node r // ``NODE_CARDS``.  A collective whose group stays inside
+one node moves its bytes at ``NVLINK_BW``, one that crosses nodes at
+``IB_BW``.  On the production meshes (16, 16) and (2, 16, 16) rank r's
+"model" group is 16 consecutive ranks, two nodes, so every collective of
+those meshes crosses nodes.
+
+The counts come from the step run once on ``meta`` tensors (the dry-run,
+``repro_torch.launch.dryrun``; on a mesh as rank 0 of a placeholder group)
+under
 :class:`~repro_torch.analysis.hlo.OpCensus`: FLOPs by
 ``torch.utils.flop_counter``'s formulas (``FlopCounterMode``'s), which
 count the matrix products (mm / bmm / addmm / baddbmm, and
@@ -27,10 +37,23 @@ import dataclasses
 
 from repro_torch.analysis.hlo import collective_stats, op_census
 
-# NVIDIA H100 SXM (80 GB HBM3)
+# NVIDIA H100 SXM (80 GB HBM3), the H100 datasheet
 PEAK_FLOPS_BF16 = 989e12        # FLOP/s, dense
 HBM_BW = 3.35e12                # B/s
 HBM_BYTES = 80e9                # the card's memory
+# the cluster: NVLink 4 gives a card 900 GB/s, 450 GB/s each way (the H100
+# datasheet); InfiniBand NDR one 400 Gb/s port per card, 50 GB/s each way
+# (ConnectX-7, DGX H100's layout); 8 cards a node (HGX H100 8-GPU)
+NVLINK_BW = 450e9               # B/s, inside a node
+IB_BW = 50e9                    # B/s, between nodes
+NODE_CARDS = 8
+
+
+def link_bw(ranks) -> float:
+    """The slowest link a group of ``ranks`` spans: NVLink when every rank
+    sits on one node, InfiniBand otherwise."""
+    nodes = {r // NODE_CARDS for r in ranks}
+    return NVLINK_BW if len(nodes) == 1 else IB_BW
 
 
 @dataclasses.dataclass
@@ -41,11 +64,12 @@ class Roofline:
     chips: int
     hlo_flops: float            # the step's matmul FLOPs (FlopCounterMode)
     hlo_bytes: float            # input + output bytes of every aten op
-    collective_bytes: float     # 0 on one card
+    collective_bytes: float     # the rank's collectives' output bytes (0 on one card)
     model_flops: float          # analytic useful FLOPs (6ND etc.)
     peak_memory_per_chip: float
     collectives: dict
     ops: dict
+    collective_s: float = 0.0   # each collective's bytes over its group's link
 
     @property
     def t_compute(self) -> float:
@@ -57,8 +81,7 @@ class Roofline:
 
     @property
     def t_collective(self) -> float:
-        # one card has no link to cross: no collective term
-        return 0.0
+        return self.collective_s
 
     @property
     def bottleneck(self) -> str:
@@ -91,6 +114,7 @@ class Roofline:
             "t_compute_s": self.t_compute,
             "t_memory_s": self.t_memory,
             "t_collective_s": self.t_collective,
+            "collective_bytes": self.collective_bytes,
             "bottleneck": self.bottleneck,
             "model_flops": self.model_flops,
             "hlo_flops": self.hlo_flops,
@@ -107,6 +131,8 @@ def analyze(arch: str, shape: str, mesh_name: str, chips: int,
     :class:`~repro_torch.analysis.hlo.OpCensus` of its ``meta`` run
     (:func:`~repro_torch.analysis.hlo.count_step`)."""
     coll = collective_stats(counts)
+    t_coll = sum(nbytes / link_bw(ranks)
+                 for (_, ranks), (_, nbytes) in counts.collective_groups.items())
     return Roofline(
         arch=arch, shape=shape, mesh=mesh_name, chips=chips,
         hlo_flops=float(counts.flops), hlo_bytes=float(counts.bytes),
@@ -115,6 +141,7 @@ def analyze(arch: str, shape: str, mesh_name: str, chips: int,
         peak_memory_per_chip=float(counts.peak_bytes),
         collectives=coll.summary(),
         ops=op_census(counts),
+        collective_s=t_coll,
     )
 
 

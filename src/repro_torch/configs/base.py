@@ -1,28 +1,31 @@
-"""Architecture bundles: the uniform interface of the one-card dry-run
-(torch port of ``repro.configs.base``).
+"""Architecture bundles: the uniform interface of the dry-run (torch port
+of ``repro.configs.base``).
 
 An ArchBundle binds a model family to one architecture and exposes, for
 each of its input shapes:
 
-  * ``abstract_args(shape)`` — every argument of the step function
-    (parameters, AdamW state, batch / cache) as ``meta`` tensors, the
-    counterpart of JAX's ``ShapeDtypeStruct`` trees: shapes and dtypes,
-    nothing allocated;
+  * ``abstract_args(shape, multi_pod)`` — every argument of the step
+    function (parameters, AdamW state, batch / cache) as ``meta`` tensors,
+    the counterpart of JAX's ``ShapeDtypeStruct`` trees: shapes and
+    dtypes, nothing allocated;
+  * ``shardings(shape, multi_pod)`` — the ``(in_specs, out_specs)`` trees
+    of :class:`~repro_torch.models.parallel.PartitionSpec` of the JAX
+    package's production meshes, keyed as the port's arguments and
+    results;
   * ``real_args(shape, device, seed)`` — the same leaves as real tensors
     on ``device`` (seeded parameters, zero moments, ids inside their
     tables), for a real step beside the ``meta`` one;
-  * ``step_fn(shape)`` — the step (train step / prefill / decode / serve
-    scoring), a plain function of those arguments;
+  * ``step_fn(shape, multi_pod)`` — the step (train step / prefill /
+    decode / serve scoring), a plain function of those arguments; inside
+    :func:`~repro_torch.models.parallel.use_mesh` it runs as this rank of
+    that mesh, on the arguments placed by ``shardings`` (DTensors, see
+    :func:`~repro_torch.models.parallel.place_tree`);
   * ``smoke_batch(rng, device)`` and ``smoke_step()`` — a reduced config
     and a tiny batch that run a real step (shape and finiteness checked in
     tests).
 
-``shardings`` is refused
-(:func:`~repro_torch.engine.sharding.refuse_multi_card`): the JAX package
-gives each cell's shardings on its TPU v5e pod meshes, which have no
-machine here, so its pod mesh constants (``dp_axes``, ``dp_size``,
-``TP_AXIS``, ``TP_SIZE``) are not carried over.  Training on a mesh of
-ranks is ``repro_torch.launch.train`` / ``launch.elastic``.
+Conventions (the JAX package's): dp = the data-parallel mesh axes
+(``("data",)`` single-pod, ``("pod", "data")`` multi-pod), tp = "model".
 """
 from __future__ import annotations
 
@@ -32,7 +35,6 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.engine.sharding import refuse_multi_card
 
 
 def pad_up(n: int, multiple: int) -> int:
@@ -58,6 +60,7 @@ class ArchBundle:
     skip_shapes: dict[str, str]       # shape_id -> reason
     # family implementations (injected by the family module)
     _abstract_args: Callable = None
+    _shardings: Callable = None
     _real_args: Callable = None
     _step_fn: Callable = None
     _smoke_batch: Callable = None
@@ -66,17 +69,17 @@ class ArchBundle:
     def shape_ids(self) -> list[str]:
         return list(self.cells.keys())
 
-    def abstract_args(self, shape_id: str):
-        return self._abstract_args(self, shape_id)
+    def abstract_args(self, shape_id: str, multi_pod: bool = False):
+        return self._abstract_args(self, shape_id, multi_pod)
 
     def real_args(self, shape_id: str, device=None, seed: int = 0):
         return self._real_args(self, shape_id, device, seed)
 
-    def shardings(self, shape_id: str):
-        refuse_multi_card("the bundles' shardings")
+    def shardings(self, shape_id: str, multi_pod: bool = False):
+        return self._shardings(self, shape_id, multi_pod)
 
-    def step_fn(self, shape_id: str):
-        return self._step_fn(self, shape_id)
+    def step_fn(self, shape_id: str, multi_pod: bool = False):
+        return self._step_fn(self, shape_id, multi_pod)
 
     def smoke_batch(self, rng: np.random.Generator, device=None):
         return self._smoke_batch(self, rng, device)
@@ -105,6 +108,18 @@ def get_arch(arch_id: str) -> ArchBundle:
 
 def arch_ids() -> list[str]:
     return sorted(_REGISTRY)
+
+
+def dp_axes(multi_pod: bool) -> tuple[str, ...]:
+    return ("pod", "data") if multi_pod else ("data",)
+
+
+def dp_size(multi_pod: bool) -> int:
+    return 32 if multi_pod else 16
+
+
+TP_AXIS = "model"
+TP_SIZE = 16
 
 
 # ---------------------------------------------------------------------------

@@ -12,9 +12,13 @@ names; padded as the JAX package pads them):
 
 Geometric archs (egnn/schnet) receive synthetic 3-D positions on
 non-molecular graphs, as in the JAX package.  ``ogb_products`` turns
-``remat`` on and sets ``agg_axes`` (the sharded
-aggregation, on the mesh in use; dense on one device:
-``repro_torch.models.gnn.make_agg``).
+``remat`` on.
+
+``shardings`` gives the JAX package's input layouts (node arrays over the
+data axes when they divide them, edges over data x model, graphsage's
+minibatch over every axis, molecules by graph); a step on the mesh in use
+takes its batch placed by them (DTensors) and runs split
+(``gnn.SplitGraph``), each rank's loss its share of the global one.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch
 from repro_torch.configs import base
 from repro_torch.engine.streaming import resolve_device
 from repro_torch.models import gnn as G
+from repro_torch.models.parallel import P
 from repro_torch.optim import AdamW, cosine_schedule
 from repro_torch.optim.adamw import make_train_step as _opt_step
 
@@ -50,20 +55,17 @@ SHAPES = {
 
 def cfg_for_cell(bundle, shape_id: str) -> G.GNNConfig:
     cell = SHAPES[shape_id]
-    kw = dict(d_in=cell.meta["f"], n_classes=cell.meta["classes"],
-              remat=shape_id == "ogb_products")
-    if shape_id == "ogb_products":
-        # the sharded aggregation over the edge axes (GNNConfig.agg_axes)
-        kw.update(agg_axes=("data", "model"))
-    return dataclasses.replace(bundle.config, **kw)
+    return dataclasses.replace(bundle.config, d_in=cell.meta["f"],
+                               n_classes=cell.meta["classes"],
+                               remat=shape_id == "ogb_products")
 
 
 def _needs_pos(arch: str) -> bool:
     return arch in ("egnn", "schnet")
 
 
-def make_train_step(cfg: G.GNNConfig):
-    return _opt_step(lambda p, b: G.loss_fn(p, b, cfg), OPT)
+def make_train_step(cfg: G.GNNConfig, report=None):
+    return _opt_step(lambda p, b: G.loss_fn(p, b, cfg), OPT, report=report)
 
 
 def _graph_leaves(arch: str, N: int, E: int, F: int, lead: tuple = ()) -> dict:
@@ -125,7 +127,7 @@ def _build(leaves, make):
     return make(*leaves)
 
 
-def abstract_args(bundle, shape_id: str):
+def abstract_args(bundle, shape_id: str, multi_pod: bool = False):
     cfg = cfg_for_cell(bundle, shape_id)
     params = G.init_abstract(cfg)
     batch = _build(_batch_leaves(cfg, shape_id), lambda shape, dt, _: base.meta(shape, dt))
@@ -150,8 +152,54 @@ def real_args(bundle, shape_id: str, device=None, seed: int = 0):
     return (params, OPT.init(params), _build(_batch_leaves(cfg, shape_id), make))
 
 
-def step_fn(bundle, shape_id: str):
-    return make_train_step(cfg_for_cell(bundle, shape_id))
+def shardings(bundle, shape_id: str, multi_pod: bool = False):
+    """``(in_specs, out_specs)`` of the cell on the production mesh (the
+    JAX ``shardings``), keyed as the port's arguments and results."""
+    cfg = cfg_for_cell(bundle, shape_id)
+    dp = base.dp_axes(multi_pod)
+    dpn = base.dp_size(multi_pod)
+    full = dp + (base.TP_AXIS,)
+    pspecs = G.param_specs(cfg, dp, base.TP_AXIS, base.TP_SIZE)
+    ospecs = OPT.state_specs(pspecs)
+
+    def node_spec(n):  # node arrays over dp when divisible
+        return dp if n % dpn == 0 else None
+
+    def edge_spec(e):  # edges over dp x tp (independent work)
+        if e % (dpn * base.TP_SIZE) == 0:
+            return full
+        return dp if e % dpn == 0 else None
+
+    def spec(name, shape):
+        lead = len(shape) - 1
+        if shape_id == "molecule":
+            return P(node_spec(shape[0]), *([None] * lead))
+        if name in ("senders", "receivers", "edge_feat"):
+            return P(edge_spec(shape[0]), *([None] * lead))
+        return P(node_spec(shape[0]), *([None] * lead))
+
+    leaves = _batch_leaves(cfg, shape_id)
+    if shape_id == "minibatch_lg" and cfg.arch == "graphsage":
+        # pure data parallelism: the seed batch over every mesh axis
+        B = SHAPES[shape_id].meta["batch"]
+        bs = full if B % (dpn * base.TP_SIZE) == 0 else node_spec(B)
+        bspec = _build(leaves, lambda shape, dt, _: P(bs, *([None] * (len(shape) - 1))))
+    else:
+        bspec = {k: spec(k, v[0]) for k, v in leaves.items()}
+    return (pspecs, ospecs, bspec), (pspecs, ospecs, {"loss": P(), "grad_norm": P()})
+
+
+def step_fn(bundle, shape_id: str, multi_pod: bool = False):
+    cfg = cfg_for_cell(bundle, shape_id)
+    one = make_train_step(cfg)
+
+    def train_step(params, opt_state, batch):
+        sp = G.split_of(batch)
+        if sp is None:
+            return one(params, opt_state, batch)
+        return make_train_step(cfg, report=sp.sum_all)(params, opt_state, batch)
+
+    return train_step
 
 
 def smoke_batch(bundle, rng: np.random.Generator, device=None):
@@ -195,6 +243,6 @@ def make_bundle(arch_id: str, config: G.GNNConfig,
     return base.ArchBundle(
         arch_id=arch_id, family="gnn", config=config,
         smoke_config=smoke_config, cells=dict(SHAPES), skip_shapes={},
-        _abstract_args=abstract_args, _real_args=real_args,
+        _abstract_args=abstract_args, _shardings=shardings, _real_args=real_args,
         _step_fn=step_fn, _smoke_batch=smoke_batch, _smoke_step=smoke_step,
     )

@@ -9,14 +9,21 @@ Shapes:
                 for sub-quadratic (SWA) archs — pure full-attention archs
                 skip it
 
-The JAX step functions take the config with its activation-sharding fields
-set (``_act_cfg``) and the serving cells' FSDP choice
-(``_serve_needs_fsdp``); both are sharding plans, which no op reads on one
-card, so the port's steps use the cell's config as it is.  The parameter
-tree is ``Transformer.named_parameters()`` (``nn.Parameter`` leaves); each
-step binds a model to it (``Transformer(cfg, params=...)``).
+``shardings`` gives the JAX package's layouts: the training cells' FSDP
++ TP parameters (``param_specs(fsdp=True)``), the serving cells' weights
+resident per TP shard where they fit (``_serve_needs_fsdp``), the batch
+over the data axes where they divide it, the cache by ``cache_specs`` and
+the logits over "model".  The parameter tree is
+``Transformer.named_parameters()`` (``nn.Parameter`` leaves); each step
+binds a model to it (``Transformer(cfg, params=...)``), on the mesh in use
+(``parallel.use_mesh``) with the arguments placed by ``shardings``
+(``parallel.place_tree``), else on their device.  The step's config carries
+the cell's activation layout (``_act_cfg``): the train cells split the
+layer carry on the sequence over "model" (``act_seq``).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -24,6 +31,7 @@ import torch
 from repro_torch.configs import base
 from repro_torch.engine.streaming import resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.models.parallel import P, mesh_parallel
 from repro_torch.optim import AdamW, cosine_schedule
 from repro_torch.optim.adamw import make_train_step as _opt_step
 
@@ -53,7 +61,7 @@ def make_train_step(cfg: T.TransformerConfig):
         lambda p, b: T.loss_fn(T.Transformer(cfg, params=p), b["tokens"], b["labels"]), OPT)
 
 
-def abstract_args(bundle, shape_id: str):
+def abstract_args(bundle, shape_id: str, multi_pod: bool = False):
     cfg: T.TransformerConfig = bundle.config
     cell = bundle.cells[shape_id]
     params = T.init_abstract(cfg)
@@ -95,17 +103,69 @@ def real_args(bundle, shape_id: str, device=None, seed: int = 0):
     return (params, cache, {"tokens": ids(B)})
 
 
-def step_fn(bundle, shape_id: str):
-    cfg = bundle.config
+def _serve_needs_fsdp(cfg: T.TransformerConfig) -> bool:
+    """Serving holds bf16 weights only (no optimizer moments): keep them
+    resident per TP shard when they fit (the dense archs), and split them
+    over the data axes too only when they do not (the MoE archs): the JAX
+    rule, > 12 GB of weights per TP shard."""
+    from repro_torch.analysis.roofline import lm_param_count
+
+    resident_gb = lm_param_count(cfg) * 2 / base.TP_SIZE / 2**30
+    return resident_gb > 12.0
+
+
+def shardings(bundle, shape_id: str, multi_pod: bool = False):
+    """``(in_specs, out_specs)`` of the cell on the production mesh (the
+    JAX ``shardings``), keyed as the port's arguments and results."""
+    cfg: T.TransformerConfig = bundle.config
+    cell = bundle.cells[shape_id]
+    dp = base.dp_axes(multi_pod)
+    dpn = base.dp_size(multi_pod)
+    tp = base.TP_AXIS
+    fsdp = True if cell.kind == "train" else _serve_needs_fsdp(cfg)
+    pspecs = T.param_specs(cfg, dp, tp, base.TP_SIZE, dpn, fsdp=fsdp)
+    B = cell.meta["batch"]
+    bspec = dp if B % dpn == 0 else None
+    if cell.kind == "train":
+        ospecs = OPT.state_specs(pspecs)
+        bat = {"tokens": P(bspec, None), "labels": P(bspec, None)}
+        return (pspecs, ospecs, bat), (pspecs, ospecs, {"loss": P(), "grad_norm": P()})
+    cspecs = T.cache_specs(cfg, B, dp, tp, dpn)
+    if cell.kind == "prefill":
+        return (pspecs, {"tokens": P(bspec, None)}), (cspecs, P(bspec, tp))
+    return (pspecs, cspecs, {"tokens": P(bspec)}), (cspecs, P(bspec, tp))
+
+
+def _act_cfg(bundle, shape_id: str) -> T.TransformerConfig:
+    """The config with the cell's activation layout on the production mesh
+    (the JAX ``_act_cfg``): a train cell's layer carry split on the
+    sequence over "model" (``act_seq``) when the model axis divides it."""
+    cell = bundle.cells[shape_id]
+    act_seq = cell.kind == "train" and cell.meta["seq"] % base.TP_SIZE == 0
+    return dataclasses.replace(bundle.config, act_seq=act_seq)
+
+
+def step_fn(bundle, shape_id: str, multi_pod: bool = False):
+    cfg = _act_cfg(bundle, shape_id)
     cell = bundle.cells[shape_id]
     if cell.kind == "train":
-        return make_train_step(cfg)
+        one = make_train_step(cfg)
+
+        def train_step(params, opt_state, batch):
+            par = mesh_parallel(batch["tokens"])
+            if par is None:
+                return one(params, opt_state, batch)
+            return _opt_step(lambda p, b: T.loss_fn(T.Transformer(cfg, params=p, par=par),
+                                                    b["tokens"], b["labels"]),
+                             OPT, report=par.sum_data)(params, opt_state, batch)
+
+        return train_step
     if cell.kind == "prefill":
         S = cell.meta["seq"]
-        return lambda params, batch: T.Transformer(cfg, params=params).prefill(
-            batch["tokens"], S)
-    return lambda params, cache, batch: T.Transformer(cfg, params=params).decode_step(
-        cache, batch["tokens"])
+        return lambda params, batch: T.Transformer(
+            cfg, params=params, par=mesh_parallel(batch["tokens"])).prefill(batch["tokens"], S)
+    return lambda params, cache, batch: T.Transformer(
+        cfg, params=params, par=mesh_parallel(batch["tokens"])).decode_step(cache, batch["tokens"])
 
 
 def smoke_batch(bundle, rng: np.random.Generator, device=None):
@@ -149,6 +209,6 @@ def make_bundle(arch_id: str, config: T.TransformerConfig,
     return base.ArchBundle(
         arch_id=arch_id, family="lm", config=config,
         smoke_config=smoke_config, cells=cells, skip_shapes=skip,
-        _abstract_args=abstract_args, _real_args=real_args,
+        _abstract_args=abstract_args, _shardings=shardings, _real_args=real_args,
         _step_fn=step_fn, _smoke_batch=smoke_batch, _smoke_step=smoke_step,
     )

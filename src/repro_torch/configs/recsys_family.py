@@ -9,7 +9,10 @@ Shapes:
                    batched-dot retrieval scoring
 
 The parameter tree is ``MIND.named_parameters()``; each step binds a model
-to it (``MIND(cfg, params=...)``).
+to it (``MIND(cfg, params=...)``), on the mesh in use
+(``parallel.use_mesh``) with the arguments placed by ``shardings`` (the
+JAX layouts: the tables row-split over "model", the users over the data
+axes, the retrieval corpus over every axis), else on their device.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 from repro_torch.configs import base
 from repro_torch.engine.streaming import resolve_device
 from repro_torch.models import recsys as R
+from repro_torch.models.parallel import P, mesh_parallel
 from repro_torch.optim import AdamW, cosine_schedule
 from repro_torch.optim.adamw import make_train_step as _opt_step
 
@@ -37,8 +41,10 @@ SHAPES = {
 }
 
 
-def make_train_step(cfg: R.MINDConfig):
-    return _opt_step(lambda p, b: R.loss_fn(R.MIND(cfg, params=p), b), OPT)
+def make_train_step(cfg: R.MINDConfig, par=None):
+    """The train step, on one device or (``par``) this rank of a mesh."""
+    return _opt_step(lambda p, b: R.loss_fn(R.MIND(cfg, params=p, par=par), b), OPT,
+                     report=None if par is None else par.sum_data)
 
 
 def _batch_leaves(cfg: R.MINDConfig, cell) -> dict:
@@ -58,7 +64,7 @@ def _batch_leaves(cfg: R.MINDConfig, cell) -> dict:
     return leaves
 
 
-def abstract_args(bundle, shape_id: str):
+def abstract_args(bundle, shape_id: str, multi_pod: bool = False):
     cfg: R.MINDConfig = bundle.config
     cell = bundle.cells[shape_id]
     params = R.init_abstract(cfg)
@@ -86,14 +92,38 @@ def real_args(bundle, shape_id: str, device=None, seed: int = 0):
     return (params, batch)
 
 
-def step_fn(bundle, shape_id: str):
+def shardings(bundle, shape_id: str, multi_pod: bool = False):
+    """``(in_specs, out_specs)`` of the cell on the production mesh (the
+    JAX ``shardings``), keyed as the port's arguments and results."""
+    cfg: R.MINDConfig = bundle.config
+    cell = bundle.cells[shape_id]
+    dp = base.dp_axes(multi_pod)
+    dpn = base.dp_size(multi_pod)
+    pspecs = R.param_specs(cfg, base.TP_AXIS)
+    B = cell.meta["batch"]
+    bs = dp if B % dpn == 0 else None
+    user = {"hist": P(bs, None), "hist_mask": P(bs, None), "user_feats": P(bs, None)}
+    if cell.kind == "train":
+        ospecs = OPT.state_specs(pspecs)
+        return ((pspecs, ospecs, {**user, "target": P(bs)}),
+                (pspecs, ospecs, {"loss": P(), "grad_norm": P()}))
+    if cell.kind == "serve":
+        return (pspecs, {**user, "candidates": P(bs, None)}), P(bs, None)
+    cand = dp + (base.TP_AXIS,)
+    return (pspecs, {**user, "candidate_ids": P(cand)}), P(None, cand)
+
+
+def step_fn(bundle, shape_id: str, multi_pod: bool = False):
     cfg: R.MINDConfig = bundle.config
     cell = bundle.cells[shape_id]
     if cell.kind == "train":
-        return make_train_step(cfg)
+        return lambda params, opt_state, batch: make_train_step(
+            cfg, mesh_parallel(batch["hist"]))(params, opt_state, batch)
     if cell.kind == "serve":
-        return lambda params, batch: R.MIND(cfg, params=params).serve_score(batch)
-    return lambda params, batch: R.MIND(cfg, params=params).retrieval_score(batch)
+        return lambda params, batch: R.MIND(
+            cfg, params=params, par=mesh_parallel(batch["hist"])).serve_score(batch)
+    return lambda params, batch: R.MIND(
+        cfg, params=params, par=mesh_parallel(batch["hist"])).retrieval_score(batch)
 
 
 def smoke_batch(bundle, rng: np.random.Generator, device=None):
@@ -134,6 +164,6 @@ def make_bundle(arch_id: str, config: R.MINDConfig,
     return base.ArchBundle(
         arch_id=arch_id, family="recsys", config=config,
         smoke_config=smoke_config, cells=dict(SHAPES), skip_shapes={},
-        _abstract_args=abstract_args, _real_args=real_args,
+        _abstract_args=abstract_args, _shardings=shardings, _real_args=real_args,
         _step_fn=step_fn, _smoke_batch=smoke_batch, _smoke_step=smoke_step,
     )

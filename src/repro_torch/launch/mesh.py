@@ -3,10 +3,18 @@
 ``make_host_mesh`` builds the ``("data", "model")`` mesh over the ranks of
 the default process group, one rank per device (NCCL on the cards, gloo
 with ``device="cpu"``): the counterpart of the JAX package's small mesh
-over the host's devices.  The JAX package's TPU v5e pod meshes (256 chips
-as (data=16, model=16), or 2 pods as (pod=2, data=16, model=16)) have no
-machine here and stay refused
-(:func:`~repro_torch.engine.sharding.refuse_multi_card`).
+over the host's devices.
+
+``make_production_mesh`` builds the JAX package's production shapes over
+the default group: 256 ranks as (data=16, model=16), or 512 as (pod=2,
+data=16, model=16).  A world of 256 or 512 cards (``torchrun`` over H100
+nodes, NCCL) takes it as it is.  The dry-run stands in for such a world
+with :func:`init_placeholder_ranks`: one host process as rank 0 of a
+placeholder group of n ranks (torch's ``fake`` backend, whose collectives
+return at once and move nothing), over which a step runs on ``meta``
+tensors as rank 0 would run it.  Nothing brings that group up but an
+explicit call (the dry-run and the tests make it, in a process of their
+own).
 """
 from __future__ import annotations
 
@@ -16,12 +24,43 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from repro_torch.engine.sharding import refuse_multi_card
 from repro_torch.engine.streaming import resolve_device
 
+POD_SHAPES = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
 
-def make_production_mesh(*, multi_pod: bool = False):
-    refuse_multi_card("make_production_mesh (TPU v5e pods)")
+
+def init_placeholder_ranks(n: int) -> None:
+    """Bring up the default process group as rank 0 of ``n`` placeholder
+    ranks (torch's ``fake`` backend: every collective returns at once and
+    leaves its tensors as they are).  Raises when a group is up already;
+    ``dist.destroy_process_group()`` takes it down."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already up")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=int(n))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> DeviceMesh:
+    """The production mesh over every rank of the default process group:
+    (16, 16) ``("data", "model")``, or with ``multi_pod`` (2, 16, 16)
+    ``("pod", "data", "model")``, ranks in row-major order (rank r on
+    coordinate ``divmod`` of r, as ``jax.make_mesh`` lays out devices).
+    ``device`` (default CUDA; raises without a card unless "cpu") is the
+    mesh's device type; the placeholder group of the dry-run takes
+    "cpu".  Raises ``ValueError`` when no group is up or its world size is
+    not 256 (512 with ``multi_pod``)."""
+    dev = resolve_device(device)
+    shape, axes = POD_SHAPES[bool(multi_pod)]
+    n = 1
+    for s in shape:
+        n *= s
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    if world != n:
+        raise ValueError(f"the {'multi-pod' if multi_pod else 'single-pod'} mesh {shape} "
+                         f"needs a world of {n} ranks, the default group has {world}")
+    return DeviceMesh(dev.type, torch.arange(n).reshape(shape), mesh_dim_names=axes)
 
 
 def init_ranks(device=None) -> torch.device:

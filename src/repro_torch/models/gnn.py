@@ -20,17 +20,24 @@ Batch formats (numpy from the JAX package's generators, or tensors):
   * minibatch    — {seed_x:[B,F], layer_x: per-hop [B, W_h, F]} blocks from
                    the fan-out sampler; aggregation is a reshape-mean
 
-The aggregation comes from :func:`make_agg`: ``index_add_`` on one device,
-and with ``cfg.agg_axes`` set, on the mesh in use
-(:func:`~repro_torch.models.parallel.use_mesh`), the JAX package's
-``shard_map`` aggregation: each rank sums its shard of the edges into a
-whole ``[N, d]`` buffer, and the buffers are summed over the aggregation
-axes (a DTensor ``Partial`` redistributed to ``Replicate``).  Everything
-around it runs whole on every rank (the node arrays stay whole), so the
-backward is an all-gather of the edges' gradients.  On a mesh the
+The aggregation is ``index_add_`` (:func:`_agg_dense`).  On a mesh the
 parameters are DTensors placed by :func:`param_specs`
 (:func:`place_params`), gathered whole for the forward.  ``remat``
 checkpoints each layer (``torch.utils.checkpoint``).
+
+The sharded path is the one of a batch placed on the mesh in use: its
+leaves DTensors, placed by the JAX package's specs (``configs.gnn_family``:
+node arrays over the data axes when they divide them, edges over data x
+model, graphsage's minibatch over every axis, molecules by graph) or whole
+on every rank.  Such a batch runs split (:class:`SplitGraph`): each
+rank takes its chunk over every axis of the nodes, edges, seeds or graphs
+(slicing what its placement left whole), so each piece of work is done on
+one rank.  A layer gathers the node rows whole over the mesh before its
+gathers by edge (the backward reduce-scatters their gradients), and the
+messages of a rank's edges are summed into the node rows by a
+reduce-scatter (the backward gathers their gradients).  Each rank's loss
+is its share of the global mean, the parameters' gradients partial sums
+over every axis.
 """
 from __future__ import annotations
 
@@ -44,7 +51,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.engine.streaming import resolve_device
-from repro_torch.models.parallel import P, current_mesh, local_slice, shard_tensor
+from repro_torch.models.parallel import P, chunk_range, current_mesh, shard_tensor
 from repro_torch.models.transformer import remat
 
 
@@ -64,9 +71,6 @@ class GNNConfig:
     d_edge: int = 4                  # raw edge-feature dim (displacement+len)
     dtype: Any = torch.float32
     remat: bool = False              # rematerialize layer bodies (big graphs)
-    # the sharded aggregation (make_agg): each rank sums its shard of the
-    # edges, the node rows are summed over these axes
-    agg_axes: tuple = ()             # mesh axes the edge arrays split over
     min_tp_dim: int = 512            # only tp-split hidden dims >= this
 
     def validate(self) -> None:
@@ -187,17 +191,20 @@ def place_params(params: dict, cfg: GNNConfig, mesh) -> dict:
     return rec(params, specs)
 
 
-def _whole(params: dict) -> dict:
-    """The tree with each DTensor leaf gathered whole over its mesh.  Every
-    rank computes the whole model, so a leaf's gradient is the same on
-    each and goes back to the leaf's placement as a slice."""
+def _whole(params: dict, partial: bool = False) -> dict:
+    """The tree with each DTensor leaf gathered whole over its mesh.  When
+    every rank computes the whole model, a leaf's gradient is the same on
+    each and goes back to the leaf's placement as a slice; with
+    ``partial`` (each rank computes its share of the loss, :class:`SplitGraph`)
+    the gradients are partial sums, reduced back to the placement."""
     def rec(p):
         if isinstance(p, dict):
             return {k: rec(v) for k, v in p.items()}
         if not isinstance(p, DTensor):
             return p
         whole = [Replicate()] * p.device_mesh.ndim
-        return p.redistribute(p.device_mesh, whole).to_local(grad_placements=whole)
+        grad = [Partial()] * p.device_mesh.ndim if partial else whole
+        return p.redistribute(p.device_mesh, whole).to_local(grad_placements=grad)
 
     return rec(params)
 
@@ -283,44 +290,82 @@ def _agg_dense(messages, receivers, n_nodes, kind="sum"):
     return s
 
 
-def make_agg(cfg: GNNConfig):
-    """The aggregation op: ``_agg_dense`` without ``cfg.agg_axes``; with
-    them, on the mesh in use, each rank's partial segment-sum of its edge
-    shard (``messages`` [E, d] and ``receivers`` [E], whole on every rank,
-    split over ``agg_axes`` as ``P(agg_axes)``) into a whole ``[N, d]``
-    buffer (a count column beside it for ``mean``), summed over the axes.
-    Dense when no mesh is in use (one device) or when the ranks do not
-    divide ``n_nodes``, as in the JAX package."""
-    if not cfg.agg_axes:
-        return _agg_dense
-    axes = tuple(cfg.agg_axes)
+class SplitGraph:
+    """One rank's share of a batch placed on ``mesh`` (see the module
+    docstring): :meth:`rows` takes this rank's chunk over every mesh axis
+    (the first outermost), :meth:`full` gathers node rows whole, :meth:`agg`
+    sums a rank's messages into its node rows, :meth:`sum_all` sums a
+    value over every rank."""
 
-    def agg(messages, receivers, n_nodes, kind="sum"):
-        m = current_mesh()
-        if m is None:
-            return _agg_dense(messages, receivers, n_nodes, kind)
-        sub = m[axes] if len(axes) > 1 else m[axes[0]]
-        k = len(axes)
-        if n_nodes % sub.size() != 0:
-            return _agg_dense(messages, receivers, n_nodes, kind)
-        # this rank's edge rows (split over each axis in turn, the first
-        # outermost); the backward gathers their gradients whole
-        m_local = DTensor.from_local(messages, sub, [Replicate()] * k, run_check=False
-                                     ).redistribute(sub, [Shard(0)] * k).to_local()
-        r_local = local_slice(receivers, P(axes), sub)
-        part = messages.new_zeros((n_nodes, messages.shape[1])).index_add(0, r_local, m_local)
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.names = list(mesh.mesh_dim_names)
+        self.coord = mesh.get_coordinate()
+
+    def rows(self, t) -> torch.Tensor:
+        """This rank's chunk of dim 0 of ``t`` over every axis: the local
+        shard of a DTensor split over a prefix of the axes, cut further
+        over the axes its placement leaves whole."""
+        if isinstance(t, DTensor):
+            done = {i for i, pl in enumerate(t.placements) if pl.is_shard(0)}
+            t = t.to_local()
+        else:
+            done = set()
+        lo, hi = 0, t.shape[0]
+        for i in range(self.mesh.ndim):
+            if i not in done:
+                a, b = chunk_range(hi - lo, self.mesh.size(i), self.coord[i])
+                lo, hi = lo + a, lo + b
+        return t[lo:hi]
+
+    def full(self, h: torch.Tensor, n: int) -> torch.Tensor:
+        """Every rank's node rows ``h`` gathered whole [n, ...]; the
+        backward sums the gradient over the ranks and keeps this rank's
+        rows."""
+        k = self.mesh.ndim
+        shape = (n, *h.shape[1:])
+        d = DTensor.from_local(h, self.mesh, [Shard(0)] * k, run_check=False,
+                               shape=torch.Size(shape),
+                               stride=tuple(math.prod(shape[i + 1:]) for i in range(len(shape))))
+        return d.redistribute(self.mesh, [Replicate()] * k).to_local(
+            grad_placements=[Partial()] * k)
+
+    def agg(self, messages, receivers, n_nodes, kind="sum"):
+        """The sum (or mean) of this rank's messages [E_local, d] into their
+        receivers, summed over every rank and split into node rows: this
+        rank's rows [N_local, d]."""
+        part = messages.new_zeros((n_nodes, messages.shape[1])).index_add(0, receivers, messages)
         if kind == "mean":
             cnt = messages.new_zeros(n_nodes).index_add(
-                0, r_local, messages.new_ones(r_local.shape[0]))
+                0, receivers, messages.new_ones(receivers.shape[0]))
             part = torch.cat([part, cnt[:, None]], dim=1)
-        out = DTensor.from_local(part, sub, [Partial()] * k, run_check=False
-                                 ).redistribute(sub, [Replicate()] * k).to_local()
+        k = self.mesh.ndim
+        out = DTensor.from_local(part, self.mesh, [Partial()] * k, run_check=False
+                                 ).redistribute(self.mesh, [Shard(0)] * k).to_local()
         if kind == "mean":
             out, cnt = out[:, :-1], out[:, -1]
             out = out / cnt.clamp_min(1.0)[:, None]
         return out
 
-    return agg
+    def sum_all(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over every rank (no gradient)."""
+        import torch.distributed as dist
+
+        t = t.detach().clone()
+        for i in range(self.mesh.ndim):
+            dist.all_reduce(t, group=self.mesh.get_group(i))
+        return t
+
+
+def split_of(batch: dict) -> SplitGraph | None:
+    """The :class:`SplitGraph` of the mesh in use when ``batch``'s leaves
+    are DTensors (placed by the bundle's specs), else None."""
+    mesh = current_mesh()
+    first = next(iter(batch.values()))
+    first = first[0] if isinstance(first, (list, tuple)) else first
+    if mesh is None or not isinstance(first, DTensor):
+        return None
+    return SplitGraph(mesh)
 
 
 def rbf_expand(dist, n_rbf, cutoff):
@@ -332,11 +377,18 @@ def rbf_expand(dist, n_rbf, cutoff):
 # ---------------------------------------------------------------------------
 # Per-arch layer bodies (x/h: [N, d]; senders/receivers: [E] int64)
 # ---------------------------------------------------------------------------
-def egnn_layer(lp, h, pos, senders, receivers, agg=_agg_dense):
-    n = h.shape[0]
-    diff = pos[senders] - pos[receivers]
+# ``full(h)`` gives the node rows whole for the gathers by edge (the
+# identity on one device, where h is whole); ``n`` the whole node count.
+def _same(h):
+    return h
+
+
+def egnn_layer(lp, h, pos, senders, receivers, agg=_agg_dense, full=_same, n=None):
+    n = h.shape[0] if n is None else n
+    hf, pf = full(h), full(pos)
+    diff = pf[senders] - pf[receivers]
     d2 = torch.sum(diff * diff, dim=-1, keepdim=True)
-    m = _mlp(lp["phi_e"], torch.cat([h[senders], h[receivers], d2], -1))
+    m = _mlp(lp["phi_e"], torch.cat([hf[senders], hf[receivers], d2], -1))
     coef = _mlp(lp["phi_x"], m)
     # normalized coordinate update keeps equivariance + numerics
     upd = agg(diff * coef / torch.sqrt(d2 + 1.0), receivers, n, "mean")
@@ -346,25 +398,29 @@ def egnn_layer(lp, h, pos, senders, receivers, agg=_agg_dense):
     return h, pos
 
 
-def schnet_layer(lp, h, pos, senders, receivers, n_rbf, cutoff, agg=_agg_dense):
-    n = h.shape[0]
-    dist = torch.sqrt(torch.sum((pos[senders] - pos[receivers]) ** 2, -1) + 1e-9)
+def schnet_layer(lp, h, pos, senders, receivers, n_rbf, cutoff, agg=_agg_dense, full=_same,
+                 n=None):
+    n = h.shape[0] if n is None else n
+    pf = full(pos)
+    dist = torch.sqrt(torch.sum((pf[senders] - pf[receivers]) ** 2, -1) + 1e-9)
     w = _mlp(lp["filter"], rbf_expand(dist, n_rbf, cutoff))
-    x = _mlp(lp["in_dense"], h)
+    x = full(_mlp(lp["in_dense"], h))
     m = x[senders] * w
     out = agg(m, receivers, n, "sum")
     return h + _mlp(lp["out_dense"], out), pos
 
 
-def graphsage_layer(lp, h, senders, receivers, kind="mean", agg=_agg_dense):
-    n = h.shape[0]
-    nbr = agg(h[senders], receivers, n, kind)
+def graphsage_layer(lp, h, senders, receivers, kind="mean", agg=_agg_dense, full=_same,
+                    n=None):
+    n = h.shape[0] if n is None else n
+    nbr = agg(full(h)[senders], receivers, n, kind)
     return torch.relu(h @ lp["w_self"] + nbr @ lp["w_nbr"] + lp["b"])
 
 
-def graphcast_layer(lp, h, e, senders, receivers, agg=_agg_dense):
-    n = h.shape[0]
-    e = e + _mlp(lp["edge_mlp"], torch.cat([e, h[senders], h[receivers]], -1))
+def graphcast_layer(lp, h, e, senders, receivers, agg=_agg_dense, full=_same, n=None):
+    n = h.shape[0] if n is None else n
+    hf = full(h)
+    e = e + _mlp(lp["edge_mlp"], torch.cat([e, hf[senders], hf[receivers]], -1))
     out = agg(e, receivers, n, "sum")
     h = h + _mlp(lp["node_mlp"], torch.cat([h, out], -1))
     return h, e
@@ -379,14 +435,22 @@ def _tensor(x, device) -> torch.Tensor:
 
 
 def forward(params: dict, batch: dict, cfg: GNNConfig) -> torch.Tensor:
-    """Node logits [N, n_classes] for a (full or sampled-flat) graph."""
-    params = _whole(params)
+    """Node logits [N, n_classes] for a (full or sampled-flat) graph; on a
+    batch placed on the mesh in use (:func:`split_of`), this rank's node
+    rows."""
+    sp = split_of(batch)
+    params = _whole(params, partial=sp is not None)
     dev = params["encoder"]["w0"].device
-    x = _tensor(batch["x"], dev).to(cfg.dtype)
-    senders = _tensor(batch["senders"], dev).long()
-    receivers = _tensor(batch["receivers"], dev).long()
+    pick = (lambda k: sp.rows(batch[k])) if sp is not None else (lambda k: batch[k])
+    x = _tensor(pick("x"), dev).to(cfg.dtype)
+    senders = _tensor(pick("senders"), dev).long()
+    receivers = _tensor(pick("receivers"), dev).long()
     h = _mlp(params["encoder"], x)
-    agg = make_agg(cfg)
+    if sp is None:
+        agg, kw = _agg_dense, {}
+    else:
+        N = batch["x"].shape[0]
+        agg, kw = sp.agg, {"full": lambda t: sp.full(t, N), "n": N}
     L = cfg.n_layers
     # one unbind per stacked leaf: its backward stacks the L gradients into
     # one [L, ...] tensor, where L selects would each write a zero-filled one
@@ -399,22 +463,24 @@ def forward(params: dict, batch: dict, cfg: GNNConfig) -> torch.Tensor:
         return carry
 
     if cfg.arch == "egnn":
-        pos = _tensor(batch["pos"], dev).to(cfg.dtype)
-        h, _ = run(lambda lp, h, pos: egnn_layer(lp, h, pos, senders, receivers, agg), (h, pos))
+        pos = _tensor(pick("pos"), dev).to(cfg.dtype)
+        h, _ = run(lambda lp, h, pos: egnn_layer(lp, h, pos, senders, receivers, agg, **kw),
+                   (h, pos))
     elif cfg.arch == "schnet":
-        pos = _tensor(batch["pos"], dev).to(cfg.dtype)
+        pos = _tensor(pick("pos"), dev).to(cfg.dtype)
         h, _ = run(lambda lp, h, pos: schnet_layer(lp, h, pos, senders, receivers,
-                                                   cfg.n_rbf, cfg.cutoff, agg), (h, pos))
+                                                   cfg.n_rbf, cfg.cutoff, agg, **kw), (h, pos))
     elif cfg.arch == "graphsage":
         (h,) = run(lambda lp, h: (graphsage_layer(lp, h, senders, receivers,
-                                                  cfg.aggregator, agg),), (h,))
+                                                  cfg.aggregator, agg, **kw),), (h,))
     else:  # graphcast
         if "edge_feat" in batch:
-            ef = _tensor(batch["edge_feat"], dev).to(cfg.dtype)
+            ef = _tensor(pick("edge_feat"), dev).to(cfg.dtype)
         else:
             ef = torch.zeros((senders.shape[0], cfg.d_edge), dtype=cfg.dtype, device=dev)
         e = _mlp(params["edge_encoder"], ef)
-        h, _ = run(lambda lp, h, e: graphcast_layer(lp, h, e, senders, receivers, agg), (h, e))
+        h, _ = run(lambda lp, h, e: graphcast_layer(lp, h, e, senders, receivers, agg, **kw),
+                   (h, e))
     return _mlp(params["decoder"], h)
 
 
@@ -469,23 +535,42 @@ def _molecule_forward(params: dict, batch: dict, cfg: GNNConfig) -> torch.Tensor
     return forward(params, flat, cfg).reshape(B, n, -1)
 
 
+def _local_batch(batch: dict, sp: SplitGraph) -> dict:
+    """This rank's seeds (or graphs) of a minibatch or molecule batch:
+    every leaf's chunk over every axis, as plain tensors."""
+    return {k: [sp.rows(t) for t in v] if isinstance(v, (list, tuple)) else sp.rows(v)
+            for k, v in batch.items()}
+
+
 def loss_fn(params, batch, cfg: GNNConfig) -> torch.Tensor:
     """The JAX ``loss_fn``: node classification (cross entropy over labels
     >= 0) on a full or sampled graph, or, for a molecule batch, the
-    node-mean readout against float targets (squared error)."""
-    params = _whole(params)
+    node-mean readout against float targets (squared error).  On a batch
+    placed on the mesh in use (:func:`split_of`) this rank's share of the
+    global loss, whose sum over every rank is the loss."""
+    sp = split_of(batch)
+    params = _whole(params, partial=sp is not None)
     dev = params["encoder"]["w0"].device
+    x = batch["seed_x"] if "seed_x" in batch else batch["x"]
+    graphs = "seed_x" in batch or (x.dim() if isinstance(x, torch.Tensor) else np.ndim(x)) == 3
+    if sp is not None and graphs:
+        # seeds or graphs are independent: this rank's run alone
+        batch = _local_batch(batch, sp)
     if "seed_x" in batch:
         logits = forward_minibatch(params, batch, cfg)
-    elif np.ndim(batch["x"]) == 3:  # batched small graphs (molecule)
+    elif graphs:  # batched small graphs (molecule)
         logits = _molecule_forward(params, batch, cfg).mean(dim=1)  # graph-level readout
     else:
         logits = forward(params, batch, cfg)
-    labels = _tensor(batch["labels"], dev)
+    labels = _tensor(batch["labels"] if sp is None or graphs else sp.rows(batch["labels"]), dev)
     if labels.is_floating_point():
         # regression (molecule targets)
-        return torch.mean((logits[..., 0] - labels) ** 2)
+        sq = (logits[..., 0] - labels) ** 2
+        if sp is None:
+            return torch.mean(sq)
+        return torch.sum(sq) / sp.sum_all(torch.tensor(float(sq.shape[0]), device=dev))
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.clamp_min(0).long()[..., None])[..., 0]
     mask = labels >= 0
-    return torch.sum((logz - gold) * mask) / mask.sum().clamp_min(1)
+    count = mask.sum() if sp is None else sp.sum_all(mask.sum())
+    return torch.sum((logz - gold) * mask) / count.clamp_min(1)

@@ -1,6 +1,7 @@
-"""Data and tensor parallelism on a ``("data", "model")`` device mesh: the
-port's counterpart of the JAX package's ``Mesh`` + ``NamedSharding`` +
-GSPMD, on ``torch.distributed.tensor`` (DTensor).
+"""Data and tensor parallelism on a ``("data", "model")`` device mesh, or
+the multi-pod ``("pod", "data", "model")`` one: the port's counterpart of
+the JAX package's ``Mesh`` + ``NamedSharding`` + GSPMD, on
+``torch.distributed.tensor`` (DTensor).
 
 One process per device (gloo on the CPU, NCCL on a card).  The pieces:
 
@@ -15,10 +16,14 @@ One process per device (gloo on the CPU, NCCL on a card).  The pieces:
   * :class:`MeshParallel`: how one rank computes on the mesh.  Parameters
     are stored by their spec (the FSDP dim over ``"data"``, the tensor
     parallel dim over ``"model"``).  :meth:`MeshParallel.weight` gathers a
-    stored parameter over ``"data"`` and keeps (or gathers) its
+    stored parameter over the data axes and keeps (or gathers) its
     ``"model"`` shard: the FSDP all-gather, whose backward is the
-    reduce-scatter of the gradient over ``"data"``.  Activations are local
-    tensors with a known layout: the batch rows over ``"data"``, and over
+    reduce-scatter of the gradient over the data axes.  The data axes are
+    ``("data",)``, or ``("pod", "data")`` on the multi-pod mesh, where a
+    gather or a sum over them runs over each of the two dims in turn (pod
+    outermost, as a JAX spec entry ``("pod", "data")`` splits).
+    Activations are local tensors with a known layout: the batch rows over
+    the data axes, and over
     ``"model"`` either whole on every rank or split by heads, hidden units
     or experts.  :meth:`enter` and :meth:`exit` are Megatron's two
     operators at the edges of a split region: ``enter`` is the identity
@@ -28,7 +33,10 @@ One process per device (gloo on the CPU, NCCL on a card).  The pieces:
     op falls back to replicating a tensor behind the caller's back.
   * :func:`use_mesh` / :func:`current_mesh`: the mesh in use (the
     counterpart of ``jax.set_mesh``), read by the GNN's sharded
-    aggregation.
+    aggregation and by the bundles' steps on a mesh.
+  * :func:`place_tree`: a tree of whole (or ``meta``) tensors placed by a
+    tree of specs, each leaf a DTensor holding this rank's slice (a 0-dim
+    leaf, replicated by its spec ``P()``, stays a plain tensor).
 
 On a model axis of one rank nothing is split: the layers run the
 one-device code on the gathered weights, with no ``enter`` / ``exit``.  A
@@ -46,7 +54,8 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-DATA, MODEL = "data", "model"
+POD, DATA, MODEL = "pod", "data", "model"
+MESH_AXES = ((DATA, MODEL), (POD, DATA, MODEL))
 
 
 class PartitionSpec(tuple):
@@ -144,6 +153,19 @@ def current_mesh() -> DeviceMesh | None:
     return _MESHES[-1] if _MESHES else None
 
 
+def mesh_parallel(rows=None) -> "MeshParallel | None":
+    """The mesh in use (:func:`use_mesh`) as a :class:`MeshParallel`, None
+    on one device; the batch rows split over the data axes where ``rows``
+    (a batch leaf) is a DTensor sharded on dim 0 over one of them."""
+    mesh = current_mesh()
+    if mesh is None:
+        return None
+    split = isinstance(rows, DTensor) and any(
+        pl.is_shard(0) for pl, name in zip(rows.placements, mesh.mesh_dim_names)
+        if name != MODEL)
+    return MeshParallel(mesh, batch_split=split)
+
+
 def mesh_device(mesh: DeviceMesh) -> torch.device:
     """This rank's device on ``mesh`` (its current card on a CUDA mesh)."""
     if mesh.device_type == "cuda":
@@ -156,18 +178,32 @@ def _mesh_dim(mesh: DeviceMesh, name: str) -> int:
 
 
 class MeshParallel:
-    """One rank's view of a ``("data", "model")`` mesh for training (see
-    the module docstring).  ``dp`` / ``tp`` are the axis sizes,
-    ``dp_rank`` / ``tp_rank`` this rank's coordinates."""
+    """One rank's view of a ``("data", "model")`` or ``("pod", "data",
+    "model")`` mesh (see the module docstring).  ``data_axes`` are the
+    mesh's axes but ``"model"``; ``dp`` / ``tp`` the sizes of the data axes
+    (their product) and of ``"model"``, ``dp_rank`` / ``tp_rank`` this
+    rank's coordinates (``dp_rank`` flattened over the data axes, the
+    first outermost).  ``batch_split``: whether the batch rows are split
+    over the data axes (False when a cell's batch is whole on every rank,
+    as a JAX spec entry ``None`` leaves it)."""
 
-    def __init__(self, mesh: DeviceMesh):
-        if tuple(mesh.mesh_dim_names) != (DATA, MODEL):
-            raise ValueError(f"a training mesh has axes ('data', 'model'), not "
-                             f"{mesh.mesh_dim_names}")
+    def __init__(self, mesh: DeviceMesh, batch_split: bool = True):
+        names = tuple(mesh.mesh_dim_names)
+        if names not in MESH_AXES:
+            raise ValueError(f"a mesh has axes ('data', 'model') or ('pod', 'data', 'model'), "
+                             f"not {names}")
         self.mesh = mesh
-        self.data, self.model = mesh[DATA], mesh[MODEL]
+        self.data_axes = names[:-1]
+        self.data = mesh[self.data_axes] if len(self.data_axes) > 1 else mesh[DATA]
+        self.model = mesh[MODEL]
         self.dp, self.tp = self.data.size(), self.model.size()
-        self.dp_rank, self.tp_rank = self.data.get_local_rank(), self.model.get_local_rank()
+        coord = mesh.get_coordinate()
+        self.dp_rank = 0
+        for axis in self.data_axes:
+            i = names.index(axis)
+            self.dp_rank = self.dp_rank * mesh.size(i) + coord[i]
+        self.tp_rank = coord[-1]
+        self.batch_split = batch_split
 
     # -- parameters -------------------------------------------------------
     def split(self, p: DTensor) -> bool:
@@ -176,18 +212,19 @@ class MeshParallel:
         return self.tp > 1 and p.placements[_mesh_dim(self.mesh, MODEL)].is_shard()
 
     def weight(self, p: DTensor, keep_tp: bool = True) -> torch.Tensor:
-        """The local tensor this rank computes with: ``p`` whole over
-        ``"data"`` and, with ``keep_tp``, still split over ``"model"`` as
-        stored (else whole).  Its gradient is a partial sum over
-        ``"data"`` (each rank's rows), reduced back to ``p``'s placement
-        by the backward (a reduce-scatter, or an all-reduce for a dim
-        ``"data"`` does not split).  A mesh dim of one rank keeps the
-        stored placement both ways (its one rank holds the whole dim), so
-        nothing is redistributed over it.  Take a weight once per use in
-        the graph: each take's gradient is a DTensor, and two are added
-        out of place."""
+        """The local tensor this rank computes with: ``p`` whole over the
+        data axes and, with ``keep_tp``, still split over ``"model"`` as
+        stored (else whole).  Its gradient is a partial sum over the data
+        axes (each rank's rows), reduced back to ``p``'s placement by the
+        backward (a reduce-scatter, or an all-reduce for a dim the data
+        axes do not split).  A mesh dim of one rank keeps the stored
+        placement both ways (its one rank holds the whole dim), so nothing
+        is redistributed over it.  Take a weight once per use in the
+        graph: each take's gradient is a DTensor, and two are added out of
+        place."""
         m = _mesh_dim(self.mesh, MODEL)
-        compute, grad = [Replicate(), Replicate()], [Partial(), Partial()]
+        n = self.mesh.ndim
+        compute, grad = [Replicate()] * n, [Partial()] * n
         compute[m] = grad[m] = p.placements[m] if keep_tp else Replicate()
         for i, size in enumerate(self.mesh.shape):
             if size == 1:
@@ -219,10 +256,20 @@ class MeshParallel:
         return self._gather(self.model, y, dim, n, Replicate())
 
     def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """All ranks' rows of ``x`` (dim 0) over ``"data"``, in rank order:
-        the global batch.  The backward sums the gradient over ``"data"``
-        and keeps this rank's rows."""
+        """All ranks' rows of ``x`` (dim 0) over the data axes, in rank
+        order: the global batch.  The backward sums the gradient over the
+        data axes and keeps this rank's rows."""
         return self._gather(self.data, x, 0, x.shape[0] * self.dp, Partial())
+
+    def seq_split(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's ``"model"`` chunk of dim ``dim`` of ``x`` (whole and
+        the same on every rank of ``"model"``): a slice, no communication;
+        the backward gathers the gradient's chunks whole (Megatron's
+        sequence-parallel split of the layer carry)."""
+        if self.tp == 1:
+            return x
+        d = DTensor.from_local(x, self.model, [Replicate()], run_check=False)
+        return d.redistribute(self.model, [Shard(dim)]).to_local(grad_placements=[Shard(dim)])
 
     def _gather(self, sub: DeviceMesh, y, dim: int, n: int, grad_pl) -> torch.Tensor:
         if sub.size() == 1:  # the whole already; no copy either way
@@ -230,14 +277,22 @@ class MeshParallel:
         dim = dim % y.dim()
         shape = list(y.shape)
         shape[dim] = n
-        d = DTensor.from_local(y, sub, [Shard(dim)], run_check=False,
+        k = sub.ndim
+        d = DTensor.from_local(y, sub, [Shard(dim)] * k, run_check=False,
                                shape=torch.Size(shape), stride=_contiguous(shape))
-        return d.redistribute(sub, [Replicate()]).to_local(grad_placements=[grad_pl])
+        return d.redistribute(sub, [Replicate()] * k).to_local(grad_placements=[grad_pl] * k)
 
     def sum_data(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of ``t`` over ``"data"`` (no gradient)."""
+        """The sum of ``t`` over the data axes (no gradient)."""
         t = t.detach().clone()
-        dist.all_reduce(t, group=self.data.get_group())
+        for i in range(self.data.ndim):
+            dist.all_reduce(t, group=self.data.get_group(i))
+        return t
+
+    def model_reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """``t`` reduced by ``op`` over ``"model"`` in place (no gradient;
+        the flash-decode combine across the ranks of a split cache)."""
+        dist.all_reduce(t, op=op, group=self.model.get_group())
         return t
 
 
@@ -248,3 +303,28 @@ def _contiguous(shape) -> tuple[int, ...]:
 def local(t: torch.Tensor) -> torch.Tensor:
     """A DTensor's local shard, or ``t`` itself."""
     return t.to_local() if isinstance(t, DTensor) else t
+
+
+def place_tree(tree, specs, mesh: DeviceMesh):
+    """``tree`` (dicts, lists, tuples and named tuples of whole tensors,
+    ``meta`` ones too) placed by ``specs`` (the same structure, a
+    :class:`PartitionSpec` per leaf) on ``mesh``: each leaf a DTensor of
+    this rank's slice (:func:`local_slice`, a copy of its own unless the
+    spec leaves the leaf whole), an
+    ``nn.Parameter`` where the leaf was one and requiring grad where it
+    did; a 0-dim leaf stays as it is (``P()``: whole on every rank)."""
+    if isinstance(tree, dict):
+        return {k: place_tree(tree[k], specs[k], mesh) for k in tree}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, PartitionSpec):
+        items = [place_tree(t, s, mesh) for t, s in zip(tree, specs)]
+        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
+    if tree.dim() == 0:
+        return tree
+    mine = local_slice(tree.detach(), specs, mesh)
+    if mine.numel() != tree.numel():
+        mine = mine.clone(memory_format=torch.contiguous_format)
+    d = DTensor.from_local(mine, mesh, placements(specs, mesh), run_check=False,
+                           shape=tree.shape, stride=tree.stride())
+    if isinstance(tree, torch.nn.Parameter):
+        return torch.nn.Parameter(d)
+    return d.requires_grad_(tree.requires_grad)

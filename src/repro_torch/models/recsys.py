@@ -21,6 +21,15 @@ The port of ``repro.models.recsys``:
 Parameters are the JAX package's names and layout; :func:`load_jax_params`
 carries a JAX parameter tree across.  They are trainable; the two scoring
 entry points run under ``torch.no_grad()`` (JAX never differentiates them).
+
+On a mesh (``par``, a :class:`~repro_torch.models.parallel.MeshParallel`,
+the parameters DTensors placed by :func:`param_specs`) the embedding
+tables are row-split over "model" and looked up as the LM embedding is:
+each rank gathers the ids in its row range, the rows summed over "model";
+the users are this rank's rows (split over the data axes), the dense
+layers whole; the retrieval corpus is split over every axis, each rank
+scoring its chunk of candidates; the training loss's in-batch negatives
+are the global batch's targets (gathered over the data axes).
 """
 from __future__ import annotations
 
@@ -33,7 +42,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.transformer import bind_param, model_device
+from torch.distributed.tensor import DTensor, Partial, Shard
+
+from repro_torch.models.parallel import P, local
+from repro_torch.models.transformer import _MeshModule, bind_param, model_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,7 +95,11 @@ def embedding_bag_dense(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tens
                         mode: str = "mean") -> torch.Tensor:
     """Fixed-shape bag: ids [B, L], mask [B, L] -> [B, d]; negative ids
     read row 0 (their mask should be False)."""
-    rows = table[ids.clamp_min(0).long()]
+    return pool_rows(table[ids.clamp_min(0).long()], mask, mode)
+
+
+def pool_rows(rows: torch.Tensor, mask: torch.Tensor, mode: str = "mean") -> torch.Tensor:
+    """The bag of looked-up rows [B, L, d] under mask [B, L] -> [B, d]."""
     m = mask.to(rows.dtype)[..., None]
     s = (rows * m).sum(dim=1)
     if mode == "mean":
@@ -105,6 +121,15 @@ def shapes(cfg: MINDConfig) -> dict[str, tuple[int, ...]]:
         "w_out": (cfg.d_hidden, d),
         "b_out": (d,),
     }
+
+
+def param_specs(cfg: MINDConfig, tp="model") -> dict:
+    """The JAX ``param_specs``: the embedding tables row-split over ``tp``
+    (the canonical recsys placement), the small dense layers whole."""
+    del cfg
+    return {"item_embed": P(tp, None), "user_embed": P(tp, None), "bilinear": P(None, None),
+            "w_hidden": P(None, None), "b_hidden": P(None), "w_out": P(None, None),
+            "b_out": P(None)}
 
 
 @torch.no_grad()
@@ -155,7 +180,7 @@ def label_aware_attention(interests: torch.Tensor, target_emb: torch.Tensor,
     return torch.einsum("bk,bkd->bd", w, interests)
 
 
-class MIND(nn.Module):
+class MIND(_MeshModule):
     """The MIND model.  ``device`` defaults to CUDA and raises without a
     card unless ``"cpu"`` is asked for; ``generator`` (on that device)
     draws the random init, a generator seeded 0 when None.
@@ -167,13 +192,20 @@ class MIND(nn.Module):
 
     ``device="meta"`` builds the shapes only (:func:`init_abstract`);
     ``params`` (keyed as :func:`shapes`) binds the model to those tensors,
-    unchanged, as ``Transformer(params=...)`` does."""
+    unchanged, as ``Transformer(params=...)`` does; with ``par`` they are
+    DTensors placed by :func:`param_specs` and the model runs on that mesh
+    (the module docstring), a batch's leaves this rank's rows (local
+    tensors or DTensors)."""
 
     def __init__(self, cfg: MINDConfig, device=None,
-                 generator: torch.Generator | None = None, params: dict | None = None):
+                 generator: torch.Generator | None = None, params: dict | None = None,
+                 par=None):
         super().__init__()
         cfg.validate()
         self.cfg = cfg
+        self.par = par
+        if par is not None and params is None:
+            raise ValueError("a mesh model is bound to placed parameters (params=)")
         if params is not None:
             if set(params) != set(shapes(cfg)):
                 raise ValueError(f"params {sorted(params)}, the config's {sorted(shapes(cfg))}")
@@ -190,34 +222,70 @@ class MIND(nn.Module):
             generator = torch.Generator(device=dev).manual_seed(0)
         init_params(self, generator)
 
+    def lookup(self, name: str, ids: torch.Tensor) -> torch.Tensor:
+        """Rows of table ``name`` at ``ids`` (int, any shape; the same on
+        every rank of "model"); on a mesh with the table row-split, each
+        rank gathers the ids in its range and the rows are summed over
+        "model" (every other rank adds zeros: exact)."""
+        ids = ids.long()
+        if not self.split(name):
+            return self.w(name)[ids]
+        lo, hi = self.par.model_range(getattr(self, name).shape[0])
+        inside = (ids >= lo) & (ids < hi)
+        rows = self.w(name)[(ids - lo).clamp(0, max(hi - lo - 1, 0))]
+        return self.exit(rows * inside[..., None].to(rows.dtype))
+
     def user_tower(self, batch: dict) -> torch.Tensor:
         """-> interests [B, K, d] (profile-feature conditioned)."""
         cfg = self.cfg
-        mask = batch["hist_mask"]
-        behav = self.item_embed[batch["hist"].clamp_min(0).long()]
+        mask = local(batch["hist_mask"])
+        behav = self.lookup("item_embed", local(batch["hist"]).clamp_min(0))
         behav = behav * mask[..., None].to(behav.dtype)
-        interests = multi_interest(self.bilinear, behav, mask, cfg)
-        feats = batch["user_feats"]
-        profile = embedding_bag_dense(self.user_embed, feats, torch.ones_like(feats), "mean")
+        interests = multi_interest(self.w("bilinear"), behav, mask, cfg)
+        feats = local(batch["user_feats"])
+        profile = pool_rows(self.lookup("user_embed", feats.clamp_min(0)),
+                            torch.ones_like(feats), "mean")
         B, K, d = interests.shape
         h = torch.cat([interests, profile[:, None].expand(B, K, d)], dim=-1)
-        h = torch.relu(h @ self.w_hidden + self.b_hidden)
-        return h @ self.w_out + self.b_out
+        h = torch.relu(h @ self.w("w_hidden") + self.w("b_hidden"))
+        return h @ self.w("w_out") + self.w("b_out")
 
     @torch.no_grad()
     def serve_score(self, batch: dict) -> torch.Tensor:
         """Online scoring: scores [B, C], each the max over interests of the
-        candidate's dot products."""
+        candidate's dot products (on a mesh this rank's rows)."""
         interests = self.user_tower(batch)                              # [B, K, d]
-        cand = self.item_embed[batch["candidates"].long()]              # [B, C, d]
+        cand = self.lookup("item_embed", local(batch["candidates"]))    # [B, C, d]
         return torch.einsum("bkd,bcd->bkc", interests, cand).amax(dim=1)
 
     @torch.no_grad()
     def retrieval_score(self, batch: dict) -> torch.Tensor:
         """Retrieval: the users against the candidate corpus ``candidate_ids``
-        [N] in one batched product -> scores [B, N]."""
+        [N] in one batched product -> scores [B, N].  On a mesh with the
+        corpus split over "model" (a DTensor), this rank's chunk: the ids
+        of its "model" group gathered, their rows looked up split and
+        reduce-scattered over "model", scores [B, N_local]."""
         interests = self.user_tower(batch)                              # [B, K, d]
-        cand = self.item_embed[batch["candidate_ids"].long()]           # [N, d]
+        ids = batch["candidate_ids"]
+        par = self.par
+        if par is not None and par.tp > 1 and isinstance(ids, DTensor) and \
+                ids.placements[-1].is_shard():
+            mine = local(ids).long()
+            if self.split("item_embed"):
+                group = par.gather_model(mine, 0, mine.shape[0] * par.tp)
+                table = self.w("item_embed")
+                lo, hi = par.model_range(getattr(self, "item_embed").shape[0])
+                inside = (group >= lo) & (group < hi)
+                part = table[(group - lo).clamp(0, max(hi - lo - 1, 0))] \
+                    * inside[:, None].to(table.dtype)
+                # the lookup's sum over "model" as a reduce-scatter: each
+                # rank keeps the rows of its own chunk (zeros added: exact)
+                cand = DTensor.from_local(part, par.model, [Partial()], run_check=False
+                                          ).redistribute(par.model, [Shard(0)]).to_local()
+            else:
+                cand = self.w("item_embed")[mine]
+        else:
+            cand = self.lookup("item_embed", local(ids))                # [N, d]
         return torch.einsum("bkd,nd->bkn", interests, cand).amax(dim=1)
 
 
@@ -239,10 +307,18 @@ def loss_fn(model: MIND, batch: dict) -> torch.Tensor:
     as separate [B, B] buffers, 17 GB each at ``train_batch`` (B = 65,536),
     whose step peaks at 68 GB on an 80 GB card with this form."""
     interests = model.user_tower(batch)                          # [B, K, d]
-    tgt = model.item_embed[batch["target"].long()]               # [B, d]
+    tgt = model.lookup("item_embed", local(batch["target"]))     # [B, d]
     user_vec = label_aware_attention(interests, tgt)             # [B, d]
-    logits = user_vec @ tgt.T                                    # [B, B] in-batch
-    return F.cross_entropy(logits, torch.arange(logits.shape[0], device=logits.device))
+    par = model.par
+    if par is None or par.dp == 1 or not par.batch_split:
+        logits = user_vec @ tgt.T                                # [B, B] in-batch
+        return F.cross_entropy(logits, torch.arange(logits.shape[0], device=logits.device))
+    # on a mesh: this rank's users against the global batch's targets; the
+    # result is this rank's share of the mean (summed over the data axes)
+    b = tgt.shape[0]
+    logits = user_vec @ par.gather_rows(tgt).T                   # [b, B]
+    gold = par.dp_rank * b + torch.arange(b, device=logits.device)
+    return F.cross_entropy(logits, gold, reduction="sum") / (b * par.dp)
 
 
 @torch.no_grad()

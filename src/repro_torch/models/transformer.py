@@ -25,9 +25,20 @@ never does); ``prefill`` and ``decode_step`` compute attention with torch
 ops whatever the flag says, as the JAX package's versions do.  A MoE
 layer's combine sums each token's K expert contributions in ascending
 expert order in the activations' dtype, the order of the JAX package's
-scatter-add, so results do not depend on atomics.  Sharding constraints
-(``_wsc``) have no meaning on one card and are not ported; the config
-keeps their fields.
+scatter-add, so results do not depend on atomics.
+
+On a mesh (``par``, a :class:`~repro_torch.models.parallel.MeshParallel`)
+the JAX package's sharding constraints (``_wsc``) become explicit
+layouts: the training forward keeps the batch rows over the data axes and
+splits heads, hidden units and experts over "model"; with
+``cfg.act_seq`` the layer carry between layers is split on the sequence
+over "model" (each checkpoint 1/tp the size, JAX ``layer_fwd``).
+``prefill`` and ``decode_step`` keep the cache of :func:`cache_specs`:
+its position axis split over "model", each rank holding a contiguous range
+of ring slots.  Prefill writes each rank's range; decode writes the new
+entry on the rank holding its slot, scores its own positions for every
+head and combines the partial softmax across "model" (the max, then the
+sums, then the weighted values: flash-decode's combine across ranks).
 
 Training: the parameters are ordinary trainable ``nn.Parameter``s and
 ``forward`` is differentiable, as the JAX package's is.  :func:`loss_fn`
@@ -50,8 +61,10 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.engine.streaming import resolve_device
@@ -198,16 +211,16 @@ def top_shapes(cfg: TransformerConfig) -> dict[str, tuple[int, ...]]:
 
 
 def param_specs(cfg: TransformerConfig, dp: tuple[str, ...] = ("data",),
-                tp: str = "model", tp_size: int = 16, dp_size: int = 16) -> dict:
+                tp: str = "model", tp_size: int = 16, dp_size: int = 16,
+                fsdp: bool = True) -> dict:
     """Partition specs keyed as ``named_parameters()`` (the JAX
     ``param_specs`` with the stacked layer axis dropped): Megatron-style
-    TP on the head / hidden output dims, and FSDP: the other big dim of
-    each weight over the data axes (the JAX ``fsdp=True``, the training
-    layout; the serving layout without FSDP belongs to the bundles' pod
-    shardings, still refused).  Head-aligned TP only: a GQA
-    projection whose head count the model axis does not divide stays
-    whole over it."""
-    d_ok = cfg.d_model % dp_size == 0
+    TP on the head / hidden output dims, and with ``fsdp`` (the training
+    layout) the other big dim of each weight over the data axes; without
+    it (the serving layout of the dense archs) every weight whole over
+    them.  Head-aligned TP only: a GQA projection whose head count the
+    model axis does not divide stays whole over it."""
+    d_ok = fsdp and cfg.d_model % dp_size == 0
     fs = dp if d_ok else None          # the FSDP split of dim d_model
 
     def attn_specs() -> dict:
@@ -244,6 +257,17 @@ def param_specs(cfg: TransformerConfig, dp: tuple[str, ...] = ("data",),
         for name, spec in (moe if kind == "moe" else dense).items():
             out[f"layers.{i}.{name}"] = spec
     return out
+
+
+def cache_specs(cfg: TransformerConfig, batch: int, dp=("data",), tp="model",
+                dp_size: int = 16) -> dict:
+    """The cache's partition specs (the JAX ``cache_specs``): the batch over
+    the data axes when they divide it, the positions over ``tp``."""
+    b = dp if batch % max(dp_size, 1) == 0 else None
+    if cfg.is_mla:
+        return {"c_kv": P(None, b, tp, None), "k_rope": P(None, b, tp, None), "index": P()}
+    d5 = P(None, b, tp, None, None)
+    return {"k": d5, "v": d5, "index": P()}
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -332,11 +356,57 @@ def _query_blocks(S: int, block_q: int, blockwise_from: int) -> list[slice]:
     return [slice(i, i + block_q) for i in range(0, S, block_q)]
 
 
+class KeySplit:
+    """Attention over keys split across the ranks of "model" (decode on
+    the cache of :func:`cache_specs`), the hook of :func:`attention` and
+    :func:`mla_attention`: each rank scores its own positions for every
+    head, :meth:`softmax` combines the partial max and sums across the
+    ranks and :meth:`context` sums the f32 context (flash-decode's combine
+    across ranks).  With ``n_heads`` the query heads arrive split over
+    "model": :meth:`heads` gathers them and :meth:`context` keeps this
+    rank's again."""
+
+    def __init__(self, par, n_heads: int = 0):
+        self.par, self.n_heads = par, n_heads
+
+    def heads(self, t: torch.Tensor) -> torch.Tensor:
+        return self.par.gather_model(t, 2, self.n_heads) if self.n_heads else t
+
+    def softmax(self, s: torch.Tensor) -> torch.Tensor:
+        m = self.par.model_reduce(s.amax(dim=-1, keepdim=True), dist.ReduceOp.MAX)
+        e = torch.exp(s - m)
+        return e / self.par.model_reduce(e.sum(dim=-1, keepdim=True))
+
+    def context(self, c: torch.Tensor) -> torch.Tensor:
+        c = self.par.model_reduce(c.contiguous())
+        if not self.n_heads:
+            return c
+        lo, hi = self.par.model_range(self.n_heads)
+        return c[:, :, lo:hi]
+
+
+def _softmax(s, keys: KeySplit | None):
+    return torch.softmax(s, dim=-1) if keys is None else keys.softmax(s)
+
+
+def _blocks(blk, S: int, block_q: int, blockwise_from: int) -> torch.Tensor:
+    """``blk(sl)`` over the query blocks of :func:`_query_blocks`,
+    concatenated on dim 1 (no copy for one block)."""
+    out = [blk(sl) for sl in _query_blocks(S, block_q, blockwise_from)]
+    return out[0] if len(out) == 1 else torch.cat(out, dim=1)
+
+
 def attention(q, k, v, q_pos, k_pos, window: int = 0,
-              block_q: int = 1024, blockwise_from: int = 8192) -> torch.Tensor:
+              block_q: int = 1024, blockwise_from: int = 8192,
+              mask=None, keys: KeySplit | None = None) -> torch.Tensor:
     """GQA attention with torch ops.  q: [B,S,H,hd], k/v: [B,T,KV,hd] ->
     [B,S,H,hd].  Products are taken in f32 from the inputs' values and
-    ``p`` is cast to ``v.dtype`` before PV, as in the JAX package."""
+    ``p`` is cast to ``v.dtype`` before PV, as in the JAX package.
+    ``mask`` [S, T] (decode: the valid cache slots) stands in for the
+    causal / window mask of ``q_pos`` / ``k_pos``; ``keys`` combines keys
+    split across ranks (:class:`KeySplit`)."""
+    if keys is not None:
+        q = keys.heads(q)
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -344,19 +414,20 @@ def attention(q, k, v, q_pos, k_pos, window: int = 0,
     qg = q.reshape(B, S, KV, G, hd)
     k32, v32 = k.float(), v.float()
 
-    def blk(qb, qpb):
-        s = torch.einsum("bqkgh,btkh->bkgqt", qb.float(), k32) * scale
-        s = torch.where(_attn_mask(qpb, k_pos, window), s, -1e30)
-        p = torch.softmax(s, dim=-1).to(v.dtype)
+    def blk(sl):
+        s = torch.einsum("bqkgh,btkh->bkgqt", qg[:, sl].float(), k32) * scale
+        m = _attn_mask(q_pos[sl], k_pos, window) if mask is None else mask[sl]
+        p = _softmax(torch.where(m, s, -1e30), keys).to(v.dtype)
         return torch.einsum("bkgqt,btkh->bqkgh", p.float(), v32)
 
-    out = torch.cat([blk(qg[:, sl], q_pos[sl])
-                     for sl in _query_blocks(S, block_q, blockwise_from)], dim=1)
-    return out.reshape(B, S, H, hd).to(q.dtype)
+    out = _blocks(blk, S, block_q, blockwise_from).reshape(B, S, H, hd)
+    if keys is not None:
+        out = keys.context(out)
+    return out.to(q.dtype)
 
 
 def mla_attention(q_nope, q_rope, c_kv, k_rope, w_uk, w_uv, cfg: TransformerConfig,
-                  q_pos, k_pos, k_valid=None) -> torch.Tensor:
+                  q_pos, k_pos, mask=None, keys: KeySplit | None = None) -> torch.Tensor:
     """Absorbed MLA attention over the compressed stream (the JAX
     ``_mla_attention``):
 
@@ -368,25 +439,27 @@ def mla_attention(q_nope, q_rope, c_kv, k_rope, w_uk, w_uv, cfg: TransformerConf
     context are f32 products of the operands' values, ``q_nope W_uk^T`` is
     rounded to ``c_kv``'s dtype first and the softmax weights before the
     context, as in the JAX package; blockwise above ``cfg.blockwise_from``.
-    ``k_valid`` [T] masks cache slots (decode)."""
+    ``mask`` [S, T] (decode: the valid cache slots) stands in for the
+    causal / window mask of ``q_pos`` / ``k_pos``; ``keys`` combines keys
+    split across ranks (:class:`KeySplit`)."""
     B, S, H, nd = q_nope.shape
     Lr = cfg.mla_kv_lora
     q_abs = torch.einsum("bshn,lhn->bshl", q_nope.float(), w_uk.reshape(Lr, H, nd).float())
+    if keys is not None:
+        q_abs, q_rope = keys.heads(q_abs), keys.heads(q_rope)
     scale = 1.0 / math.sqrt(nd + cfg.mla_rope_dim)
     c32, r32 = c_kv.float(), k_rope.float()
 
-    def blk(qa, qr, qpb):
-        s = torch.einsum("bshl,btl->bhst", qa.to(c_kv.dtype).float(), c32)
-        s = (s + torch.einsum("bshr,btr->bhst", qr.float(), r32)) * scale
-        mask = _attn_mask(qpb, k_pos, cfg.sliding_window)
-        if k_valid is not None:
-            mask = mask & k_valid[None, :]
-        s = torch.where(mask, s, -1e30)
-        p = torch.softmax(s, dim=-1).to(c_kv.dtype)
+    def blk(sl):
+        s = torch.einsum("bshl,btl->bhst", q_abs[:, sl].to(c_kv.dtype).float(), c32)
+        s = (s + torch.einsum("bshr,btr->bhst", q_rope[:, sl].float(), r32)) * scale
+        m = _attn_mask(q_pos[sl], k_pos, cfg.sliding_window) if mask is None else mask[sl]
+        p = _softmax(torch.where(m, s, -1e30), keys).to(c_kv.dtype)
         return torch.einsum("bhst,btl->bshl", p.float(), c32)
 
-    ctx = torch.cat([blk(q_abs[:, sl], q_rope[:, sl], q_pos[sl])
-                     for sl in _query_blocks(S, cfg.attn_block_q, cfg.blockwise_from)], dim=1)
+    ctx = _blocks(blk, S, cfg.attn_block_q, cfg.blockwise_from)
+    if keys is not None:
+        ctx = keys.context(ctx)
     out = torch.einsum("bshl,lhv->bshv", ctx, w_uv.reshape(Lr, H, cfg.mla_v_dim).float())
     return out.to(cfg.dtype)
 
@@ -565,12 +638,13 @@ class DecoderLayer(_MeshModule):
         than one rank."""
         return self.par is not None and self.par.tp > 1 and self.cfg.n_heads % self.par.tp == 0
 
-    def qkv(self, x, positions):
+    def qkv(self, x, positions, cache_form: bool = False):
         """The JAX ``_qkv_gqa``: projections, optional bias, RoPE.  On a
         mesh the heads the stored weights split over "model" are this
         rank's; where the query heads are split and the KV heads are not,
         each local query head gets its own KV head (k, v [B, S, H_local,
-        hd])."""
+        hd]).  ``cache_form``: also return (k, v) with every KV head, the
+        cache's layout (gathered over "model" where split)."""
         cfg = self.cfg
         B, S, _ = x.shape
         hd = cfg.hd
@@ -587,12 +661,15 @@ class DecoderLayer(_MeshModule):
         v = v.reshape(B, S, -1, hd)
         rd = int(cfg.rotary_pct * hd)
         q, k = rope(q, positions, cfg.rope_theta, rd), rope(k, positions, cfg.rope_theta, rd)
+        kv_cache = (k, v)
+        if cache_form and kv_split:
+            kv_cache = tuple(self.par.gather_model(t, 2, cfg.n_kv_heads) for t in (k, v))
         if q_split and not kv_split:
             G = cfg.n_heads // cfg.n_kv_heads
             lo, hi = self.par.model_range(cfg.n_heads)
             kv_of = torch.arange(lo, hi, device=q.device) // G
             k, v = k[:, :, kv_of], v[:, :, kv_of]
-        return q, k, v
+        return (q, k, v, kv_cache) if cache_form else (q, k, v)
 
     def qkv_mla(self, x, positions):
         """The JAX ``_qkv_mla``: (q_nope, q_rope, c_kv, k_rope); the last
@@ -613,9 +690,10 @@ class DecoderLayer(_MeshModule):
 
     def attend(self, h, positions, flash: bool = False):
         """Full-sequence attention of the normed input h [B, S, d]:
-        (output [B, S, H * v_dim] before ``wo``, the layer's cache entries
-        (k, v) or (c_kv, k_rope)).  ``flash`` takes the flash_prefill
-        kernel (GQA, S % 128 == 0)."""
+        (output [B, S, H * v_dim] before ``wo``, on a mesh this rank's
+        heads where they are split, and the layer's cache entries (k, v)
+        with every KV head, or (c_kv, k_rope)).  ``flash`` takes the
+        flash_prefill kernel (GQA, S % 128 == 0)."""
         cfg = self.cfg
         B, S, _ = h.shape
         if cfg.is_mla:
@@ -625,7 +703,7 @@ class DecoderLayer(_MeshModule):
                                  self.w("w_uk", hs), self.w("w_uv", hs), cfg,
                                  positions, positions)
             return attn.reshape(B, S, -1), (ckv, kr)
-        q, k, v = self.qkv(h, positions)
+        q, k, v, kv_cache = self.qkv(h, positions, cache_form=True)
         if flash:
             KV = cfg.n_kv_heads
             qg = q.reshape(B, S, KV, cfg.n_heads // KV, cfg.hd)
@@ -633,14 +711,48 @@ class DecoderLayer(_MeshModule):
         else:
             attn = attention(q, k, v, positions, positions, cfg.sliding_window,
                              cfg.attn_block_q, cfg.blockwise_from)
-        return attn.reshape(B, S, -1), (k, v)
+        return attn.reshape(B, S, -1), kv_cache
+
+    def decode_attention(self, h, pos_now, c0, c1, slot, write, valid):
+        """One decode step's attention of the normed h [B, 1, d] over this
+        layer's cache (c0, c1) = (k, v) or (c_kv, k_rope), the new entry
+        written at ``slot`` first (only where ``write``, on a split cache),
+        over the slots ``valid`` [1, T] holds.
+        Returns the output before ``wo``: every head, or on a mesh this
+        rank's heads where ``wo`` is split.  On a cache split over "model"
+        the keys are combined across the ranks (:class:`KeySplit`)."""
+        cfg = self.cfg
+
+        def put(buf, new):
+            if write is not None:
+                new = torch.where(write.reshape(1, 1, *([1] * (new.dim() - 2))), new,
+                                  buf.index_select(1, slot))
+            buf.index_copy_(1, slot, new)
+
+        def keys(heads_split: bool):
+            if self.par is None or self.par.tp == 1:
+                return None
+            return KeySplit(self.par, cfg.n_heads if heads_split else 0)
+
+        if cfg.is_mla:
+            qn, qr, c_new, r_new = self.qkv_mla(h, pos_now)
+            put(c0, c_new)
+            put(c1, r_new)
+            hs = self.mla_heads_split()
+            return mla_attention(qn, qr, c0, c1, self.w("w_uk", hs), self.w("w_uv", hs), cfg,
+                                 None, None, valid, keys(hs))
+        q, _, _, (k_new, v_new) = self.qkv(h, pos_now, cache_form=True)
+        put(c0, k_new)
+        put(c1, v_new)
+        return attention(q, c0, c1, None, None, cfg.sliding_window,
+                         mask=valid, keys=keys(self.split("wq")))
 
     def ffn(self, x, bs: tuple[int, int] | None = None):
         """The JAX ``_ffn`` on normed tokens x [T, d].  On a mesh a MoE
         layer routes the global batch (every "data" rank's tokens, so the
         capacity is the global token set's) and keeps this rank's rows."""
         if self.kind == "moe":
-            if self.par is None or bs is None or self.par.dp == 1:
+            if self.par is None or bs is None or self.par.dp == 1 or not self.par.batch_split:
                 return moe_ffn(x, self, self.cfg, bs)
             lo = self.par.dp_rank * x.shape[0]
             xa = self.par.gather_rows(x)
@@ -688,9 +800,11 @@ class Transformer(_MeshModule):
     dense ones first.
 
     ``par`` (a :class:`~repro_torch.models.parallel.MeshParallel`, with
-    ``params`` DTensors placed by :func:`param_specs`) runs the training
-    forward on a mesh: this rank's batch rows, the weights gathered layer
-    by layer.  ``prefill`` and ``decode_step`` run on one device only."""
+    ``params`` DTensors placed by :func:`param_specs`) runs on a mesh:
+    this rank's batch rows, the weights gathered layer by layer; the
+    training forward, and ``prefill`` / ``decode_step`` on the cache of
+    :func:`cache_specs` (see the module docstring), whose logits are this
+    rank's rows and vocabulary columns (the JAX ``P(batch, "model")``)."""
 
     def __init__(self, cfg: TransformerConfig, device=None,
                  generator: torch.Generator | None = None, params: dict | None = None,
@@ -745,9 +859,6 @@ class Transformer(_MeshModule):
         y = self.enter(x) @ w
         return self.par.gather_model(y, -1, self.cfg.vocab).float()
 
-    def _logits(self, x):
-        return (rms_norm(x, self.ln_f, self.cfg.norm_eps) @ self.lm_head).float()
-
     def hidden_states(self, tokens, positions=None) -> torch.Tensor:
         """Final-norm hidden states [B, S, d] (the pre-lm_head forward):
         the dense stack, then the MoE stack, each as :func:`_run_stack`."""
@@ -756,12 +867,19 @@ class Transformer(_MeshModule):
         pos = positions if positions is not None else torch.arange(S, device=x.device)
         nd = self.cfg.n_dense_layers if self.cfg.is_moe else 0
         for stack in (self.layers[:nd], self.layers[nd:]):
-            x = _run_stack(x, list(stack), self.cfg, pos)
+            x = _run_stack(x, list(stack), self.cfg, pos, self.par)
         return rms_norm(x, self.w("ln_f"), self.cfg.norm_eps)
 
     def forward(self, tokens, positions=None) -> torch.Tensor:
         """Logits f32 [B, S, vocab]."""
         return self.head(self.hidden_states(tokens, positions))
+
+    def _serve_logits(self, x) -> torch.Tensor:
+        """f32 logits of the last hidden states x [B, d]; on a mesh this
+        rank's vocabulary columns where ``lm_head`` is split (no gather)."""
+        h = rms_norm(x, self.w("ln_f"), self.cfg.norm_eps)
+        split = self.split("lm_head")
+        return (self.enter(h, split) @ self.w("lm_head")).float()
 
     @torch.no_grad()
     def prefill(self, tokens, max_len: int):
@@ -769,27 +887,36 @@ class Transformer(_MeshModule):
 
         Returns (cache, logits f32 [B, vocab] of the last position).  Under
         a sliding window the cache keeps the last min(window, max_len)
-        positions in a ring: position p sits in slot p % len."""
+        positions in a ring: position p sits in slot p % len.  On a mesh
+        ``tokens`` are this rank's rows (a DTensor or the local tensor),
+        the cache holds this rank's range of ring slots (the slots split
+        over "model", which must divide them) and the logits this rank's
+        vocabulary columns."""
         cfg = self.cfg
+        tokens = local(tokens)
         B, S = tokens.shape
         x = self._embed(tokens)
         pos = torch.arange(S, device=x.device)
         win = cfg.sliding_window
         eff = min(win, max_len) if win > 0 else max_len
-        cache = _cache_alloc(cfg, B, eff, x.device)
+        lo, hi = 0, eff
+        if self.par is not None:
+            if eff % self.par.tp:
+                raise ValueError(f"{self.par.tp} ranks of 'model' do not divide the "
+                                 f"cache's {eff} slots")
+            lo, hi = self.par.model_range(eff)
+        cache = _cache_alloc(cfg, B, hi - lo, x.device)
         bufs = (cache["c_kv"], cache["k_rope"]) if cfg.is_mla else (cache["k"], cache["v"])
-        take = min(S, eff)
-        roll = S % eff if S >= eff else 0
+        runs = _ring_runs(S, eff, lo, hi)
         for i, layer in enumerate(self.layers):
-            h = rms_norm(x, layer.ln_attn, cfg.norm_eps)
+            h = rms_norm(x, layer.w("ln_attn"), cfg.norm_eps)
             attn, stash = layer.attend(h, pos)
             for buf, full in zip((bufs[0][i], bufs[1][i]), stash):
-                buf[:, :take] = full[:, S - take:]
-                if roll:
-                    buf.copy_(torch.roll(buf, roll, dims=1))
-            x = layer.mlp(x + attn @ layer.wo)
+                for dst, src, n in runs:
+                    buf[:, dst:dst + n] = full[:, src:src + n]
+            x = layer.mlp(x + layer.out_proj(attn))
         cache["index"] = S
-        return cache, self._logits(x[:, -1])
+        return cache, self._serve_logits(x[:, -1])
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens):
@@ -799,11 +926,21 @@ class Transformer(_MeshModule):
         cache length), attends over the slots whose global position is
         valid (and inside the window), and advances ``cache["index"]``.  A
         MoE layer dispatches the B tokens unchunked (capacity >= B at
-        B <= 256)."""
+        B <= 256).  On a mesh the cache is :func:`prefill`'s (its leaves
+        local tensors or DTensors placed by :func:`cache_specs`) and the
+        logits this rank's vocabulary columns; a model axis of one rank
+        runs the one-device arithmetic."""
         cfg = self.cfg
+        tokens = local(tokens)
         B = tokens.shape[0]
         x = self._embed(tokens)[:, None, :]
-        T = (cache["c_kv"] if cfg.is_mla else cache["k"]).shape[2]
+        names = ("c_kv", "k_rope") if cfg.is_mla else ("k", "v")
+        T = cache[names[0]].shape[2]            # the whole slot count (a DTensor's)
+        bufs = tuple(local(cache[n]) for n in names)
+        tp = 1 if self.par is None else self.par.tp
+        if not isinstance(cache[names[0]], DTensor):
+            T = T * tp                          # local tensors: this rank's range
+        lo, hi = (0, T) if tp == 1 else self.par.model_range(T)
         dev = x.device
         idx = cache["index"]
         if isinstance(idx, torch.Tensor):
@@ -816,35 +953,42 @@ class Transformer(_MeshModule):
             slot = torch.full((1,), idx % T, dtype=torch.int64, device=dev)
             pos_now = torch.full((B, 1), idx, dtype=torch.int32, device=dev)
         # global position stored in each ring slot (largest p <= idx, p % T == s)
-        k_pos = idx - ((idx - torch.arange(T, device=dev)) % T)
+        k_pos = idx - ((idx - torch.arange(lo, hi, device=dev)) % T)
         k_valid = (k_pos >= 0) & (k_pos <= idx)
         if cfg.sliding_window > 0:
             k_valid &= (idx - k_pos) < cfg.sliding_window
-        KV, G, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
+        write = None
+        if tp > 1:
+            # the rank whose range holds the slot writes it; the others
+            # write back what their first slot held
+            write = (slot >= lo) & (slot < hi)
+            slot = (slot - lo).clamp(0, hi - lo - 1)
+        valid = k_valid[None, :]
         for i, layer in enumerate(self.layers):
-            h = rms_norm(x, layer.ln_attn, cfg.norm_eps)
-            if cfg.is_mla:
-                qn, qr, c_new, r_new = layer.qkv_mla(h, pos_now)
-                c_l, r_l = cache["c_kv"][i], cache["k_rope"][i]
-                c_l.index_copy_(1, slot, c_new)
-                r_l.index_copy_(1, slot, r_new)
-                attn = mla_attention(qn, qr, c_l, r_l, layer.w_uk, layer.w_uv, cfg,
-                                     pos_now[0], k_pos, k_valid)
-            else:
-                q, k_new, v_new = layer.qkv(h, pos_now)
-                k_l, v_l = cache["k"][i], cache["v"][i]
-                k_l.index_copy_(1, slot, k_new)
-                v_l.index_copy_(1, slot, v_new)
-                qg = q.reshape(B, 1, KV, G, hd)
-                s = torch.einsum("bqkgh,btkh->bkgqt", qg.float(), k_l.float()) / math.sqrt(hd)
-                s = torch.where(k_valid, s, -1e30)
-                p = torch.softmax(s, dim=-1).to(v_l.dtype)
-                attn = torch.einsum("bkgqt,btkh->bqkgh", p.float(), v_l.float()).to(cfg.dtype)
-            x = x + attn.reshape(B, 1, -1) @ layer.wo
-            h2 = rms_norm(x, layer.ln_mlp, cfg.norm_eps)
+            h = rms_norm(x, layer.w("ln_attn"), cfg.norm_eps)
+            attn = layer.decode_attention(h, pos_now, bufs[0][i], bufs[1][i], slot, write, valid)
+            x = x + layer.out_proj(attn.reshape(B, 1, -1))
+            h2 = rms_norm(x, layer.w("ln_mlp"), cfg.norm_eps)
             x = x + layer.ffn(h2.reshape(B, -1)).reshape(B, 1, -1)
         cache["index"] = cache["index"] + 1
-        return cache, self._logits(x[:, 0])
+        return cache, self._serve_logits(x[:, 0])
+
+
+def _ring_runs(S: int, slots: int, lo: int, hi: int) -> list[tuple[int, int, int]]:
+    """(slot - lo, position, count) runs of the prompt positions that a ring
+    of ``slots`` keeps in its slots [lo, hi) after S positions: the last
+    min(S, slots) of them, position p in slot p % slots (at most two runs,
+    split where the ring wraps)."""
+    runs = []
+    p = S - min(S, slots)
+    while p < S:
+        s = p % slots
+        n = min(S - p, slots - s)
+        a, b = max(s, lo), min(s + n, hi)
+        if a < b:
+            runs.append((a - lo, p + a - s, b - a))
+        p += n
+    return runs
 
 
 def remat(fn, *args):
@@ -855,14 +999,27 @@ def remat(fn, *args):
     return fn(*args)
 
 
-def _run_stack(x, layers: list, cfg: TransformerConfig, positions) -> torch.Tensor:
+def _run_stack(x, layers: list, cfg: TransformerConfig, positions, par=None) -> torch.Tensor:
     """The JAX ``_scan_stack`` over ``layers``: blocks of ``bk`` layers
     (the largest divisor of the stack's depth up to ``cfg.remat_block``).
     With ``cfg.remat`` each block is one checkpoint, so the backward keeps
     one activation per block, and a block of more than one layer also
     checkpoints each layer, so its recompute holds one layer's
-    intermediates at a time."""
+    intermediates at a time.  With ``cfg.act_seq`` on a mesh whose model
+    axis divides the sequence, the carry between layers is this rank's
+    sequence chunk (``par.seq_split``), gathered whole at each layer's
+    start: every checkpoint holds 1/tp of it."""
     n = len(layers)
+    S = x.shape[1]
+    if n and par is not None and cfg.act_seq and par.tp > 1 and S % par.tp == 0:
+        inner = layers
+
+        def seq_layer(layer):
+            return lambda x, pos: par.seq_split(layer(par.gather_model(x, 1, S), pos))
+
+        layers = [seq_layer(layer) for layer in inner]
+        x = par.seq_split(x)
+        return par.gather_model(_run_stack(x, layers, cfg, positions), 1, S)
     if not n or not cfg.remat:
         for layer in layers:
             x = layer(x, positions)

@@ -26,9 +26,7 @@ from repro_torch.data import shard_batch
 from repro_torch.engine import LatencyEngine, PackedScheme, resolve_backend
 from repro_torch.kernels import decode_attention, embedding_bag, flash_prefill, ops
 from repro_torch.configs import get_arch
-from repro_torch.configs.base import ArchBundle
-from repro_torch.engine.sharding import refuse_multi_card
-from repro_torch.launch import dryrun, elastic, mesh, train_lm
+from repro_torch.launch import elastic, mesh, train_lm
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import gnn as TG
 from repro_torch.models import recsys as TR
@@ -122,6 +120,7 @@ ENTRY_POINTS = {
     "build_for_devices": lambda ps, shard, sc: elastic.build_for_devices(
         qwen2_7b.SMOKE, [None], None),
     "make_host_mesh": lambda ps, shard, sc: mesh.make_host_mesh(),
+    "make_production_mesh": lambda ps, shard, sc: mesh.make_production_mesh(),
     "ArchBundle.real_args": lambda ps, shard, sc: get_arch("egnn").real_args("molecule"),
     "ArchBundle.smoke_batch": lambda ps, shard, sc: get_arch("mind").smoke_batch(
         np.random.default_rng(0)),
@@ -156,52 +155,13 @@ def test_backend_resolves_from_device():
         LatencyEngine(sc, device="cpu", backend="kernel")
 
 
-# every request on the JAX package's TPU pod meshes, each refused through
-# engine.sharding.refuse_multi_card with its one reason (the greedy's
-# mesh= is ported: tests/test_torch_mesh.py; training on a mesh of ranks:
-# tests/test_torch_sharded_*.py)
-REFUSALS = {
-    "ArchBundle.shardings": lambda ps, shard, sc: get_arch("qwen2-7b").shardings("train_4k"),
-    "mesh.make_production_mesh": lambda ps, shard, sc: mesh.make_production_mesh(),
-    "mesh.make_production_mesh(multi_pod)": lambda ps, shard, sc: mesh.make_production_mesh(
-        multi_pod=True),
-    "dryrun --mesh single": lambda ps, shard, sc: _dryrun_main("single"),
-    "dryrun --mesh both": lambda ps, shard, sc: _dryrun_main("both"),
-}
-
-
-def _dryrun_main(mesh_name):
-    argv = sys.argv
-    sys.argv = ["dryrun", "--mesh", mesh_name, "--arch", "egnn"]
-    try:
-        return dryrun.main()
-    finally:
-        sys.argv = argv
-
-
-@pytest.mark.parametrize("name", sorted(REFUSALS))
-def test_unported_options_raise(name):
-    """Each request on the TPU pod meshes raises ``NotImplementedError``
-    with the one reason (no such machine here)."""
-    ps, shard, sc = _small_case()
-    with pytest.raises(NotImplementedError, match="TPU v5e pod meshes"):
-        REFUSALS[name](ps, shard, sc)
-
-
-def test_refusals_share_one_function():
-    """The port's only ``raise NotImplementedError`` is
-    ``refuse_multi_card``'s, and every refusal site calls that function."""
+def test_port_raises_no_not_implemented():
+    """The port does all the JAX package does: no ``raise
+    NotImplementedError`` is left in it (the TPU pod meshes, the last
+    refusal, are ported: ``tests/test_torch_pod.py``)."""
     raising = [str(p.relative_to(ROOT)) for p in PORT_FILES
                if "raise NotImplementedError" in p.read_text()]
-    assert raising == ["src/repro_torch/engine/sharding.py"]
-    callers = sorted(str(p.relative_to(ROOT)) for p in PORT_FILES
-                     if "refuse_multi_card(" in p.read_text())
-    assert callers == ["src/repro_torch/configs/base.py",
-                       "src/repro_torch/engine/sharding.py", "src/repro_torch/launch/dryrun.py",
-                       "src/repro_torch/launch/mesh.py"]
-    with pytest.raises(NotImplementedError, match="^what is refused: the TPU v5e pod meshes"):
-        refuse_multi_card("what")
-    assert ArchBundle.shardings.__code__.co_names == ("refuse_multi_card",)
+    assert raising == []
 
 
 def test_obs_and_serve_are_importable_without_jax():

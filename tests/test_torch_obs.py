@@ -220,7 +220,12 @@ def test_incremental_registry_names_equal_repro(obs_on):
             eng.path_latencies(p, incremental=True)
             eng.add_replicas([int(ps.objects[0, 0])], [1])
             eng.path_latencies(p, incremental=True)
-    assert treg.snapshot() == jreg.snapshot()
+    # JAX's compile listener is process-wide: once any test in this worker
+    # installed it (tests/test_obs.py), the JAX registry counts every jit
+    # compile, which the port (no jit) has no counterpart of
+    jsnap = jreg.snapshot()
+    jsnap.pop("repro.jit.compiles", None)
+    assert treg.snapshot() == jsnap
 
 
 def test_disabled_plane_registers_nothing():

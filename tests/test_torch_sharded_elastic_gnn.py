@@ -1,4 +1,4 @@
-"""The elastic drill over four gloo ranks and the GNN's sharded aggregation
+"""The elastic drill over four gloo ranks and the GNN's split aggregation
 against the JAX package on 4 forced host devices.
 
 The JAX side runs once for the module in a subprocess
@@ -9,16 +9,18 @@ four spawned gloo ranks (``tests/torch_sharded_ranks.py``):
     2 x 2 mesh, then the first two ranks' 1 x 2 mesh (every rank takes
     part in making it), ``bit_exact`` on every rank, and its losses equal
     to the JAX drill's at 1e-5;
-  * ``make_agg`` (``agg_axes`` ("data", "model")) sum and mean on 256 f32
-    messages into 64 nodes equal to JAX's sharded ``make_agg`` and to
-    ``_agg_dense`` at 1e-5; in f64, the sharded aggregation and its
-    gradient equal the port's dense one at 1e-12 (trap m: sums in f32
-    may differ by order), and a node count the ranks do not divide falls
-    back to dense, as in JAX;
+  * ``SplitGraph.agg`` (each rank's edges summed into its node rows over
+    ("data", "model"), gathered whole) sum and mean on 256 f32 messages
+    into 64 nodes equal to JAX's sharded ``make_agg`` and to
+    ``_agg_dense`` at 1e-5; in f64, the split aggregation and its
+    gradient (each rank's share, summed) equal the port's dense one at
+    1e-12 (trap m: sums in f32 may differ by order), also on a node
+    count the ranks do not divide (uneven chunks of node rows);
   * each GNN's loss and gradients (f64) on 2 x 2, the parameters placed
     by ``param_specs`` (``place_params``; ``min_tp_dim`` 2, so the even
-    output dims split over "model") and the sharded aggregation, equal
-    the dense ones at 1e-10.
+    output dims split over "model") and the batch placed whole on every
+    rank, run split (each rank's loss its share, summed), equal the
+    dense ones at 1e-10.
 """
 import torch_threads  # noqa: F401  (one torch thread per test worker)
 import json
@@ -85,7 +87,7 @@ def test_sharded_aggregation_f64_equals_dense(ranks, kind):
         np.testing.assert_allclose(got, want, atol=1e-12, rtol=1e-12)
         np.testing.assert_allclose(g_got, g_want, atol=1e-12, rtol=1e-12)
         odd, dense = r[f"odd/{kind}"]
-        np.testing.assert_array_equal(odd, dense)
+        np.testing.assert_allclose(odd, dense, atol=1e-12, rtol=1e-12)
 
 
 @pytest.mark.parametrize("arch", sorted(GNN_CONFIGS))

@@ -25,13 +25,24 @@ from repro_torch.data import lm_batch_fn
 from repro_torch.launch import elastic, mesh as M, train as TR
 from repro_torch.models import gnn as G
 from repro_torch.models import transformer as T
-from repro_torch.models.parallel import P, local, local_slice, placements, shard_tensor, \
-    use_mesh
+from repro_torch.models.parallel import P, local, local_slice, place_tree, placements, \
+    shard_tensor, use_mesh
 from repro_torch.optim import AdamW, compressed_psum, cosine_schedule
 
 ARCHS = ["qwen2-7b", "chatglm3-6b", "h2o-danube-3-4b", "qwen3-moe-235b-a22b",
          "deepseek-v2-236b"]
 BATCH, SEQ, STEPS = 8, 32, 3
+
+
+def _rank_fn(fn_name):
+    """The function ``fn_name`` of this module, or ``"module:name"`` of
+    another test helper module."""
+    if ":" in fn_name:
+        import importlib
+
+        mod, name = fn_name.split(":")
+        return getattr(importlib.import_module(mod), name)
+    return globals()[fn_name]
 
 
 def _child(fn_name, rank, world, store, args, out, backend):
@@ -43,7 +54,7 @@ def _child(fn_name, rank, world, store, args, out, backend):
         dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                                 world_size=world)
         try:
-            res = globals()[fn_name](rank, *args)
+            res = _rank_fn(fn_name)(rank, *args)
         finally:
             dist.destroy_process_group()
         out.put((rank, "ok", res))
@@ -60,7 +71,7 @@ def _card_child(fn_name, rank, world, store, args, out):
         torch.cuda.set_device(rank)
         dist.init_process_group("nccl", init_method=f"file://{store}", rank=rank,
                                 world_size=world, device_id=torch.device("cuda", rank))
-        res = globals()[fn_name](rank, *args)
+        res = _rank_fn(fn_name)(rank, *args)
         dist.barrier()
         report = (rank, "ok", res)
     except BaseException:  # noqa: BLE001  (the parent reports it)
@@ -74,12 +85,13 @@ def _card_child(fn_name, rank, world, store, args, out):
 def spawn(fn_name: str, world: int, tmp_dir, *args, timeout: float = 240.0,
           backend: str = "gloo") -> list:
     """``fn_name(rank, *args)`` on ``world`` ranks (gloo, or NCCL with one
-    card each); the results in rank order.  Raises with the first failing
+    card each), ``fn_name`` a function of this module or
+    ``"module:name"``; the results in rank order.  Raises with the first failing
     rank's traceback, or when a rank gives nothing within ``timeout``
     seconds."""
     ctx = multiprocessing.get_context("spawn")
     out = ctx.Queue()
-    store = os.path.join(str(tmp_dir), f"store_{fn_name}_{world}")
+    store = os.path.join(str(tmp_dir), f"store_{fn_name.replace(':', '_')}_{world}")
     procs = [ctx.Process(target=_child, args=(fn_name, r, world, store, args, out, backend))
              for r in range(world)]
     for p in procs:
@@ -250,44 +262,47 @@ def one_by_one(rank, ckpt_root):
 
 
 def elastic_and_agg(rank, npz_path):
-    """The elastic drill from the JAX init; the sharded aggregation on the
+    """The elastic drill from the JAX init; the split aggregation
+    (``SplitGraph``: each rank's edges summed into its node rows) on the
     JAX package's inputs (f32) and on f64 ones, with its gradients beside
-    the dense ones'; each GNN's loss and gradients (f64) with the sharded
-    aggregation."""
+    the dense ones'; each GNN's loss and gradients (f64) on its batch
+    placed whole on every rank, run split."""
     npz = np.load(npz_path)
     out = {"drill": elastic.elastic_drill(LM_CONFIGS["qwen2-7b"].SMOKE, device="cpu",
                                           init=port_init(npz, "qwen2-7b"),
                                           ranks=list(range(dist.get_world_size())))}
     mesh = M.make_host_mesh(device="cpu")
     out["coord"] = tuple(mesh.get_coordinate())
-    agg = G.make_agg(G.GNNConfig(agg_axes=("data", "model")))
+    sp = G.SplitGraph(mesh)
+
+    def split_agg(msgs, recv, n, kind):
+        # every rank's edges summed into its node rows, gathered whole
+        return sp.full(sp.agg(sp.rows(msgs), sp.rows(recv), n, kind), n)
+
     rng = np.random.default_rng(0)
     msgs = rng.normal(size=(256, 16)).astype(np.float32)
     recv = rng.integers(0, 64, 256).astype(np.int32)
     for kind in ("sum", "mean"):
-        with use_mesh(mesh):
-            out[f"agg/{kind}"] = agg(torch.from_numpy(msgs), torch.from_numpy(recv).long(),
-                                     64, kind).numpy()
+        out[f"agg/{kind}"] = split_agg(torch.from_numpy(msgs), torch.from_numpy(recv).long(),
+                                       64, kind).numpy()
         m64 = torch.from_numpy(np.random.default_rng(7).normal(size=(300, 8))).requires_grad_()
         r64 = torch.from_numpy(np.random.default_rng(8).integers(0, 36, 300))
         w = torch.from_numpy(np.random.default_rng(9).normal(size=(36, 8)))
-        with use_mesh(mesh):
-            got = agg(m64, r64, 36, kind)
+        mine = sp.agg(sp.rows(m64), sp.rows(r64), 36, kind)
         want = G._agg_dense(m64, r64, 36, kind)
-        g_got, = torch.autograd.grad((got * w).sum(), m64)
+        # each rank's share of the weighted sum: the gradients of its edges
+        g_got, = torch.autograd.grad((mine * sp.rows(w)).sum(), m64)
         g_want, = torch.autograd.grad((want * w).sum(), m64)
-        out[f"f64/{kind}"] = (got.detach().numpy(), want.detach().numpy(), g_got.numpy(),
-                              g_want.numpy())
-        with use_mesh(mesh):  # 4 ranks do not divide 37 nodes: dense, as in JAX
-            out[f"odd/{kind}"] = (agg(m64, r64, 37, kind).detach().numpy(),
-                                  G._agg_dense(m64, r64, 37, kind).detach().numpy())
+        out[f"f64/{kind}"] = (sp.full(mine.detach(), 36).numpy(), want.detach().numpy(),
+                              sp.sum_all(g_got).numpy(), g_want.numpy())
+        # 4 ranks do not divide 37 nodes: uneven chunks of node rows
+        out[f"odd/{kind}"] = (split_agg(m64.detach(), r64, 37, kind).numpy(),
+                              G._agg_dense(m64, r64, 37, kind).detach().numpy())
     out["gnn"] = {}
     for arch in sorted(GNN_CONFIGS):
-        batch = {k: v.numpy() for k, v in
-                 get_arch(arch).smoke_batch(np.random.default_rng(0), device="cpu").items()}
+        batch = get_arch(arch).smoke_batch(np.random.default_rng(0), device="cpu")
         # min_tp_dim 2: every even output dim split over "model" by param_specs
-        cfg = dataclasses.replace(GNN_CONFIGS[arch].SMOKE, dtype=torch.float64,
-                                  agg_axes=("data", "model"), min_tp_dim=2)
+        cfg = dataclasses.replace(GNN_CONFIGS[arch].SMOKE, dtype=torch.float64, min_tp_dim=2)
         got = {}
         for where in ("dense", "mesh"):
             params = G.init(cfg, torch.Generator().manual_seed(3), device="cpu")
@@ -296,13 +311,17 @@ def elastic_and_agg(rank, npz_path):
             leaves = [v for sub in params.values() for v in
                       (sub.values() if isinstance(sub, dict) else [sub])]
             if where == "mesh":
+                # the batch whole on every rank, run split: each rank's
+                # loss its share, summed over the ranks
+                placed = place_tree(batch, {k: P() for k in batch}, mesh)
                 with use_mesh(mesh):
-                    loss = G.loss_fn(params, batch, cfg)
+                    loss = G.loss_fn(params, placed, cfg)
             else:
-                loss = G.loss_fn(params, batch, dataclasses.replace(cfg, agg_axes=()))
+                loss = G.loss_fn(params, batch, cfg)
             grads = torch.autograd.grad(loss, leaves)
-            got[where] = (float(loss), [(g.full_tensor() if isinstance(g, DTensor) else g)
-                                        .numpy() for g in grads])
+            value = float(sp.sum_all(loss)) if where == "mesh" else float(loss)
+            got[where] = (value, [(g.full_tensor() if isinstance(g, DTensor) else g)
+                                  .numpy() for g in grads])
         out["gnn"][arch] = got
     return out
 
