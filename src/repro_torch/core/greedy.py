@@ -334,15 +334,11 @@ def _obs_record_class(stats, b, n_vec, n_seq, counts, n_skip) -> None:
     reg.counter("repro.greedy.routed_skips").inc(n_skip)
 
 
-def _tick(stats: GreedyStats, stage: str, t0: float, device, sync: bool = True) -> float:
-    """Add the seconds since ``t0`` to ``stats.stage_s[stage]`` (after the
-    device has caught up, unless ``sync`` is False: a deferred stream books
-    host seconds only) and return the new start time."""
-    if sync and device.type == "cuda":
-        torch.cuda.synchronize(device)
-    now = time.perf_counter()
-    stats.stage_s[stage] = stats.stage_s.get(stage, 0.0) + now - t0
-    return now
+def _stage(stats: GreedyStats, stage: str, device, sync: bool = True):
+    """The span ``greedy.<stage>``, whose seconds go to
+    ``stats.stage_s[stage]`` once the device has caught up (unless ``sync``
+    is False: a deferred stream books host seconds only)."""
+    return obs.span(f"greedy.{stage}", stats.stage_s, stage, device if sync else None)
 
 
 def _device_load(packed: PackedScheme, f_d) -> torch.Tensor:
@@ -410,35 +406,37 @@ def _run_update_batches(
     add_obj: list[np.ndarray] = []
     add_srv: list[np.ndarray] = []
     for i in range(0, len(vec_objects), batch_size):
-        t0 = time.perf_counter()
-        # the JAX package pads the last batch to a fixed jit shape; rows are
-        # independent (pad rows buy nothing), so the port does not
-        o = vec_objects[i : i + batch_size]
-        o_d = to_device(o, device)
-        l_d = to_device(vec_lengths[i : i + batch_size], device)
-        t_d = to_device(t_vec[i : i + batch_size], device)
-        if routed_fn is not None:
-            # routed latency against the snapshot the batch prices on
-            h_rt = routed_fn(o_d, l_d)
-            t0 = _tick(stats, "gate", t0, device)
-        else:
-            h_rt = torch.zeros(len(o), dtype=torch.int32, device=device)
-        packed.words, costs, failed, chosen, srv, skipped = _update_batch_core(
-            packed.words, o_d, l_d, shard_d, f_d, tables, counts, t_d, h_rt,
-            load, cap_d, eps_d, check_capacity, routed_fn is not None,
-        )
-        stats.total_cost += float(to_host(costs).sum())
-        stats.failed_paths += int(failed.sum())
-        stats.routed_skips += int(skipped.sum())
-        if check_capacity:
-            # exact load from the packed words (the UPDATE's estimate can
-            # over-count duplicate additions within a batch)
-            load = _device_load(packed, f_d)
-        if track_rm:
-            _append_rm(stats, o, o_d, l_d, shard_d, chosen, srv)
-        if collect_additions:
-            _collect(add_obj, add_srv, o, chosen, srv)
-        _tick(stats, "update", t0, device)
+        # the uploads are the gate's stage when there is a gate (it syncs at
+        # its close), else the update's (one sync, at the update's close)
+        gated = routed_fn is not None
+        with _stage(stats, "gate" if gated else "update", device, sync=gated):
+            # the JAX package pads the last batch to a fixed jit shape; rows are
+            # independent (pad rows buy nothing), so the port does not
+            o = vec_objects[i : i + batch_size]
+            o_d = to_device(o, device)
+            l_d = to_device(vec_lengths[i : i + batch_size], device)
+            t_d = to_device(t_vec[i : i + batch_size], device)
+            if gated:
+                # routed latency against the snapshot the batch prices on
+                h_rt = routed_fn(o_d, l_d)
+            else:
+                h_rt = torch.zeros(len(o), dtype=torch.int32, device=device)
+        with _stage(stats, "update", device):
+            packed.words, costs, failed, chosen, srv, skipped = _update_batch_core(
+                packed.words, o_d, l_d, shard_d, f_d, tables, counts, t_d, h_rt,
+                load, cap_d, eps_d, check_capacity, gated,
+            )
+            stats.total_cost += float(to_host(costs).sum())
+            stats.failed_paths += int(failed.sum())
+            stats.routed_skips += int(skipped.sum())
+            if check_capacity:
+                # exact load from the packed words (the UPDATE's estimate can
+                # over-count duplicate additions within a batch)
+                load = _device_load(packed, f_d)
+            if track_rm:
+                _append_rm(stats, o, o_d, l_d, shard_d, chosen, srv)
+            if collect_additions:
+                _collect(add_obj, add_srv, o, chosen, srv)
     return load, _additions(add_obj, add_srv) if collect_additions else None
 
 
@@ -483,25 +481,25 @@ def _run_update_class(packed: PackedScheme, vec_objects: np.ndarray,
     acc.used = True
     add_obj: list[np.ndarray] = []
     add_srv: list[np.ndarray] = []
-    t0 = time.perf_counter()
-    N = len(vec_objects)
-    if N:
-        # one upload: objects, lengths and budgets side by side
-        L = vec_objects.shape[1]
-        buf = to_device(np.concatenate(
-            [np.ravel(vec_objects), vec_lengths, t_vec]).astype(np.int32, copy=False), device)
-        o_d, l_d, t_d = buf[: N * L].view(N, L), buf[N * L : N * L + N], buf[N * L + N :]
-        packed.words, _, _, chosen, srv, _ = fused_update_class(
-            packed.words, o_d, l_d, shard_d, f_d, tables, counts, t_d, rank, acc.acc,
-            batch_size=batch_size, pol=pol,
-        )
-        if track_rm:
-            _append_rm(stats, vec_objects, o_d, l_d, shard_d, chosen, srv)
-        if collect_additions:
-            _collect(add_obj, add_srv, vec_objects, chosen, srv)
-    if acc_holder is None:
-        acc.drain(stats)
-    _tick(stats, "update", t0, device, sync=acc_holder is None)
+    with _stage(stats, "update", device, sync=acc_holder is None):
+        N = len(vec_objects)
+        if N:
+            # one upload: objects, lengths and budgets side by side
+            L = vec_objects.shape[1]
+            buf = to_device(np.concatenate(
+                [np.ravel(vec_objects), vec_lengths, t_vec]).astype(np.int32, copy=False),
+                device)
+            o_d, l_d, t_d = buf[: N * L].view(N, L), buf[N * L : N * L + N], buf[N * L + N :]
+            packed.words, _, _, chosen, srv, _ = fused_update_class(
+                packed.words, o_d, l_d, shard_d, f_d, tables, counts, t_d, rank, acc.acc,
+                batch_size=batch_size, pol=pol,
+            )
+            if track_rm:
+                _append_rm(stats, vec_objects, o_d, l_d, shard_d, chosen, srv)
+            if collect_additions:
+                _collect(add_obj, add_srv, vec_objects, chosen, srv)
+        if acc_holder is None:
+            acc.drain(stats)
     return _additions(add_obj, add_srv) if collect_additions else None
 
 
@@ -609,48 +607,47 @@ def _run_update_mesh(drive: _MeshDrive, vec_objects: np.ndarray, vec_lengths: np
     kernel = backend == "kernel" and not check_capacity
     add_obj: list[np.ndarray] = []
     add_srv: list[np.ndarray] = []
-    t_class = time.perf_counter()
-    for i in range(0, len(vec_objects), batch_size):
-        o = vec_objects[i : i + batch_size]
-        o_s = drive.put(o)
-        l_s = drive.put(vec_lengths[i : i + batch_size])
-        t_s = drive.put(t_vec[i : i + batch_size])
-        pairs, parts = [], []
-        for s, ((lo, hi), dev) in enumerate(zip(_sharding.shard_bounds(len(o), mesh),
-                                                mesh.devices)):
-            if hi == lo:
-                pairs.append(None)
-                continue
-            shard_s = drive.on(shard_d, dev)
-            consts = (shard_s, drive.on(f_d, dev), drive.on(tables, dev),
-                      drive.on(counts, dev))
-            # both steps OR the shard's additions into its replica in place
-            if kernel:
-                _, cost, no_sol, chosen, srv, skipped = fused_update(
-                    drive.words(s), o_s[s], l_s[s], *consts, t_s[s], drive.rank[s], pol=pol)
-                part = torch.stack([cost.sum(), no_sol.sum(dtype=torch.float32),
-                                    skipped.sum(dtype=torch.float32)])
-            else:
-                part = torch.zeros((3,), dtype=torch.float32, device=dev)
-                _, chosen, srv = _fused_update_batch(
-                    drive.words(s), part, o_s[s], l_s[s], *consts, t_s[s], drive.rank[s],
-                    load.to(dev), cap_d.to(dev), eps_d.to(dev), check_capacity, pol, backend)
-            parts.append(part)
-            if track_rm:
-                _append_rm(stats, o[lo:hi], o_s[s], l_s[s], shard_s, chosen, srv)
-            pairs.append(_chosen_pairs(o_s[s], chosen, srv)
-                         if mesh.size > 1 or collect_additions else None)
-            if collect_additions:
-                add_obj.append(to_host(pairs[s][0]).astype(np.int64))
-                add_srv.append(to_host(pairs[s][1]).astype(np.int64))
-        drive.union(pairs)
-        for part in parts:
-            acc.acc += part.to(device)
-        if check_capacity:
-            load = _device_load(packed, f_d)
-    if acc_holder is None:
-        acc.drain(stats)
-    _tick(stats, "update", t_class, device, sync=acc_holder is None)
+    with _stage(stats, "update", device, sync=acc_holder is None):
+        for i in range(0, len(vec_objects), batch_size):
+            o = vec_objects[i : i + batch_size]
+            o_s = drive.put(o)
+            l_s = drive.put(vec_lengths[i : i + batch_size])
+            t_s = drive.put(t_vec[i : i + batch_size])
+            pairs, parts = [], []
+            for s, ((lo, hi), dev) in enumerate(zip(_sharding.shard_bounds(len(o), mesh),
+                                                    mesh.devices)):
+                if hi == lo:
+                    pairs.append(None)
+                    continue
+                shard_s = drive.on(shard_d, dev)
+                consts = (shard_s, drive.on(f_d, dev), drive.on(tables, dev),
+                          drive.on(counts, dev))
+                # both steps OR the shard's additions into its replica in place
+                if kernel:
+                    _, cost, no_sol, chosen, srv, skipped = fused_update(
+                        drive.words(s), o_s[s], l_s[s], *consts, t_s[s], drive.rank[s], pol=pol)
+                    part = torch.stack([cost.sum(), no_sol.sum(dtype=torch.float32),
+                                        skipped.sum(dtype=torch.float32)])
+                else:
+                    part = torch.zeros((3,), dtype=torch.float32, device=dev)
+                    _, chosen, srv = _fused_update_batch(
+                        drive.words(s), part, o_s[s], l_s[s], *consts, t_s[s], drive.rank[s],
+                        load.to(dev), cap_d.to(dev), eps_d.to(dev), check_capacity, pol, backend)
+                parts.append(part)
+                if track_rm:
+                    _append_rm(stats, o[lo:hi], o_s[s], l_s[s], shard_s, chosen, srv)
+                pairs.append(_chosen_pairs(o_s[s], chosen, srv)
+                             if mesh.size > 1 or collect_additions else None)
+                if collect_additions:
+                    add_obj.append(to_host(pairs[s][0]).astype(np.int64))
+                    add_srv.append(to_host(pairs[s][1]).astype(np.int64))
+            drive.union(pairs)
+            for part in parts:
+                acc.acc += part.to(device)
+            if check_capacity:
+                load = _device_load(packed, f_d)
+        if acc_holder is None:
+            acc.drain(stats)
     return load, _additions(add_obj, add_srv) if collect_additions else None
 
 
@@ -706,25 +703,26 @@ def _budget_class_plan(
     """
     device = shard_d.device
     plan = []
-    for b in np.unique(t_path):
-        b = int(b)
-        idx = np.nonzero(t_path == b)[0]
-        cls = ps.select(idx)
-        _, _, h_all = subpath_structure(
-            to_device(np.asarray(cls.objects, np.int32), device),
-            to_device(np.asarray(cls.lengths, np.int32), device),
-            shard_d,
-        )
-        h_all = to_host(h_all)
-        H_needed = int(h_all.max()) if cls.n_paths else 0
-        H_vec = combi.max_h_within_budget(b, max_candidates, H_needed)
-        vec_idx = np.nonzero(h_all <= H_vec)[0]
-        seq_idx = np.nonzero(h_all > H_vec)[0]
-        if skip_tables:
-            tables = counts = None
-        else:
-            tables, counts = _tables_to_device(max(H_vec, b, 1), b, device, stats)
-        plan.append((b, cls, vec_idx, seq_idx, h_all, tables, counts))
+    with obs.span("greedy.plan"):
+        for b in np.unique(t_path):
+            b = int(b)
+            idx = np.nonzero(t_path == b)[0]
+            cls = ps.select(idx)
+            _, _, h_all = subpath_structure(
+                to_device(np.asarray(cls.objects, np.int32), device),
+                to_device(np.asarray(cls.lengths, np.int32), device),
+                shard_d,
+            )
+            h_all = to_host(h_all)
+            H_needed = int(h_all.max()) if cls.n_paths else 0
+            H_vec = combi.max_h_within_budget(b, max_candidates, H_needed)
+            vec_idx = np.nonzero(h_all <= H_vec)[0]
+            seq_idx = np.nonzero(h_all > H_vec)[0]
+            if skip_tables:
+                tables = counts = None
+            else:
+                tables, counts = _tables_to_device(max(H_vec, b, 1), b, device, stats)
+            plan.append((b, cls, vec_idx, seq_idx, h_all, tables, counts))
     return plan
 
 
@@ -1018,48 +1016,47 @@ def _enforce_resilience(packed: PackedScheme, ps: PathSet, t_path: np.ndarray, r
     all_srv: list[np.ndarray] = []
     objects = np.asarray(ps.objects)
     for rnd in range(_RESILIENCE_ROUNDS + 1):
-        te = time.perf_counter()
-        h_cases = _backends.case_latencies(
-            packed, ps.objects, ps.lengths, cases, homes, pol, load, policy_backend
-        )
-        _tick(stats, "resilience_eval", te, device)
+        with _stage(stats, "resilience_eval", device):
+            h_cases = _backends.case_latencies(
+                packed, ps.objects, ps.lengths, cases, homes, pol, load, policy_backend
+            )
         viol = h_cases > t_path[None, :]
         total = int(viol.sum())
         if total == 0 or rnd == _RESILIENCE_ROUNDS:
             stats.resilient_violations = total
             break
         stats.resilience_rounds += 1
-        tr = time.perf_counter()
-        mask_host = packed.unpack()
-        for d, c in enumerate(cases):
-            idx = np.nonzero(viol[d])[0]
-            if not len(idx):
-                continue
-            # objects the case orphans: homed on a lost server, no copy at
-            # the rotation failover home yet — re-homed by the repair
-            vobj = np.unique(objects[idx])
-            vobj = vobj[vobj >= 0]
-            dead = np.zeros(n_servers, bool)
-            dead[np.asarray(c)] = True
-            orphans = vobj[dead[shard_host[vobj]] & ~mask_host[vobj, homes[d][vobj]]]
-            stats.resilience_orphans += int(len(orphans))
-            obj, srv = _repair_loss_case(
-                packed, ps.select(idx), t_path[idx], homes[d], case_word_mask(c, W),
-                orphans, pol, policy_backend, f_arr, f_d, capacity, epsilon, cap_d,
-                eps_d, check_capacity, batch_size, max_candidates, stats, load, fused,
-                track_rm,
-            )
-            if len(obj):
-                # replay into the live scheme: monotone adds, all targets
-                # alive under the case (failover homes by construction)
-                packed.add(obj, srv)
-                mask_host[obj, srv] = True  # keep later cases' orphan filter exact
-                all_obj.append(obj)
-                all_srv.append(srv)
-        _tick(stats, "resilience_repair", tr, device)
+        with _stage(stats, "resilience_repair", device):
+            mask_host = packed.unpack()
+            for d, c in enumerate(cases):
+                idx = np.nonzero(viol[d])[0]
+                if not len(idx):
+                    continue
+                # objects the case orphans: homed on a lost server, no copy at
+                # the rotation failover home yet — re-homed by the repair
+                vobj = np.unique(objects[idx])
+                vobj = vobj[vobj >= 0]
+                dead = np.zeros(n_servers, bool)
+                dead[np.asarray(c)] = True
+                orphans = vobj[dead[shard_host[vobj]] & ~mask_host[vobj, homes[d][vobj]]]
+                stats.resilience_orphans += int(len(orphans))
+                obj, srv = _repair_loss_case(
+                    packed, ps.select(idx), t_path[idx], homes[d], case_word_mask(c, W),
+                    orphans, pol, policy_backend, f_arr, f_d, capacity, epsilon, cap_d,
+                    eps_d, check_capacity, batch_size, max_candidates, stats, load, fused,
+                    track_rm,
+                )
+                if len(obj):
+                    # replay into the live scheme: monotone adds, all targets
+                    # alive under the case (failover homes by construction)
+                    packed.add(obj, srv)
+                    mask_host[obj, srv] = True  # keep later cases' orphan filter exact
+                    all_obj.append(obj)
+                    all_srv.append(srv)
     return _additions(all_obj, all_srv)
 
 
+@obs.spanned("greedy.replicate_workload")
 def replicate_workload(
     pathset: PathSet,
     shard: np.ndarray,
@@ -1148,36 +1145,38 @@ def replicate_workload(
     n = shard.shape[0]
     pol = resolve_policy(policy)
     pol = None if pol.name == "home_first" else pol
-    t_path = normalize_path_budgets(t, pathset)
-    if prune:
-        # the budget joins the §5.3 dedup key: a tight-budget path must not
-        # be merged into a loose-budget duplicate
-        ps, keep = pathset.prune_redundant(
-            shard, extra_key=t_path, return_index=True
-        )
-        t_path = t_path[keep]
-    else:
-        ps = pathset
-    scheme = ReplicationScheme.from_sharding(shard, n_servers)
-    stats = GreedyStats(rm=[] if track_rm else None)
-    stats.paths_processed = ps.n_paths
-    if ps.n_paths == 0:
-        stats.runtime_s = time.perf_counter() - t0
-        if return_engine:
-            return scheme, stats, LatencyEngine(scheme, device=device)
-        return scheme, stats
+    with obs.span("greedy.dedup"):
+        t_path = normalize_path_budgets(t, pathset)
+        if prune:
+            # the budget joins the §5.3 dedup key: a tight-budget path must not
+            # be merged into a loose-budget duplicate
+            ps, keep = pathset.prune_redundant(
+                shard, extra_key=t_path, return_index=True
+            )
+            t_path = t_path[keep]
+        else:
+            ps = pathset
+    with obs.span("greedy.init"):
+        scheme = ReplicationScheme.from_sharding(shard, n_servers)
+        stats = GreedyStats(rm=[] if track_rm else None)
+        stats.paths_processed = ps.n_paths
+        if ps.n_paths == 0:
+            stats.runtime_s = time.perf_counter() - t0
+            if return_engine:
+                return scheme, stats, LatencyEngine(scheme, device=device)
+            return scheme, stats
 
-    f_arr = np.ones((n,), np.float32) if f is None else f.astype(np.float32)
-    packed = PackedScheme.from_sharding(scheme.shard, n_servers, device)
-    shard_d = packed.shard
-    f_d = to_device(f_arr, device)
+        f_arr = np.ones((n,), np.float32) if f is None else f.astype(np.float32)
+        packed = PackedScheme.from_sharding(scheme.shard, n_servers, device)
+        shard_d = packed.shard
+        f_d = to_device(f_arr, device)
 
-    check_capacity, cap_d, eps_d = _capacity_arrays(n_servers, capacity, epsilon, device)
-    srv_load = to_device(scheme.storage_per_server(f_arr).astype(np.float32), device)
-    routed_fn = _routed_gate_fn(packed, pol, policy_backend, load=load)
-    fused = fused and policy_backend != "reference"
-    drive, batch_size = _fused_setup(packed, pol, load, fused, mesh, batch_size)
-    add_pairs = packed.add if drive is None else drive.add
+        check_capacity, cap_d, eps_d = _capacity_arrays(n_servers, capacity, epsilon, device)
+        srv_load = to_device(scheme.storage_per_server(f_arr).astype(np.float32), device)
+        routed_fn = _routed_gate_fn(packed, pol, policy_backend, load=load)
+        fused = fused and policy_backend != "reference"
+        drive, batch_size = _fused_setup(packed, pol, load, fused, mesh, batch_size)
+        add_pairs = packed.add if drive is None else drive.add
 
     def run_classes(ps_run: PathSet, t_run: np.ndarray) -> None:
         nonlocal srv_load
@@ -1187,12 +1186,11 @@ def replicate_workload(
         ):
             n_skip = 0
             if routed_fn is not None and cls.n_paths:
-                tg = time.perf_counter()
-                vec_idx, seq_idx, tables, counts, n_skip = _routed_class_filter(
-                    cls, b, h_all, routed_fn, max_candidates, device, stats=stats
-                )
-                stats.routed_skips += n_skip
-                _tick(stats, "gate", tg, device)
+                with _stage(stats, "gate", device):
+                    vec_idx, seq_idx, tables, counts, n_skip = _routed_class_filter(
+                        cls, b, h_all, routed_fn, max_candidates, device, stats=stats
+                    )
+                    stats.routed_skips += n_skip
             _obs_record_class(stats, b, len(vec_idx), len(seq_idx), counts, n_skip)
             srv_load, _ = _run_update_batches(
                 packed,
@@ -1220,41 +1218,40 @@ def replicate_workload(
             # synced host mask; additions are replayed into the packed words
             # so later classes see them.
             if len(seq_idx):
-                tu = time.perf_counter()
-                scheme.mask = packed.unpack()
-                fb_obj, fb_srv = _run_exact_fallback(
-                    scheme, cls, seq_idx, b, f_arr, capacity, epsilon, pol, load,
-                    stats, track_rm)
-                if fb_obj:
-                    add_pairs(np.asarray(fb_obj), np.asarray(fb_srv))
-                    if check_capacity:
-                        srv_load = _device_load(packed, f_d)
-                _tick(stats, "update", tu, device)
+                with _stage(stats, "update", device):
+                    scheme.mask = packed.unpack()
+                    fb_obj, fb_srv = _run_exact_fallback(
+                        scheme, cls, seq_idx, b, f_arr, capacity, epsilon, pol, load,
+                        stats, track_rm)
+                    if fb_obj:
+                        add_pairs(np.asarray(fb_obj), np.asarray(fb_srv))
+                        if check_capacity:
+                            srv_load = _device_load(packed, f_d)
 
     run_classes(ps, t_path)
     if routed_fn is not None:
-        tr = time.perf_counter()
-        _revalidate_routed(
-            routed_fn, ps, t_path, run_classes, stats, device,
-            index=PathIndex(np.asarray(ps.objects), packed.n_objects),
-        )
-        _tick(stats, "revalidate", tr, device)
+        with _stage(stats, "revalidate", device):
+            _revalidate_routed(
+                routed_fn, ps, t_path, run_classes, stats, device,
+                index=PathIndex(np.asarray(ps.objects), packed.n_objects),
+            )
 
     # single host readback of the packed words
-    scheme.mask = packed.unpack()
+    with obs.span("greedy.unpack"):
+        scheme.mask = packed.unpack()
 
     if pol is not None and policy_prune and stats.paths_processed:
         from repro_torch.core.replication import prune_scheme_replicas
 
-        tp = time.perf_counter()
-        stats.pruned_replicas, _ = prune_scheme_replicas(
-            scheme, pathset, t, policy=pol, f=f_arr, load=load, fused=fused,
-            device=device, stage_s=stats.stage_s,
-        )
-        if stats.pruned_replicas:
-            # removals are not monotone: the packed words are stale
-            packed = PackedScheme.from_mask(scheme.mask, scheme.shard, device)
-        _tick(stats, "prune", tp, device)
+        with obs.span("prune", stats.stage_s, "prune", device):
+            stats.pruned_replicas, _ = prune_scheme_replicas(
+                scheme, pathset, t, policy=pol, f=f_arr, load=load, fused=fused,
+                device=device, stage_s=stats.stage_s,
+            )
+            if stats.pruned_replicas:
+                # removals are not monotone: the packed words are stale
+                with obs.span("prune.repack"):
+                    packed = PackedScheme.from_mask(scheme.mask, scheme.shard, device)
 
     if res is not None:
         # after the prune: pruning decides on the non-resilient criterion,
@@ -1264,9 +1261,11 @@ def replicate_workload(
             epsilon, cap_d, eps_d, check_capacity, batch_size, max_candidates, stats,
             load, fused, track_rm,
         )
-        scheme.mask = packed.unpack()
+        with obs.span("greedy.unpack"):
+            scheme.mask = packed.unpack()
 
-    stats.replicas = scheme.replica_count()
+    with obs.span("greedy.unpack"):
+        stats.replicas = scheme.replica_count()
     stats.runtime_s = time.perf_counter() - t0
     if return_engine:
         return scheme, stats, LatencyEngine(scheme, packed=packed)
@@ -1379,12 +1378,11 @@ def replicate_delta(
         ):
             n_skip = 0
             if routed_fn is not None and cls.n_paths:
-                tg = time.perf_counter()
-                vec_idx, seq_idx, tables, counts, n_skip = _routed_class_filter(
-                    cls, b, h_all, routed_fn, max_candidates, device, stats=stats
-                )
-                stats.routed_skips += n_skip
-                _tick(stats, "gate", tg, device)
+                with _stage(stats, "gate", device):
+                    vec_idx, seq_idx, tables, counts, n_skip = _routed_class_filter(
+                        cls, b, h_all, routed_fn, max_candidates, device, stats=stats
+                    )
+                    stats.routed_skips += n_skip
             _obs_record_class(stats, b, len(vec_idx), len(seq_idx), counts, n_skip)
             srv_load, additions = _run_update_batches(
                 packed, cls.objects[vec_idx], cls.lengths[vec_idx], shard_d, f_d,
@@ -1409,28 +1407,26 @@ def replicate_delta(
                 if obs.enabled():
                     obs.REGISTRY.counter("repro.greedy.mask_syncs").inc()
             if len(seq_idx):
-                tu = time.perf_counter()
-                host = engine.scheme if engine.scheme is not None else engine.to_scheme()
-                fb_obj, fb_srv = _run_exact_fallback(
-                    host, cls, seq_idx, b, f_arr, capacity, epsilon, pol, load, stats,
-                    track_rm)
-                if fb_obj:
-                    add_pairs(np.asarray(fb_obj), np.asarray(fb_srv))
-                    if collect_additions:
-                        add_obj = np.concatenate([add_obj, np.asarray(fb_obj, np.int64)])
-                        add_srv = np.concatenate([add_srv, np.asarray(fb_srv, np.int64)])
-                    if check_capacity:
-                        srv_load = _device_load(packed, f_d)
-                _tick(stats, "update", tu, device)
+                with _stage(stats, "update", device):
+                    host = engine.scheme if engine.scheme is not None else engine.to_scheme()
+                    fb_obj, fb_srv = _run_exact_fallback(
+                        host, cls, seq_idx, b, f_arr, capacity, epsilon, pol, load, stats,
+                        track_rm)
+                    if fb_obj:
+                        add_pairs(np.asarray(fb_obj), np.asarray(fb_srv))
+                        if collect_additions:
+                            add_obj = np.concatenate([add_obj, np.asarray(fb_obj, np.int64)])
+                            add_srv = np.concatenate([add_srv, np.asarray(fb_srv, np.int64)])
+                        if check_capacity:
+                            srv_load = _device_load(packed, f_d)
 
     run_classes(ps, t_path)
     if routed_fn is not None:
-        tr = time.perf_counter()
-        _revalidate_routed(
-            routed_fn, ps, t_path, run_classes, stats, device,
-            index=PathIndex(np.asarray(ps.objects), packed.n_objects),
-        )
-        _tick(stats, "revalidate", tr, device)
+        with _stage(stats, "revalidate", device):
+            _revalidate_routed(
+                routed_fn, ps, t_path, run_classes, stats, device,
+                index=PathIndex(np.asarray(ps.objects), packed.n_objects),
+            )
 
     if res is not None:
         r_obj, r_srv = _enforce_resilience(

@@ -13,11 +13,11 @@ takes ``device`` (default ``"cuda"``) and resolves its backend from it.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.paths import PathSet
 from repro_torch.engine import LatencyEngine, pack_bool_mask
 from repro_torch.engine import backends as _backends
@@ -195,6 +195,24 @@ def path_latency_reference(path: list[int], mask: np.ndarray, shard: np.ndarray)
     return cost
 
 
+def _feasible_walk(pathset, scheme, path_lats, policy, device, backend) -> np.ndarray:
+    """``path_lats``, or h of every path by a transient engine (the spans
+    ``feasible.engine`` and ``feasible.walk``)."""
+    if path_lats is None:
+        with obs.span("feasible.engine"):
+            eng = LatencyEngine(scheme, backend=backend, device=device)
+        with obs.span("feasible.walk"):
+            path_lats = eng.path_latencies(pathset, policy=policy)
+    return path_lats
+
+
+def _slacks(pathset: PathSet, t, path_lats: np.ndarray) -> np.ndarray:
+    lq = query_latencies(pathset, None, path_lats=path_lats)
+    t_q = getattr(t, "t_q", t)
+    return (np.broadcast_to(np.asarray(t_q, np.int64), lq.shape) - lq).astype(np.int64)
+
+
+@obs.spanned("feasible")
 def query_slacks(
     pathset: PathSet,
     scheme: ReplicationScheme,
@@ -210,15 +228,12 @@ def query_slacks(
     :class:`~repro_torch.core.slo.SLOSpec`.  ``policy`` scores the walk
     under a hop-routing policy (ignored when ``path_lats`` is given).
     """
-    if path_lats is None:
-        path_lats = path_latencies(
-            pathset, scheme, backend=backend, policy=policy, device=device
-        )
-    lq = query_latencies(pathset, scheme, path_lats=path_lats)
-    t_q = getattr(t, "t_q", t)
-    return (np.broadcast_to(np.asarray(t_q, np.int64), lq.shape) - lq).astype(np.int64)
+    path_lats = _feasible_walk(pathset, scheme, path_lats, policy, device, backend)
+    with obs.span("feasible.reduce"):
+        return _slacks(pathset, t, path_lats)
 
 
+@obs.spanned("feasible")
 def is_latency_feasible(
     pathset: PathSet,
     scheme: ReplicationScheme,
@@ -234,10 +249,9 @@ def is_latency_feasible(
     feasibility under a hop-routing policy (``nearest_copy`` is the
     paper-faithful tighter reading).
     """
-    return bool(np.all(
-        query_slacks(pathset, scheme, t, path_lats=path_lats, policy=policy,
-                     device=device, backend=backend) >= 0
-    ))
+    path_lats = _feasible_walk(pathset, scheme, path_lats, policy, device, backend)
+    with obs.span("feasible.reduce"):
+        return bool(np.all(_slacks(pathset, t, path_lats) >= 0))
 
 
 _PRUNE_GROUP_MAX = 512  # candidates per batched prune step
@@ -347,20 +361,18 @@ def prune_scheme_replicas(
 
     device = resolve_device(device)
     pol = resolve_policy(policy)
-    engine = LatencyEngine(scheme, backend=backend, device=device)
+    with obs.span("prune.engine"):
+        engine = LatencyEngine(scheme, backend=backend, device=device)
     backend = engine.backend
     objects = np.asarray(pathset.objects, np.int32)
     lengths = np.asarray(pathset.lengths, np.int32)
-    t_path = normalize_path_budgets(t, pathset).astype(np.int64)
-    h0 = np.asarray(engine.path_latencies(pathset, policy=pol, load=load), np.int64)
-    if pathset.n_paths == 0 or np.any(h0 > t_path):
-        return 0, 0.0
-    fv = (
-        np.ones(scheme.n_objects, np.float64)
-        if f is None
-        else np.asarray(f, np.float64)
-    )
-    index = PathIndex(objects, scheme.n_objects)
+    with obs.span("prune.precheck"):
+        t_path = normalize_path_budgets(t, pathset).astype(np.int64)
+        h0 = np.asarray(engine.path_latencies(pathset, policy=pol, load=load), np.int64)
+        if pathset.n_paths == 0 or np.any(h0 > t_path):
+            return 0, 0.0
+    with obs.span("prune.index"):
+        index = PathIndex(objects, scheme.n_objects)
     affected = index.paths_of
     packed = engine.packed
     rank = _backends._load_vector(load if pol.uses_load else None, packed.words)
@@ -377,64 +389,66 @@ def prune_scheme_replicas(
         )
         return bool(np.all(h <= t_path[idx]))
 
-    repl = scheme.mask.copy()
-    repl[np.arange(scheme.n_objects), scheme.shard] = False
-    vs, ss = np.nonzero(repl)
-    order = np.argsort(-fv[vs], kind="stable")
+    with obs.span("prune.candidates"):
+        fv = (
+            np.ones(scheme.n_objects, np.float64)
+            if f is None
+            else np.asarray(f, np.float64)
+        )
+        repl = scheme.mask.copy()
+        repl[np.arange(scheme.n_objects), scheme.shard] = False
+        vs, ss = np.nonzero(repl)
+        order = np.argsort(-fv[vs], kind="stable")
     n_dropped = 0
     bytes_saved = 0.0
 
     if fused and backend == "torch" and len(order):
-        t0 = time.perf_counter()
-        groups = _independent_groups(order, vs, affected, pathset.n_paths, group_max)
-        t1 = time.perf_counter()
-        for group in groups:
-            gi = np.asarray(group)
-            rows = [affected(int(v)) for v in vs[gi]]
-            sizes = [len(r) for r in rows]
-            ridx = np.concatenate(rows)
-            bad = _prune_group_step(
-                packed.words,
-                to_device(vs[gi].astype(np.int32), device),
-                to_device(ss[gi].astype(np.int32), device),
-                to_device(objects[ridx], device), to_device(lengths[ridx], device),
-                to_device(t_path[ridx].astype(np.int32), device),
-                to_device(np.repeat(np.arange(len(gi), dtype=np.int32), sizes), device),
-                packed.shard, rank, pol, backend,
-            )
-            keep = ~to_host(bad)
-            if keep.any():
-                gk = gi[keep]
-                n_dropped += int(keep.sum())
-                bytes_saved += float(fv[vs[gk]].sum())
-                scheme.mask[vs[gk], ss[gk]] = False
-        if stage_s is not None:
-            t2 = time.perf_counter()
-            stage_s["prune_plan"] = stage_s.get("prune_plan", 0.0) + t1 - t0
-            stage_s["prune_steps"] = stage_s.get("prune_steps", 0.0) + t2 - t1
+        with obs.span("prune.plan", stage_s, "prune_plan"):
+            groups = _independent_groups(order, vs, affected, pathset.n_paths, group_max)
+        with obs.span("prune.steps", stage_s, "prune_steps"):
+            for group in groups:
+                gi = np.asarray(group)
+                rows = [affected(int(v)) for v in vs[gi]]
+                sizes = [len(r) for r in rows]
+                ridx = np.concatenate(rows)
+                bad = _prune_group_step(
+                    packed.words,
+                    to_device(vs[gi].astype(np.int32), device),
+                    to_device(ss[gi].astype(np.int32), device),
+                    to_device(objects[ridx], device), to_device(lengths[ridx], device),
+                    to_device(t_path[ridx].astype(np.int32), device),
+                    to_device(np.repeat(np.arange(len(gi), dtype=np.int32), sizes), device),
+                    packed.shard, rank, pol, backend,
+                )
+                keep = ~to_host(bad)
+                if keep.any():
+                    gk = gi[keep]
+                    n_dropped += int(keep.sum())
+                    bytes_saved += float(fv[vs[gk]].sum())
+                    scheme.mask[vs[gk], ss[gk]] = False
         return n_dropped, bytes_saved
 
     if backend != "reference" and len(order):
-        t0 = time.perf_counter()
-        keep = to_host(_backends.prune_sweep(
-            packed.words,
-            to_device(vs[order].astype(np.int32), device),
-            to_device(ss[order].astype(np.int32), device),
-            to_device(index.starts.astype(np.int32), device),
-            to_device(index.rows, device),
-            to_device(objects, device), to_device(lengths, device),
-            # h <= L - 1, so capping a budget at the int32 range keeps every verdict
-            to_device(np.minimum(t_path, np.iinfo(np.int32).max).astype(np.int32), device),
-            packed.shard, pol, rank, backend=backend,
-        ))
-        if stage_s is not None:
-            stage_s["prune_walk"] = stage_s.get("prune_walk", 0.0) + time.perf_counter() - t0
-        kept = order[keep]
-        scheme.mask[vs[kept], ss[kept]] = False
-        if len(kept):
-            # a running sum in candidate order (not numpy's pairwise sum):
-            # the per-candidate sweep's float, bit for bit
-            bytes_saved = float(np.add.accumulate(fv[vs[kept]])[-1])
+        with obs.span("prune.sweep", stage_s, "prune_walk"):
+            keep = to_host(_backends.prune_sweep(
+                packed.words,
+                to_device(vs[order].astype(np.int32), device),
+                to_device(ss[order].astype(np.int32), device),
+                to_device(index.starts.astype(np.int32), device),
+                to_device(index.rows, device),
+                to_device(objects, device), to_device(lengths, device),
+                # h <= L - 1, so capping a budget at the int32 range keeps every verdict
+                to_device(np.minimum(t_path, np.iinfo(np.int32).max).astype(np.int32),
+                          device),
+                packed.shard, pol, rank, backend=backend,
+            ))
+        with obs.span("prune.apply"):
+            kept = order[keep]
+            scheme.mask[vs[kept], ss[kept]] = False
+            if len(kept):
+                # a running sum in candidate order (not numpy's pairwise sum):
+                # the per-candidate sweep's float, bit for bit
+                bytes_saved = float(np.add.accumulate(fv[vs[kept]])[-1])
         return len(kept), bytes_saved
 
     for i in order:

@@ -10,6 +10,7 @@
                    (home_first | nearest_copy | queue_aware |
                    nearest_copy_dp)
   TRANSFER       — host<->device transfer accounting
+  PACK           — host bool-mask bytes through the packer
   PathStream     — streamed PathSet ingestion with peak-residency
                    accounting; consumed by
                    ``repro_torch.core.greedy.replicate_stream``
@@ -25,7 +26,7 @@
 from repro_torch.engine.backends import BACKENDS, resolve_backend
 from repro_torch.engine.engine import DevicePaths, LatencyEngine, RawScheme
 from repro_torch.engine.incremental import IncrementalEval, PathIndex
-from repro_torch.engine.packed import PackedScheme, pack_bool_mask, unpack_words
+from repro_torch.engine.packed import PACK, PackedScheme, pack_bool_mask, unpack_words
 from repro_torch.engine.resilience import (
     KResilient,
     case_word_mask,
@@ -61,6 +62,7 @@ __all__ = [
     "LatencyEngine",
     "NearestCopy",
     "NearestCopyDP",
+    "PACK",
     "POLICIES",
     "PackedScheme",
     "PathIndex",

@@ -30,9 +30,23 @@ def n_words(n_servers: int) -> int:
     return (n_servers + 31) // 32
 
 
+@dataclasses.dataclass
+class PackStats:
+    """Host bool-mask bytes (one per (object, server) cell) through
+    :func:`pack_bool_mask` and out of :func:`unpack_words`: each full pass
+    over a scheme's host mask shows as its n_objects x n_servers bytes."""
+
+    mask_bytes_packed: int = 0
+    mask_bytes_unpacked: int = 0
+
+
+PACK = PackStats()
+
+
 def pack_bool_mask(mask: np.ndarray) -> np.ndarray:
     """Host-side pack: bool [R, S] -> uint32 [R, ceil(S/32)]."""
     R, S = mask.shape
+    PACK.mask_bytes_packed += R * S
     W = n_words(S)
     padded = np.zeros((R, W * 32), dtype=bool)
     padded[:, :S] = mask
@@ -45,6 +59,7 @@ def unpack_words(words: np.ndarray, n_servers: int) -> np.ndarray:
     """Host-side unpack: uint32 (or int32) [R, W] -> bool [R, n_servers]."""
     words = np.asarray(words).view(np.uint32)
     R, W = words.shape
+    PACK.mask_bytes_unpacked += R * n_servers
     shifts = np.arange(32, dtype=np.uint32)
     bits = (words[:, :, None] >> shifts[None, None, :]) & np.uint32(1)
     return bits.reshape(R, W * 32)[:, :n_servers].astype(bool)
@@ -240,6 +255,8 @@ class PackedScheme:
 
 
 __all__ = [
+    "PACK",
+    "PackStats",
     "PackedScheme",
     "bit_value",
     "n_words",

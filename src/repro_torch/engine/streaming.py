@@ -36,6 +36,8 @@ class TransferStats:
     h2d_bytes: int = 0
     h2d_calls: int = 0
     d2h_bytes: int = 0
+    # readbacks: each one waits for the device
+    d2h_calls: int = 0
     # alignment-pad bytes appended by callers; they cross the bus but
     # carry no workload data
     padded_bytes: int = 0
@@ -49,6 +51,7 @@ class TransferStats:
         self.h2d_bytes = 0
         self.h2d_calls = 0
         self.d2h_bytes = 0
+        self.d2h_calls = 0
         self.padded_bytes = 0
         self.gathered_bytes = 0
 
@@ -57,6 +60,7 @@ class TransferStats:
             "h2d_bytes": self.h2d_bytes,
             "h2d_calls": self.h2d_calls,
             "d2h_bytes": self.d2h_bytes,
+            "d2h_calls": self.d2h_calls,
             "padded_bytes": self.padded_bytes,
             "gathered_bytes": self.gathered_bytes,
         }
@@ -130,6 +134,7 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     """Counted device->host readback (blocks until the value is ready)."""
     a = t.detach().cpu().numpy()
     TRANSFER.d2h_bytes += a.nbytes
+    TRANSFER.d2h_calls += 1
     return a
 
 

@@ -21,10 +21,16 @@ budget.  Three layers, one gate:
   burnrate  — :func:`attribute_burn` folds spans into per-tenant SLO
               burn rates with a per-server/per-hop blame decomposition
               (which hop's queue wait ate the budget)
+  spans     — :func:`span`: host intervals of the port's own layers on
+              the provisioning path (``greedy.*``, ``prune.*``,
+              ``feasible.*``) in the bounded log :data:`SPANS`, with the
+              transfer and mask-packing counters' changes over each, and
+              as ranges in a running ``torch.profiler`` trace
 
 Gate: the plane is **off by default** and costs nothing when off — hot
 paths check :func:`enabled` once (or a ``tracer is not None`` argument)
-and skip all recording.  ``REPRO_OBS=1`` in the environment enables it at
+and skip all recording; :func:`span` records while the plane is on or a
+``torch.profiler`` session is recording.  ``REPRO_OBS=1`` in the environment enables it at
 import; ``enable()`` / ``disable()`` toggle it at runtime.  Span tracing
 is pay-per-use regardless of the gate (pass a ``Tracer``).  The names
 the port records match the JAX package's (``repro.engine.inc_*``,
@@ -43,7 +49,18 @@ from repro_torch.obs.metrics import (
     MetricsRegistry,
     install_compile_hook,
 )
-from repro_torch.obs.trace import QueryTrace, Span, Tracer, chrome_trace
+from repro_torch.obs.trace import (
+    SPAN_COUNTERS,
+    SPANS,
+    ProgramSpan,
+    QueryTrace,
+    Span,
+    SpanLog,
+    Tracer,
+    chrome_trace,
+    span,
+    spanned,
+)
 from repro_torch.obs.burnrate import BurnReport, HopBlame, TenantBurn, attribute_burn
 
 __all__ = [
@@ -60,6 +77,12 @@ __all__ = [
     "QueryTrace",
     "Tracer",
     "chrome_trace",
+    "SPAN_COUNTERS",
+    "SPANS",
+    "ProgramSpan",
+    "SpanLog",
+    "span",
+    "spanned",
     "HopBlame",
     "TenantBurn",
     "BurnReport",

@@ -19,16 +19,41 @@ bound ``benchmarks/serve_tail.py`` asserts.
 Traces export as Chrome ``trace_event`` JSON (``chrome://tracing`` /
 Perfetto): servers are rendered as process lanes, so a hotspot server's
 pile-up is literally visible as a dense lane.
+
+Program spans (:func:`span`) are the other kind: host intervals of the
+port's own layers on the provisioning path (``greedy.*``, ``prune.*``,
+``feasible.*``), on the ``time.perf_counter`` clock.  A span records only
+while the plane is on (``repro_torch.obs.enabled()``) or a
+``torch.profiler`` session is recording; otherwise :func:`span` hands back
+one shared null context and reads no clock.  A recorded span keeps its
+name, start and end, its parent, the id of its root (one per top-level
+call), the seconds its children cover, and the change of the transfer and
+mask-packing counters over its interval, in the bounded log
+:data:`SPANS`; under a profiler it is also a range in the profiler's
+trace, on the profiler's clock.  A span given a ``stage_s`` dict books its
+seconds there whatever the gate says: the greedy's ``GreedyStats.stage_s``
+stages are these spans.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import itertools
 import json
+import threading
+import time
 from collections import deque
 
 import numpy as np
+import torch
 
-__all__ = ["Span", "QueryTrace", "Tracer", "chrome_trace"]
+from repro_torch import obs as _obs
+
+__all__ = [
+    "Span", "QueryTrace", "Tracer", "chrome_trace",
+    "SPAN_COUNTERS", "ProgramSpan", "SpanLog", "SPANS", "span", "spanned",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -340,15 +365,23 @@ class Tracer:
         return chrome_trace(self.traces, path)
 
 
-def chrome_trace(traces, path: str | None = None) -> dict:
-    """Chrome ``trace_event`` JSON for a set of :class:`QueryTrace`.
+def chrome_trace(traces, path: str | None = None, spans=()) -> dict:
+    """Chrome ``trace_event`` JSON for a set of :class:`QueryTrace` and of
+    :class:`ProgramSpan`.
 
     Servers map to processes (lanes), queries to threads within the lane
     that served them; each access emits a complete ("X") service slice,
-    preceded by a queue-wait slice when the access waited.  Load the file
-    in ``chrome://tracing`` or https://ui.perfetto.dev.
+    preceded by a queue-wait slice when the access waited.  Program spans
+    share one lane (process ``PROGRAM_PID``), a thread per top-level call,
+    in microseconds of ``time.perf_counter``.  Load the file in
+    ``chrome://tracing`` or https://ui.perfetto.dev.
     """
-    events: list[dict] = []
+    events: list[dict] = [
+        {"name": s.name, "cat": "program", "ph": "X", "ts": s.start * 1e6,
+         "dur": s.duration * 1e6, "pid": PROGRAM_PID, "tid": s.call,
+         "args": {"id": s.id, "parent": s.parent, "self_s": s.self_s, **s.counts}}
+        for s in spans
+    ]
     servers_seen: set[int] = set()
     for tr in traces:
         for s in tr.spans:
@@ -393,8 +426,197 @@ def chrome_trace(traces, path: str | None = None) -> dict:
                 "name": f"server-{pid}" if pid >= 0 else "no-alive-copy"
             },
         })
+    if spans:
+        events.append({"name": "process_name", "ph": "M", "pid": PROGRAM_PID,
+                       "args": {"name": "program spans"}})
     out = {"traceEvents": events, "displayTimeUnit": "ms"}
     if path is not None:
         with open(path, "w") as fh:
             json.dump(out, fh)
     return out
+
+
+# ---------------------------------------------------------------------------
+# program spans
+# ---------------------------------------------------------------------------
+#: counters a recorded span takes the change of over its interval: the
+#: engine's transfers (``engine.streaming.TRANSFER``) and the host mask
+#: bytes through the packer (``engine.packed.PACK``)
+SPAN_COUNTERS = ("h2d_bytes", "d2h_bytes", "d2h_calls", "mask_bytes_packed",
+                 "mask_bytes_unpacked")
+
+#: the Chrome trace's process lane of the program spans
+PROGRAM_PID = -2
+
+#: spans the log keeps before it drops the oldest
+SPAN_LOG_MAX = 1 << 16
+
+_NULL = contextlib.nullcontext()
+_PROFILER = torch.autograd.profiler
+# a range in the profiler's trace at function scope: a user-scope
+# ``record_function`` is mirrored onto the card's timeline as one device
+# event over all the kernels it launched, which a timeline reader would
+# count as device work
+_RANGE = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+
+
+def _counts() -> tuple:
+    from repro_torch.engine.packed import PACK  # lazy: the engine imports obs
+    from repro_torch.engine.streaming import TRANSFER
+
+    return (TRANSFER.h2d_bytes, TRANSFER.d2h_bytes, TRANSFER.d2h_calls,
+            PACK.mask_bytes_packed, PACK.mask_bytes_unpacked)
+
+
+@dataclasses.dataclass(frozen=True)
+class ProgramSpan:
+    """One closed program span (times in ``time.perf_counter`` seconds)."""
+
+    id: int
+    name: str
+    start: float
+    end: float
+    parent: int      # id of the enclosing span, -1 for a top-level one
+    call: int        # id of the top-level span this one belongs to
+    child_s: float   # seconds of the interval its child spans cover
+    counts: dict     # SPAN_COUNTERS' changes over the interval
+
+    @property
+    def duration(self) -> float:
+        return self.end - self.start
+
+    @property
+    def self_s(self) -> float:
+        return self.duration - self.child_s
+
+
+class _Open:
+    """A span being recorded: its place in the tree and its counters at
+    the start."""
+
+    __slots__ = ("id", "name", "parent", "call", "start", "child_s", "counts", "range")
+
+
+class SpanLog:
+    """The bounded in-memory log of closed program spans (oldest dropped
+    first) and the stack of open ones, per thread."""
+
+    def __init__(self, maxlen: int = SPAN_LOG_MAX):
+        self._closed: deque = deque(maxlen=maxlen)
+        self._ids = itertools.count()
+        self._local = threading.local()
+
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def open(self, name: str) -> _Open:
+        stack = self._stack()
+        o = _Open()
+        o.id, o.name = next(self._ids), name
+        o.parent, o.call = (stack[-1].id, stack[-1].call) if stack else (-1, o.id)
+        o.child_s, o.counts, o.range = 0.0, _counts(), None
+        if _RANGE is not None and _PROFILER._is_profiler_enabled:
+            o.range = _RANGE(name)
+            o.range.__enter__()
+        stack.append(o)
+        o.start = time.perf_counter()
+        return o
+
+    def close(self, o: _Open, end: float) -> None:
+        if o.range is not None:
+            o.range.__exit__(None, None, None)
+        stack = self._stack()
+        stack.remove(o)
+        if stack:
+            stack[-1].child_s += end - o.start
+        now = _counts()
+        self._closed.append(ProgramSpan(
+            o.id, o.name, o.start, end, o.parent, o.call, o.child_s,
+            {k: b - a for k, a, b in zip(SPAN_COUNTERS, o.counts, now)}))
+
+    def spans(self, t0: float = -np.inf, t1: float = np.inf) -> list[ProgramSpan]:
+        """The closed spans that start in ``[t0, t1)``, in closing order."""
+        return [s for s in self._closed if t0 <= s.start < t1]
+
+    def summary(self, t0: float = -np.inf, t1: float = np.inf) -> dict:
+        """Per name, over the spans that start in ``[t0, t1)``: ``total_s``,
+        ``self_s`` (less the seconds their children cover), ``count`` and
+        the sum of each of :data:`SPAN_COUNTERS`' changes."""
+        out: dict = {}
+        for s in self.spans(t0, t1):
+            row = out.setdefault(s.name, dict.fromkeys(
+                ("total_s", "self_s", "count", *SPAN_COUNTERS), 0))
+            row["total_s"] += s.duration
+            row["self_s"] += s.self_s
+            row["count"] += 1
+            for k, v in s.counts.items():
+                row[k] += v
+        return out
+
+    def chrome_trace(self, path: str | None = None) -> dict:
+        """The log as Chrome ``trace_event`` JSON (:func:`chrome_trace`)."""
+        return chrome_trace((), path, spans=list(self._closed))
+
+    def clear(self) -> None:
+        self._closed.clear()
+
+    def __len__(self) -> int:
+        return len(self._closed)
+
+
+#: the process's span log (what the benchmark's span readers read)
+SPANS = SpanLog()
+
+
+class _Span:
+    __slots__ = ("name", "stage_s", "key", "sync", "t0", "open")
+
+    def __init__(self, name, stage_s, key, sync):
+        self.name, self.stage_s, self.key, self.sync = name, stage_s, key, sync
+
+    def __enter__(self):
+        if _obs._enabled or _PROFILER._is_profiler_enabled:
+            self.open = SPANS.open(self.name)
+            self.t0 = self.open.start
+        else:
+            self.open = None
+            self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.sync is not None and self.sync.type == "cuda":
+            torch.cuda.synchronize(self.sync)
+        end = time.perf_counter()
+        if self.stage_s is not None:
+            self.stage_s[self.key] = self.stage_s.get(self.key, 0.0) + end - self.t0
+        if self.open is not None:
+            SPANS.close(self.open, end)
+        return False
+
+
+def span(name: str, stage_s: dict | None = None, key: str | None = None,
+         sync: torch.device | None = None):
+    """A context manager over one program span named ``name``.
+
+    Recorded in :data:`SPANS` while the plane is on or a profiler is
+    recording.  With ``stage_s`` it also adds its seconds to
+    ``stage_s[key]``, gate or no gate, after synchronising ``sync`` (a
+    CUDA device; None: host seconds only) at the close.  Without
+    ``stage_s`` and with the gate off it is one shared null context."""
+    if stage_s is None and not (_obs._enabled or _PROFILER._is_profiler_enabled):
+        return _NULL
+    return _Span(name, stage_s, key, sync)
+
+
+def spanned(name: str):
+    """Decorate a function to run each call inside :func:`span` ``(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap

@@ -175,7 +175,7 @@ def test_transfer_scope_isolates_and_restores():
     assert TRANSFER.h2d_bytes == base["h2d_bytes"] + 118
     TRANSFER.h2d_bytes -= 118
     TRANSFER.gathered_bytes -= 4
-    assert set(TRANSFER.snapshot()) == {"h2d_bytes", "h2d_calls", "d2h_bytes",
+    assert set(TRANSFER.snapshot()) == {"h2d_bytes", "h2d_calls", "d2h_bytes", "d2h_calls",
                                         "padded_bytes", "gathered_bytes"}
 
 
