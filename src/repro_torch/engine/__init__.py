@@ -10,7 +10,8 @@
                    (home_first | nearest_copy | queue_aware |
                    nearest_copy_dp)
   TRANSFER       — host<->device transfer accounting
-  PACK           — host bool-mask bytes through the packer
+  PACK           — whole bool-mask bytes packed / unpacked, and those
+                   whose bit work ran on the words' device
   PathStream     — streamed PathSet ingestion with peak-residency
                    accounting; consumed by
                    ``repro_torch.core.greedy.replicate_stream``

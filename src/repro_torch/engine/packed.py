@@ -32,12 +32,17 @@ def n_words(n_servers: int) -> int:
 
 @dataclasses.dataclass
 class PackStats:
-    """Host bool-mask bytes (one per (object, server) cell) through
-    :func:`pack_bool_mask` and out of :func:`unpack_words`: each full pass
-    over a scheme's host mask shows as its n_objects x n_servers bytes."""
+    """Host bool-mask bytes (one per (object, server) cell) packed into
+    words and unpacked from them: each full pass over a scheme's host mask
+    shows as its n_objects x n_servers bytes, whichever side does the bit
+    work (:func:`pack_bool_mask` / :func:`unpack_words` on the host,
+    :meth:`PackedScheme.from_mask` / :meth:`PackedScheme.unpack` on the
+    words' device).  ``mask_bytes_on_device`` counts the bytes of those
+    passes done on the words' device."""
 
     mask_bytes_packed: int = 0
     mask_bytes_unpacked: int = 0
+    mask_bytes_on_device: int = 0
 
 
 PACK = PackStats()
@@ -75,6 +80,27 @@ def unpack_bits(words: torch.Tensor) -> torch.Tensor:
     shifts = torch.arange(32, dtype=torch.int32, device=words.device)
     bits = (words[..., None] >> shifts) & 1
     return bits.reshape(*words.shape[:-1], words.shape[-1] * 32).bool()
+
+
+def pack_mask_bits(mask: torch.Tensor, words: torch.Tensor) -> None:
+    """OR bool ``mask [R, S]`` into int32 ``words [R, ceil(S/32)]`` in place,
+    on their device: one round per bit position ``b < 32``, over the
+    columns ``b, b + 32, ...`` at once, so no temporary is larger than the
+    words (the host packer widens every cell to 32 lanes)."""
+    S = mask.shape[1]
+    for b in range(min(S, 32)):
+        cols = mask[:, b::32]
+        words[:, : cols.shape[1]].bitwise_or_(cols.to(torch.int32).mul_(bit_value(b)))
+
+
+def unpack_mask_bits(words: torch.Tensor, n_servers: int) -> torch.Tensor:
+    """int32 ``words [R, W]`` -> bool ``[R, n_servers]`` on their device, one
+    round per bit position (the inverse of :func:`pack_mask_bits`)."""
+    mask = torch.empty((words.shape[0], n_servers), dtype=torch.bool, device=words.device)
+    for b in range(min(n_servers, 32)):
+        cols = mask[:, b::32]
+        cols.copy_((words[:, : cols.shape[1]] & bit_value(b)) != 0)
+    return mask
 
 
 def test_bits(words: torch.Tensor, objects: torch.Tensor, servers: torch.Tensor):
@@ -193,11 +219,19 @@ class PackedScheme:
 
     @classmethod
     def from_mask(cls, mask: np.ndarray, shard: np.ndarray, device=None) -> "PackedScheme":
-        """One host-side pack + one (32x smaller) transfer."""
+        """One upload of the bool mask, packed into words on the device."""
+        device = resolve_device(device)
+        mask = np.asarray(mask, dtype=bool)
         n, S = mask.shape
-        host = np.zeros((n + 1, n_words(S)), dtype=np.uint32)
-        host[:n] = pack_bool_mask(np.asarray(mask, dtype=bool))
-        return cls.from_numpy(host, shard, device, n_servers=S)
+        PACK.mask_bytes_packed += n * S
+        PACK.mask_bytes_on_device += n * S
+        words = torch.zeros((n + 1, n_words(S)), dtype=torch.int32, device=device)
+        pack_mask_bits(to_device(mask, device), words[:n])
+        return cls(
+            words=words,
+            shard=to_device(np.asarray(shard, dtype=np.int32), device),
+            n_servers=S,
+        )
 
     @classmethod
     def from_sharding(cls, shard: np.ndarray, n_servers: int, device=None) -> "PackedScheme":
@@ -241,8 +275,12 @@ class PackedScheme:
             cell &= ~bit_value(s % 32)
 
     def unpack(self) -> np.ndarray:
-        """Host readback of the full bool mask (one d2h of packed words)."""
-        return unpack_words(to_host(self.words[: self.n_objects]), self.n_servers)
+        """Host copy of the full bool mask: unpacked on the device, then one
+        readback.  The array is the caller's to write."""
+        n, S = self.n_objects, self.n_servers
+        PACK.mask_bytes_unpacked += n * S
+        PACK.mask_bytes_on_device += n * S
+        return to_host(unpack_mask_bits(self.words[:n], S))
 
     def storage_per_server(self, f: np.ndarray | None = None) -> np.ndarray:
         n = self.n_objects
@@ -261,11 +299,13 @@ __all__ = [
     "bit_value",
     "n_words",
     "pack_bool_mask",
+    "pack_mask_bits",
     "popcount",
     "scatter_clear_pairs",
     "scatter_or_pairs",
     "storage_per_server",
     "test_bits",
     "unpack_bits",
+    "unpack_mask_bits",
     "unpack_words",
 ]

@@ -441,9 +441,10 @@ def chrome_trace(traces, path: str | None = None, spans=()) -> dict:
 # ---------------------------------------------------------------------------
 #: counters a recorded span takes the change of over its interval: the
 #: engine's transfers (``engine.streaming.TRANSFER``) and the host mask
-#: bytes through the packer (``engine.packed.PACK``)
+#: bytes packed and unpacked, and of those the bytes whose bit work ran on
+#: the words' device (``engine.packed.PACK``)
 SPAN_COUNTERS = ("h2d_bytes", "d2h_bytes", "d2h_calls", "mask_bytes_packed",
-                 "mask_bytes_unpacked")
+                 "mask_bytes_unpacked", "mask_bytes_on_device")
 
 #: the Chrome trace's process lane of the program spans
 PROGRAM_PID = -2
@@ -465,7 +466,7 @@ def _counts() -> tuple:
     from repro_torch.engine.streaming import TRANSFER
 
     return (TRANSFER.h2d_bytes, TRANSFER.d2h_bytes, TRANSFER.d2h_calls,
-            PACK.mask_bytes_packed, PACK.mask_bytes_unpacked)
+            PACK.mask_bytes_packed, PACK.mask_bytes_unpacked, PACK.mask_bytes_on_device)
 
 
 @dataclasses.dataclass(frozen=True)

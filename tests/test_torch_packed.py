@@ -3,13 +3,18 @@
 After the same add/remove sequence — bits 31 and 63, duplicate pairs and
 negative pairs included — the port's words viewed as uint32 equal
 ``repro.engine.PackedScheme.words`` exactly, sacrificial row included.
+``PackedScheme.from_mask`` and ``.unpack`` do their bit work on the
+words' device and equal the host packer (``pack_bool_mask`` /
+``unpack_words``) bit for bit, on the CPU and on the card.
 """
 import torch_threads  # noqa: F401  (one torch thread per test worker)
 import numpy as np
 import pytest
+import torch
 
 from repro.engine import PackedScheme as JPacked
 from repro_torch.engine import PackedScheme as TPacked
+from repro_torch.engine.packed import n_words, pack_bool_mask, unpack_words
 from repro_torch.engine.packed import test_bits as t_test_bits
 from repro_torch.engine.streaming import to_device
 
@@ -92,3 +97,89 @@ def test_set_bit_toggles_one_cell():
     t.set_bit(1, 63, False)
     t.set_bit(2, 31, False)
     assert np.array_equal(t.numpy_words(), before)
+
+
+PACK_SERVERS = [1, 6, 16, 31, 32, 33, 64, 128]
+PACK_ROWS = [0, 1, 37, 1000]
+PACK_KINDS = ["random", "sign", "full"]
+
+
+def _pack_mask(R, S, kind):
+    """A random mask; the same with every bit 31 of every word set (the
+    int32 sign bit); or every bit set (bits past S must stay clear)."""
+    if kind == "full":
+        return np.ones((R, S), bool)
+    mask = np.random.default_rng(R * 1000 + S).random((R, S)) < 0.4
+    if kind == "sign":
+        mask[:, 31::32] = True
+    return mask
+
+
+def _check_pack_round_trip(mask, device):
+    R, S = mask.shape
+    packed = TPacked.from_mask(mask, np.zeros(R, np.int32), device=device)
+    assert packed.device.type == torch.device(device).type
+    words = packed.numpy_words()
+    assert words.shape == (R + 1, n_words(S))
+    assert np.array_equal(words[:R], pack_bool_mask(mask))
+    assert not words[R].any()                               # the sacrificial row
+    in_use = pack_bool_mask(np.ones((1, S), bool))[0]
+    assert not (words & ~in_use).any()                      # no bit past S
+    got = packed.unpack()
+    assert got.dtype == bool and got.shape == (R, S)
+    assert np.array_equal(got, unpack_words(words[:R], S))
+    assert np.array_equal(got, mask)
+
+
+@pytest.mark.parametrize("kind", PACK_KINDS)
+@pytest.mark.parametrize("R", PACK_ROWS)
+@pytest.mark.parametrize("S", PACK_SERVERS)
+def test_from_mask_and_unpack_equal_the_host_packer(S, R, kind):
+    _check_pack_round_trip(_pack_mask(R, S, kind), CPU)
+
+
+@pytest.mark.parametrize("layout", ["strided", "transposed", "uint8", "int64", "float"])
+def test_from_mask_takes_any_mask_layout_and_dtype(layout):
+    rng = np.random.default_rng(5)
+    mask = rng.random((75, 40)) < 0.4
+    given = {
+        "strided": lambda: np.repeat(np.repeat(mask, 2, 0), 3, 1)[::2, ::3],
+        "transposed": lambda: np.ascontiguousarray(mask.T).T,
+        "uint8": lambda: mask.astype(np.uint8),
+        "int64": lambda: mask.astype(np.int64) * 7,
+        "float": lambda: mask * 0.5,
+    }[layout]()
+    assert np.array_equal(given != 0, mask)
+    assert layout not in ("strided", "transposed") or not given.flags.c_contiguous
+    packed = TPacked.from_mask(given, np.zeros(75, np.int32), device=CPU)
+    assert np.array_equal(packed.numpy_words()[:75], pack_bool_mask(mask))
+    assert np.array_equal(packed.unpack(), mask)
+
+
+def test_unpack_returns_a_writable_mask_of_its_own():
+    """Callers (the prune's write-back, ``replicate_delta``) write into the
+    unpacked mask in place: it is writable and shares no memory with the
+    words or with another unpack, and writing it leaves the words alone."""
+    mask = np.random.default_rng(6).random((50, 9)) < 0.4
+    packed = TPacked.from_mask(mask, np.zeros(50, np.int32), device=CPU)
+    got, again = packed.unpack(), packed.unpack()
+    assert got.flags.writeable and got.flags.c_contiguous
+    assert not np.shares_memory(got, again)
+    assert not np.shares_memory(got, packed.words.numpy())
+    got[:] = ~got
+    assert np.array_equal(again, mask) and np.array_equal(packed.unpack(), mask)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the pack's card route)")
+    return "cuda"
+
+
+@pytest.mark.cuda
+def test_from_mask_and_unpack_equal_the_host_packer_on_the_card(cuda):
+    for S in PACK_SERVERS:
+        for R in PACK_ROWS:
+            for kind in PACK_KINDS:
+                _check_pack_round_trip(_pack_mask(R, S, kind), cuda)

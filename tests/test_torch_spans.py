@@ -8,7 +8,9 @@ plus the children's time is each span's duration; the spans that book
 ``GreedyStats.stage_s`` leave its keys and values as the stages'; with
 the gate off nothing is recorded and no clock is read; under
 ``torch.profiler`` every span is a range of the trace inside the caller's;
-the readback and mask-packing counters advance by what each call does.
+the readback and mask-packing counters advance by what each call does,
+and every whole-mask pack and unpack of the drive runs on the words'
+device, with the masks the host packer gives.
 """
 import torch_threads  # noqa: F401  (one torch thread per test worker)
 
@@ -20,8 +22,8 @@ from torch.profiler import ProfilerActivity, profile, record_function
 import repro_torch.core as T
 from conftest import random_workload
 from repro_torch import obs
-from repro_torch.engine import PACK, TRANSFER, LatencyEngine
-from repro_torch.engine.packed import pack_bool_mask, unpack_words
+from repro_torch.engine import PACK, TRANSFER, LatencyEngine, PackedScheme
+from repro_torch.engine.packed import n_words, pack_bool_mask, unpack_words
 from repro_torch.engine.streaming import to_host
 from repro_torch.obs import trace as obs_trace
 
@@ -217,12 +219,78 @@ def test_counters_advance_by_what_the_calls_do(gate_on):
     assert got["engine"]["mask_bytes_packed"] == 37 * 9
     assert got["engine"]["h2d_bytes"] > 0
     assert got["readback"]["d2h_calls"] == 2
-    assert got["readback"]["d2h_bytes"] == 5 * 4 + 37 * 4  # the words but the sacrificial row
+    assert got["readback"]["d2h_bytes"] == 5 * 4 + 37 * 9  # the bool mask, a byte a cell
     assert got["readback"]["mask_bytes_unpacked"] == 37 * 9
     with TRANSFER.scope():
         to_host(torch.zeros(1))
         assert TRANSFER.d2h_calls == 1
     assert TRANSFER.d2h_calls == calls + 3
+
+
+def test_device_bytes_advance_by_each_pack_and_unpack(gate_on):
+    rng = np.random.default_rng(2)
+    mask = rng.random((37, 40)) < 0.3
+    shard = rng.integers(0, 40, 37).astype(np.int32)
+    before = PACK.mask_bytes_on_device
+    with obs.span("from_mask"):
+        packed = PackedScheme.from_mask(mask, shard, CPU)
+    assert PACK.mask_bytes_on_device == before + 37 * 40
+    with obs.span("unpack"):
+        assert np.array_equal(packed.unpack(), mask)
+    assert PACK.mask_bytes_on_device == before + 2 * 37 * 40
+    with obs.span("host"):
+        unpack_words(pack_bool_mask(mask), 40)
+    assert PACK.mask_bytes_on_device == before + 2 * 37 * 40
+    got = {s.name: s.counts for s in gate_on.spans()}
+    assert set(obs.SPAN_COUNTERS) <= set(got["host"])
+    assert got["from_mask"]["mask_bytes_on_device"] == got["from_mask"]["mask_bytes_packed"] \
+        == 37 * 40
+    assert got["unpack"]["mask_bytes_on_device"] == got["unpack"]["mask_bytes_unpacked"] \
+        == 37 * 40
+    assert got["host"]["mask_bytes_on_device"] == 0
+    assert got["host"]["mask_bytes_packed"] == got["host"]["mask_bytes_unpacked"] == 37 * 40
+
+
+def _host_packer(monkeypatch):
+    """``PackedScheme.from_mask`` / ``.unpack`` as they were before the bit
+    work moved to the words' device: :func:`pack_bool_mask` and an upload
+    of the words, a readback of the words and :func:`unpack_words`."""
+
+    def from_mask(cls, mask, shard, device=None):
+        n, S = mask.shape
+        host = np.zeros((n + 1, n_words(S)), dtype=np.uint32)
+        host[:n] = pack_bool_mask(np.asarray(mask, dtype=bool))
+        return cls.from_numpy(host, shard, device, n_servers=S)
+
+    def unpack(self):
+        return unpack_words(to_host(self.words[: self.n_objects]), self.n_servers)
+
+    monkeypatch.setattr(PackedScheme, "from_mask", classmethod(from_mask))
+    monkeypatch.setattr(PackedScheme, "unpack", unpack)
+
+
+def test_a_drive_packs_and_unpacks_on_the_device_only(monkeypatch, kernel_route):
+    """Every whole-mask pass of a fused nearest_copy drive and its check
+    does its bit work on the device: the device bytes equal the packed
+    plus the unpacked, and the scheme equals the host packer's."""
+    ps, shard, f = _workload()
+    counts = lambda: (PACK.mask_bytes_packed, PACK.mask_bytes_unpacked,  # noqa: E731
+                      PACK.mask_bytes_on_device)
+    before = counts()
+    scheme, stats, ok = _drive(ps, shard, f)
+    packed, unpacked, on_device = (b - a for a, b in zip(before, counts()))
+    assert ok and stats.pruned_replicas > 0
+    assert packed > 0 and unpacked > 0
+    assert on_device == packed + unpacked
+    with monkeypatch.context() as m:
+        _host_packer(m)
+        before = counts()
+        want, want_stats, want_ok = _drive(ps, shard, f)
+        host = [b - a for a, b in zip(before, counts())]
+    assert host == [packed, unpacked, 0]
+    assert want_ok and np.array_equal(scheme.mask, want.mask)
+    assert stats.replicas == want_stats.replicas
+    assert stats.pruned_replicas == want_stats.pruned_replicas
 
 
 def test_the_log_is_bounded_filtered_and_exported(gate_on):

@@ -264,5 +264,5 @@ def test_stream_latencies_reuses_a_resident_engine(summary_case):
                                         policy="nearest_copy", device="cpu")]
         built = tr.h2d_bytes
     assert all(np.array_equal(h, w) for h, w in zip(again, want))
-    # one pack and upload of the scheme: its words and its shard
-    assert built == direct + (eng.packed.words.numel() + eng.packed.shard.numel()) * 4
+    # one upload of the scheme, packed on the device: its bool mask and its shard
+    assert built == direct + c["scheme_t"].mask.size + eng.packed.shard.numel() * 4
